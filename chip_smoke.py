@@ -4,17 +4,27 @@
 Phases, each printing one line; any failure raises and exits non-zero:
   1. require a CUDA card; print torch/CUDA versions and the card's name and
      power limit (nvidia-smi);
-  2. build the Shi-Tomasi kernel (csrc/shi_tomasi.cu, nvcc, sm_90a);
-  3. hold the kernel against its plain PyTorch version on the card: random
-     and constant 384x1280 frames (the constant one ties every cell of the
+  2. build both kernels (csrc/shi_tomasi.cu = K1, csrc/mask_combine.cu = K2;
+     one nvcc per source, started together, sm_90a);
+  3. hold K1 against its plain PyTorch version on the card: random and
+     constant 384x1280 frames (the constant one ties every cell of the
      per-cell argmax) and a (3, 384, 1280) batch, each image of which must
-     equal its single-image result; median times of both versions;
-  4. run the fused SLAM step (frontend -> graph update -> decoupled hybrid
-     LM) at bench_config() over the 10 bench frames rendered on the card,
-     count the kernel's launches, and hold the camera poses to the
-     renderer's ground truth and poses + object motions to the JAX
-     reference outputs in dynosam_tpu_torch/testdata/bench_ref_10f.npz;
-  5. print the kernel table and the contract line.
+     equal its single-image result; median device times of both versions;
+  4. hold K2 against its plain version: random (32, 96x160, 32) inputs, a
+     ragged K=5 over 37x61 prototype pixels, and the real prototypes and
+     coefficients of the detector scene's frame 0; median device times;
+  5. bench path: the fused SLAM step (frontend -> window advance -> graph
+     update -> decoupled hybrid LM) at bench_config() over 20 bench frames
+     rendered on the card (the 10-frame window advances 10 times); K1 must
+     launch once per frame; camera poses held to the renderer's ground truth
+     and poses + object motions to the JAX reference
+     dynosam_tpu_torch/testdata/bench_ref_20f.npz;
+  6. detector path: 24 frames of detector_scene() through YOLOv8-seg (K2)
+     -> ByteTrack relabelling -> fused step at detector_config(); K1 and K2
+     must each launch once per frame; detections, label images, object ids,
+     camera poses and object motions held to
+     dynosam_tpu_torch/testdata/det_ref_24f.npz;
+  7. print the kernel table and the contract line.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -28,12 +38,25 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-NUM_FRAMES = 10
-KERNEL_RTOL = 1e-5            # max |kernel - plain| <= KERNEL_RTOL * max |response|
+BENCH_FRAMES = 20
+DET_FRAMES = 24
+KERNEL_RTOL = 1e-5            # K1: max |kernel - plain| <= KERNEL_RTOL * max |response|
+K2_ATOL = 1e-5                # K2: max |kernel - plain| on sigmoid outputs in (0, 1)
 GT_TRANS_M, GT_ROT_RAD = 0.05, 0.01        # tests/test_pipeline.py bounds
 REF_TRANS_M, REF_ROT_RAD = 0.01, 1e-3      # against the JAX reference
 REF_MOTION_TRANS_M = 0.05
+# detector path against the JAX reference. Largest over the 24 frames, torch
+# on the CPU against JAX on the CPU read boxes 3.97e-4 px, scores 3.02e-5 and
+# every label pixel equal; the H100 read 7.93e-4 px, 6.65e-5 and every pixel
+# equal. The card's sums (cuDNN convolutions, cuBLAS) already double the CPU
+# error, and another cuDNN algorithm reorders every convolution's sum again,
+# so each bound sits well above the card's reading: boxes 63x the card's
+# (126x the CPU's), scores 15x (33x), labels allow 1 pixel in 1000.
+DET_BOX_PX = 0.05             # box corners of matched valid detections
+DET_SCORE = 1e-3              # their scores
+DET_LABEL_AGREE = 0.999       # share of label-image pixels equal, per frame
 TIMING_RUNS = 50
 SPIN_CYCLES = 10_000_000      # ~5 ms of GPU clock, longer than any enqueue here
 
@@ -42,13 +65,13 @@ def say(msg):
     print(f"[smoke] {msg}", flush=True)
 
 
-def median_ms(torch, fn, x, spin, runs=TIMING_RUNS):
+def median_ms(torch, fn, args, spin, runs=TIMING_RUNS):
     """Median time of one call over `runs` runs, each bracketed by CUDA
     events. With `spin`, a spin kernel queued first keeps the card busy
     while the host enqueues the call, so the events time the call's kernels
     alone; without it they also time its launch from Python."""
     for _ in range(5):
-        fn(x)
+        fn(*args)
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
@@ -56,14 +79,14 @@ def median_ms(torch, fn, x, spin, runs=TIMING_RUNS):
         if spin:
             torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn(x)
+        fn(*args)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
-def check_kernel(torch, seed):
+def check_k1(torch, seed):
     from dynosam_tpu_torch.frontend.tracker import _cell_reduce
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
 
@@ -77,7 +100,7 @@ def check_kernel(torch, seed):
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
         if not err <= KERNEL_RTOL * max(scale, 1e-30):
-            raise AssertionError(f"kernel vs plain: max abs err {err} at max |response| {scale}")
+            raise AssertionError(f"K1 vs plain: max abs err {err} at max |response| {scale}")
         return out, ref, err
 
     _, _, err_rand = compare(torch.rand((H, W), generator=gen, device="cuda"))
@@ -96,16 +119,67 @@ def check_kernel(torch, seed):
             raise AssertionError(f"batched kernel image {b} differs from its single-image result")
 
     img = torch.rand((H, W), generator=gen, device="cuda")
-    ms = median_ms(torch, st.shi_tomasi_response, img, spin=True)
-    plain_ms = median_ms(torch, st.shi_tomasi_response_reference, img, spin=True)
-    call_ms = median_ms(torch, st.shi_tomasi_response, img, spin=False)
-    plain_call_ms = median_ms(torch, st.shi_tomasi_response_reference, img, spin=False)
+    ms = median_ms(torch, st.shi_tomasi_response, (img,), spin=True)
+    plain_ms = median_ms(torch, st.shi_tomasi_response_reference, (img,), spin=True)
+    call_ms = median_ms(torch, st.shi_tomasi_response, (img,), spin=False)
+    plain_call_ms = median_ms(torch, st.shi_tomasi_response_reference, (img,), spin=False)
     max_err = max(err_rand, err_const, err_batch)
     say(f"K1 matches plain: max abs err random {err_rand:.3e}, constant {err_const:.3e}, "
         f"batch {err_batch:.3e}; ties equal; batch images equal single-image results; "
         f"median device time {ms:.4f} ms kernel vs {plain_ms:.4f} ms plain at {H}x{W}; "
         f"with the launch from Python {call_ms:.4f} ms vs {plain_call_ms:.4f} ms")
     return max_err, ms, plain_ms
+
+
+def check_k2(torch, seed):
+    from dynosam_tpu_torch.bench_config import detector_config, detector_scene
+    from dynosam_tpu_torch.nn import postprocess as pp
+    from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
+    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def compare(proto, coef):
+        out = mc.mask_combine(proto, coef)
+        ref = mc.mask_combine_reference(proto, coef)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not err <= K2_ATOL:
+            raise AssertionError(f"K2 vs plain at {tuple(coef.shape)} x {tuple(proto.shape)}: "
+                                 f"max abs err {err}")
+        return err
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    proto, coef = randn(96, 160, 32), randn(32, 32)
+    err_rand = compare(proto, coef)
+    err_ragged = compare(randn(37, 61, 32), randn(5, 32))
+
+    # the real inputs: prototypes and the NMS survivors' coefficients of the
+    # detector scene's frame 0
+    _, intr = detector_config()
+    rgb = detector_scene(intr, 1, device="cuda").frame(0).rgb
+    engine = YoloV8DetectorEngine(device="cuda")
+    with torch.no_grad():
+        out = engine.model(rgb[None])
+        single = {k: [a[0] for a in v] if isinstance(v, list) else v[0] for k, v in out.items()}
+        det = pp.nms(*pp.decode_all(single), max_detections=engine.max_detections,
+                     score_threshold=engine.score_threshold, iou_threshold=engine.iou_threshold,
+                     class_ids=engine.class_ids)
+    real_proto, real_coef = single["proto"].contiguous(), det.mcoef.contiguous()
+    err_real = compare(real_proto, real_coef)
+
+    ms = median_ms(torch, mc.mask_combine, (proto, coef), spin=True)
+    plain_ms = median_ms(torch, mc.mask_combine_reference, (proto, coef), spin=True)
+    call_ms = median_ms(torch, mc.mask_combine, (proto, coef), spin=False)
+    plain_call_ms = median_ms(torch, mc.mask_combine_reference, (proto, coef), spin=False)
+    say(f"K2 matches plain: max abs err random (32, 96x160, 32) {err_rand:.3e}, ragged "
+        f"(5, 37x61, 32) {err_ragged:.3e}, detector frame 0 {tuple(real_coef.shape)} x "
+        f"{tuple(real_proto.shape)} {err_real:.3e} (bound {K2_ATOL}); median device time "
+        f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain at (32, 96x160, 32); with the "
+        f"launch from Python {call_ms:.4f} ms vs {plain_call_ms:.4f} ms")
+    return max(err_rand, err_ragged, err_real), ms, plain_ms
 
 
 def rot_trans_err(torch, lie, A, B):
@@ -116,53 +190,38 @@ def rot_trans_err(torch, lie, A, B):
     return rot, trans
 
 
-def run_main_path(torch, seed, ref_path, device="cuda"):
-    import numpy as np
-
-    from dynosam_tpu_torch.bench_config import bench_config, bench_scene
-    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
-    from dynosam_tpu_torch.parallel.batched import init_pipeline_state, make_fused_step
-    from dynosam_tpu_torch.utils import lie
-
-    cfg, intr = bench_config()
-    scene = bench_scene(intr, NUM_FRAMES, device=device)
-    frames = scene.frames()
-    gen = torch.Generator(device=device).manual_seed(seed)
-    step = make_fused_step(cfg, intr, gen)
-    state = init_pipeline_state(cfg, device)
+def _drive(torch, step, state, frames, device, per_frame=None):
+    """Run the step over the frames; -> (outputs, host seconds per frame)."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    sync()
-
-    st.shi_tomasi_response.launches = 0
     outs, times = [], []
-    for k in range(NUM_FRAMES):
+    for fr in frames:
+        sync()
         t0 = time.perf_counter()
-        state, out = step(state, frames[k])
+        if per_frame is not None:
+            fr = per_frame(fr)
+        state, out = step(state, fr)
         sync()
         times.append(time.perf_counter() - t0)
         outs.append(out)
-    launches = st.shi_tomasi_response.launches
-    if launches != NUM_FRAMES:
-        raise AssertionError(f"K1 launched {launches} times over {NUM_FRAMES} frames")
-
     for k, out in enumerate(outs):
         for name, v in out.items():
             if v.is_floating_point() and not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"frame {k}: non-finite {name}")
         if out["X_world_cam"].device.type != device:
             raise AssertionError("main path left the card")
+    return outs, times
+
+
+def compare_to_reference(torch, lie, outs, ref, device):
+    """Camera poses and object motions against a JAX reference file ->
+    (pose trans, pose rot, motions compared, motion err) maxima."""
+    import numpy as np
 
     X = torch.stack([o["X_world_cam"] for o in outs])
-    rot, trans = rot_trans_err(torch, lie, X, scene.scn.X_gt)
-    if float(trans.max()) > GT_TRANS_M or float(rot.max()) > GT_ROT_RAD:
-        raise AssertionError(f"camera vs ground truth: {float(trans.max())} m, {float(rot.max())} rad")
-
-    ref = np.load(ref_path)
     X_ref = torch.as_tensor(ref["X_world_cam"], device=device)
-    rot_r, trans_r = rot_trans_err(torch, lie, X, X_ref)
-    if float(trans_r.max()) > REF_TRANS_M or float(rot_r.max()) > REF_ROT_RAD:
-        raise AssertionError(f"camera vs JAX reference: {float(trans_r.max())} m, {float(rot_r.max())} rad")
-
+    rot, trans = rot_trans_err(torch, lie, X, X_ref)
+    if float(trans.max()) > REF_TRANS_M or float(rot.max()) > REF_ROT_RAD:
+        raise AssertionError(f"camera vs JAX reference: {float(trans.max())} m, {float(rot.max())} rad")
     ids = torch.stack([o["object_ids"] for o in outs]).cpu().numpy()
     valid = torch.stack([o["object_motion_valid"] for o in outs]).cpu().numpy()
     H = torch.stack([o["object_motions"] for o in outs]).cpu().numpy()
@@ -173,23 +232,110 @@ def run_main_path(torch, seed, ref_path, device="cuda"):
     mot_err = np.linalg.norm(H[..., :3, 3] - ref["object_motions"][..., :3, 3], axis=-1)[both]
     if float(mot_err.max()) > REF_MOTION_TRANS_M:
         raise AssertionError(f"object motion vs JAX reference: {float(mot_err.max())} m")
+    return float(trans.max()), float(rot.max()), n_motions, float(mot_err.max())
 
-    first_ms = times[0] * 1e3
-    steady_ms = statistics.median(times[1:]) * 1e3
-    say(f"main path: {NUM_FRAMES} frames of bench_config on {frames[0].depth.device}, "
-        f"K1 launches {launches}; camera vs GT max {float(trans.max()):.2e} m / "
-        f"{float(rot.max()):.2e} rad; vs JAX ref max {float(trans_r.max()):.2e} m / "
-        f"{float(rot_r.max()):.2e} rad; {n_motions} object motions vs JAX ref max "
-        f"{float(mot_err.max()):.2e} m; first frame {first_ms:.1f} ms, "
-        f"median frames 2-{NUM_FRAMES} {steady_ms:.2f} ms")
+
+def run_bench_path(torch, seed, ref_path, device="cuda"):
+    import numpy as np
+
+    from dynosam_tpu_torch.bench_config import bench_config, bench_scene
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.parallel.batched import init_pipeline_state, make_fused_step
+    from dynosam_tpu_torch.utils import lie
+
+    cfg, intr = bench_config()
+    scene = bench_scene(intr, BENCH_FRAMES, device=device)
+    frames = scene.frames()
+    step = make_fused_step(cfg, intr, torch.Generator(device=device).manual_seed(seed))
+    state = init_pipeline_state(cfg, device)
+
+    st.shi_tomasi_response.launches = 0
+    outs, times = _drive(torch, step, state, frames, device)
+    launches = st.shi_tomasi_response.launches
+    if device == "cuda" and launches != BENCH_FRAMES:
+        raise AssertionError(f"K1 launched {launches} times over {BENCH_FRAMES} frames")
+
+    X = torch.stack([o["X_world_cam"] for o in outs])
+    rot, trans = rot_trans_err(torch, lie, X, scene.scn.X_gt)
+    if float(trans.max()) > GT_TRANS_M or float(rot.max()) > GT_ROT_RAD:
+        raise AssertionError(f"camera vs ground truth: {float(trans.max())} m, {float(rot.max())} rad")
+    tr, rr, n_mot, mot = compare_to_reference(torch, lie, outs, np.load(ref_path), device)
+    say(f"bench path: {BENCH_FRAMES} frames of bench_config on {frames[0].depth.device} "
+        f"(window of 10 advanced {BENCH_FRAMES - 10} times), K1 launches {launches}; camera vs "
+        f"GT max {float(trans.max()):.2e} m / {float(rot.max()):.2e} rad; vs JAX ref max "
+        f"{tr:.2e} m / {rr:.2e} rad; {n_mot} object motions vs JAX ref max {mot:.2e} m; first "
+        f"frame {times[0] * 1e3:.1f} ms, median frames 2-10 {statistics.median(times[1:10]) * 1e3:.2f} "
+        f"ms, median frames 11-{BENCH_FRAMES} (advancing) {statistics.median(times[10:]) * 1e3:.2f} ms")
+    return {"K1": launches}
+
+
+def run_detector_path(torch, seed, ref_path, device="cuda"):
+    import dataclasses
+
+    import numpy as np
+
+    from dynosam_tpu_torch.bench_config import detector_config, detector_scene
+    from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
+    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.parallel.batched import init_pipeline_state, make_fused_step
+    from dynosam_tpu_torch.utils import lie
+
+    cfg, intr = detector_config()
+    frames = detector_scene(intr, DET_FRAMES, device=device).frames()
+    engine = YoloV8DetectorEngine(device=device)
+    step = make_fused_step(cfg, intr, torch.Generator(device=device).manual_seed(seed))
+    state = init_pipeline_state(cfg, device)
+    dets, labels = [], []
+
+    def detect(fr):
+        label, det = engine.detect(fr.rgb)
+        dets.append(det)
+        labels.append(label)
+        return dataclasses.replace(fr, mask=label)
+
+    st.shi_tomasi_response.launches = 0
+    mc.mask_combine.launches = 0
+    outs, times = _drive(torch, step, state, frames, device, per_frame=detect)
+    launches = {"K1": st.shi_tomasi_response.launches, "K2": mc.mask_combine.launches}
+    if device == "cuda" and launches != {"K1": DET_FRAMES, "K2": DET_FRAMES}:
+        raise AssertionError(f"kernel launches {launches} over {DET_FRAMES} frames")
+
+    ref = np.load(ref_path)
+    n_det, box_err, score_err, agree = 0, 0.0, 0.0, 1.0
+    for k, (det, label) in enumerate(zip(dets, labels)):
+        v = det.valid.cpu().numpy()
+        v_ref = ref["det_valid"][k]
+        if v.sum() != v_ref.sum() or not (v == v_ref).all():
+            raise AssertionError(f"frame {k}: {int(v.sum())} valid detections, reference {int(v_ref.sum())}")
+        n_det += int(v.sum())
+        box_err = max(box_err, float(np.abs(det.boxes.cpu().numpy()[v] - ref["det_boxes"][k][v]).max(initial=0)))
+        score_err = max(score_err, float(np.abs(det.scores.cpu().numpy()[v] - ref["det_scores"][k][v]).max(initial=0)))
+        agree = min(agree, float((label.cpu().numpy() == ref["labels"][k]).mean()))
+    if box_err > DET_BOX_PX or score_err > DET_SCORE or agree < DET_LABEL_AGREE:
+        raise AssertionError(f"detections vs JAX reference: box err {box_err} px, score err "
+                             f"{score_err}, label agreement {agree}")
+    ids = torch.stack([o["object_ids"] for o in outs]).cpu().numpy()
+    if not (ids == ref["object_ids"]).all():
+        raise AssertionError(f"object ids differ from the JAX reference in frames "
+                             f"{np.nonzero((ids != ref['object_ids']).any(1))[0].tolist()}")
+    tr, rr, n_mot, mot = compare_to_reference(torch, lie, outs, ref, device)
+    say(f"detector path: {DET_FRAMES} frames of detector_scene at detector_config on "
+        f"{frames[0].depth.device}, K1 launches {launches['K1']}, K2 launches {launches['K2']}; "
+        f"{n_det} valid detections as in the JAX ref, boxes within {box_err:.2e} px, scores "
+        f"{score_err:.2e}; label images agree on >= {agree:.6f} of pixels; object ids equal; "
+        f"camera vs JAX ref max {tr:.2e} m / {rr:.2e} rad; {n_mot} object motions vs JAX ref max "
+        f"{mot:.2e} m; first frame {times[0] * 1e3:.1f} ms, median frames 2-{DET_FRAMES} "
+        f"{statistics.median(times[1:]) * 1e3:.2f} ms")
     return launches
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0, help="seed of the RANSAC and test-image generators")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the RANSAC and test-input generators")
     args = ap.parse_args()
     root = os.path.dirname(os.path.abspath(__file__))
+    testdata = os.path.join(root, "dynosam_tpu_torch", "testdata")
 
     import torch
 
@@ -205,34 +351,41 @@ def main():
     print(smi, flush=True)
 
     sys.path.insert(0, root)
-    from dynosam_tpu_torch.ops.cuda import _build, shi_tomasi as st
+    from dynosam_tpu_torch.ops.cuda import _build
+    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
 
-    # ---- 2. build ---------------------------------------------------------------
-    lib, build_s = _build.build(st.SOURCE)
-    say(f"built {os.path.relpath(_build.CSRC / st.SOURCE, root)} -> "
-        f"{os.path.relpath(lib, root)} with nvcc {' '.join(_build.NVCC_FLAGS)} "
-        f"in {build_s:.2f} s" + (" (cached)" if build_s == 0.0 else ""))
+    # ---- 2. build, one nvcc per source, in parallel --------------------------
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = list(pool.map(_build.build, [st.SOURCE, mc.SOURCE]))
+    for src, (lib, build_s) in zip([st.SOURCE, mc.SOURCE], built):
+        say(f"built {os.path.relpath(_build.CSRC / src, root)} -> {os.path.relpath(lib, root)} "
+            f"with nvcc {' '.join(_build.NVCC_FLAGS)} in {build_s:.2f} s"
+            + (" (cached)" if build_s == 0.0 else ""))
+    say(f"both builds done in {time.perf_counter() - t0:.2f} s wall")
 
-    # ---- 3. kernel against its plain version -------------------------------
-    max_err, ms, plain_ms = check_kernel(torch, args.seed)
+    # ---- 3, 4. kernels against their plain versions --------------------------
+    k1 = check_k1(torch, args.seed)
+    k2 = check_k2(torch, args.seed)
 
-    # ---- 4. main path -----------------------------------------------------------
-    launches = run_main_path(
-        torch, args.seed,
-        os.path.join(root, "dynosam_tpu_torch", "testdata", "bench_ref_10f.npz"),
-    )
+    # ---- 5, 6. the main paths, counts zeroed just before each ----------------
+    bench_launches = run_bench_path(torch, args.seed, os.path.join(testdata, "bench_ref_20f.npz"))
+    det_launches = run_detector_path(torch, args.seed, os.path.join(testdata, "det_ref_24f.npz"))
 
-    # ---- 5. results -------------------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "shi_tomasi_response",
-        "route": "cuda",
-        "source": "dynosam_tpu_torch/csrc/shi_tomasi.cu",
-        "replaces": "dynosam_tpu/ops/pallas/shi_tomasi.py:31",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    # ---- 7. results -------------------------------------------------------------
+    def row(name, kid, source, replaces, check):
+        by_path = {"bench": bench_launches.get(kid, 0), "detector": det_launches.get(kid, 0)}
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": check[0], "ms": check[1], "plain_ms": check[2]}
+
+    print(json.dumps({"kernels": [
+        row("shi_tomasi_response", "K1", "dynosam_tpu_torch/csrc/shi_tomasi.cu",
+            "dynosam_tpu/ops/pallas/shi_tomasi.py:31", k1),
+        row("mask_combine", "K2", "dynosam_tpu_torch/csrc/mask_combine.cu",
+            "dynosam_tpu/ops/pallas/mask_combine.py:23", k2),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

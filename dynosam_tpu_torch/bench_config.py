@@ -5,6 +5,12 @@ the port's intrinsics; `bench_scene()` builds the same KITTI-scale synthetic
 scene as `bench.make_frames()` (384 x 1280, three moving objects), rendered
 with torch on the given device. bench.py itself cannot be imported here: it
 reaches the JAX package.
+
+`detector_config()` and `detector_scene()` are the detector path: the same
+settings with the masks coming from YOLOv8-seg (relabelled by ByteTrack)
+instead of the renderer, at the committed checkpoint's own camera (384 x
+640, fx = fy = 360, as scripts/train_detector.py renders its training
+frames), on textured frames the detector can see objects in.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from dynosam_tpu_torch.dataproviders.simulator import ObjectSpec, ScenarioSpec
 from dynosam_tpu_torch.dataproviders.synthetic_dense import DenseScenario
 
 HEIGHT, WIDTH = 384, 1280
+DET_HEIGHT, DET_WIDTH = 384, 640
 
 
 def bench_config():
@@ -66,10 +73,8 @@ def bench_config():
     return cfg, intr
 
 
-def bench_scene(intr, num_frames=10, device="cpu") -> DenseScenario:
-    """The benchmark's synthetic scene: camera driving forward with a slight
-    yaw, three objects on the road."""
-    spec = ScenarioSpec(
+def _bench_spec(num_frames):
+    return ScenarioSpec(
         num_frames=num_frames,
         camera_motion_xi=np.array([0.0, 0.004, 0.0, 0.0, 0.0, 0.8]),
         objects=[
@@ -90,5 +95,36 @@ def bench_scene(intr, num_frames=10, device="cpu") -> DenseScenario:
             ),
         ],
     )
-    return DenseScenario(spec, intr, ground_y=1.6, far_depth=60.0,
-                         object_half_extent=1.6, device=device)
+
+
+def bench_scene(intr, num_frames=10, device="cpu") -> DenseScenario:
+    """The benchmark's synthetic scene: camera driving forward with a slight
+    yaw, three objects on the road."""
+    return DenseScenario(_bench_spec(num_frames), intr, ground_y=1.6, far_depth=60.0,
+                         object_half_extents=[(1.6, 1.6)] * 3, device=device)
+
+
+def detector_config():
+    """(cfg, intr): bench_config()'s settings with the instance masks taken
+    from the detector (prefer_provided_object_detection=False, so ByteTrack
+    gives them persistent ids), at 384 x 640 with fx = fy = 360."""
+    cfg, _ = bench_config()
+    cfg = cfg.with_overrides({"frontend.tracker.prefer_provided_object_detection": False})
+    intr = cam.CameraIntrinsics.create(
+        fx=360.0, fy=360.0, cx=DET_WIDTH / 2, cy=DET_HEIGHT / 2,
+        width=DET_WIDTH, height=DET_HEIGHT, baseline=0.537,
+    )
+    return cfg, intr
+
+
+def detector_scene(intr, num_frames=24, device="cpu") -> DenseScenario:
+    """The bench scene's camera motion and objects, rendered with the
+    world-anchored texture and the per-class object appearance the
+    checkpoint was trained on: two class-0 objects (1.8 x 0.8 m half
+    extents) and one class-1 object (1.1 x 1.5 m)."""
+    return DenseScenario(
+        _bench_spec(num_frames), intr, ground_y=1.6, far_depth=60.0,
+        world_texture=True, object_texture=True,
+        object_half_extents=[(1.8, 0.8), (1.1, 1.5), (1.8, 0.8)],
+        object_classes=[0, 1, 0], device=device,
+    )

@@ -1,6 +1,5 @@
 """Dense synthetic RGB-D scene renderer (port of
-dynosam_tpu/dataproviders/synthetic_dense.py, screen-space texture only;
-the reference's world_texture option is not ported).
+dynosam_tpu/dataproviders/synthetic_dense.py).
 
 Ground plane (y = ground_y) and far wall (z = far_depth) as the background,
 objects as rectangles rigidly attached to their body frames (ray-plane
@@ -8,6 +7,12 @@ intersection); per-pixel depth, instance mask and flow (frame k-1 pixels
 mapped by the GT motion into frame k) come from the same rigid model, so a
 correct frontend recovers the GT camera pose and object motions. Rendering
 runs with torch on the scenario's device.
+
+The image is a constant screen-space texture by default. `world_texture`
+makes it a function of the 3D surface point instead, so it moves with the
+geometry; `object_texture` adds a per-class appearance to object pixels, the
+cue the committed detector checkpoint was trained on, and like the
+reference's it acts only on the world texture.
 """
 
 from __future__ import annotations
@@ -32,16 +37,29 @@ class DenseScenario:
         intr: cam.CameraIntrinsics,
         ground_y: float = 1.5,
         far_depth: float = 40.0,
-        object_half_extent: float = 1.2,
+        world_texture: bool = False,
+        object_texture: bool = False,
+        object_half_extents=None,   # per-object (ex, ey); default 1.2 x 1.2 m
+        object_classes=None,        # optional per-object class ids
         device="cpu",
     ):
         assert intr.width > 0 and intr.height > 0
         self.device = torch.device(device)
         self.scn = Scenario(spec, self.device)
         self.intr = intr
+        self.world_texture = world_texture
+        self.object_texture = object_texture
         self.ground_y = ground_y
         self.far_depth = far_depth
-        self.obj_e = object_half_extent
+        J = len(self.scn.object_ids)
+        self.obj_extents = (
+            [(float(ex), float(ey)) for ex, ey in object_half_extents]
+            if object_half_extents is not None
+            else [(1.2, 1.2)] * J
+        )
+        self.object_classes = (
+            [int(c) for c in object_classes] if object_classes is not None else [0] * J
+        )
         H, W = intr.height, intr.width
         self._u = torch.arange(W, dtype=torch.float32, device=self.device)[None, :].expand(H, W)
         self._v = torch.arange(H, dtype=torch.float32, device=self.device)[:, None].expand(H, W)
@@ -78,7 +96,7 @@ class DenseScenario:
         t = lie.translation(X)
         depth = self._background_depth(X, d_world)
         mask = torch.zeros(depth.shape, dtype=torch.int32, device=self.device)
-        for oid, L in zip(self.scn.object_ids, L_list):
+        for (oid, L), (ex, ey) in zip(zip(self.scn.object_ids, L_list), self.obj_extents):
             RL = lie.rotation(L)
             p0 = lie.translation(L)
             n = RL[:, 2]
@@ -90,8 +108,8 @@ class DenseScenario:
             inside = (
                 (lam > 0.5)
                 & (torch.abs(denom) > 1e-3)
-                & (torch.abs(hit_body[..., 0]) < self.obj_e)
-                & (torch.abs(hit_body[..., 1]) < self.obj_e)
+                & (torch.abs(hit_body[..., 0]) < ex)
+                & (torch.abs(hit_body[..., 1]) < ey)
             )
             occludes = inside & (lam < depth)
             depth = torch.where(occludes, lam, depth)
@@ -115,11 +133,52 @@ class DenseScenario:
         g = (g - g.min()) / (g.max() - g.min())
         return torch.stack([g, g, g], dim=-1)
 
+    def _world_rgb(self, X_k, L_list, depth, mask):
+        """Photo-consistent texture: a fixed function of the surface point in
+        its anchor frame (world for the background, the body frame for
+        object pixels), band-limited by each octave's pixel footprint."""
+        uv = torch.stack([self._u, self._v], dim=-1)
+        pts_w = lie.transform_points(X_k, cam.backproject(uv, depth, self.intr))
+        anchor = pts_w
+        body = []
+        for oid, L in zip(self.scn.object_ids, L_list):
+            p_L = lie.transform_points(lie.inverse(L), pts_w)
+            body.append(p_L)
+            anchor = torch.where((mask == oid)[..., None], p_L, anchor)
+        x, y, z = anchor[..., 0], anchor[..., 1], anchor[..., 2]
+        foot = depth / self.intr.fx                     # metres per pixel
+
+        def att(freq):
+            return torch.exp(-0.5 * (freq * foot) ** 2)
+
+        g = (
+            att(5.5) * torch.sin(4.1 * x) * torch.sin(3.7 * y + 0.9 * z)
+            + 0.6 * att(12.1) * torch.sin(9.3 * x + 7.7 * y) * torch.sin(8.1 * z)
+            + 0.5 * att(1.9) * torch.sin(1.1 * x + 1.3 * y + 0.7 * z)
+            + 0.45 * att(0.8) * torch.sin(0.55 * x + 0.62 * y) * torch.sin(0.48 * z + 1.1)
+        )
+        g = torch.clamp(0.5 + 0.24 * g, 0.0, 1.0)
+        if self.object_texture:
+            # class 0: fine body-frame check pattern, brighter; class 1:
+            # coarse horizontal stripes, darker
+            for j, (oid, p_L) in enumerate(zip(self.scn.object_ids, body)):
+                if self.object_classes[j] == 0:
+                    chk = 0.20 * torch.sin(17.0 * p_L[..., 0] + 2.1 * j) * torch.sin(
+                        15.0 * p_L[..., 1] + 1.3 * j
+                    )
+                    bias = 0.14
+                else:
+                    chk = 0.22 * torch.sin(6.0 * p_L[..., 1] + 0.7 * j)
+                    bias = -0.14
+                g = torch.where(mask == oid, torch.clamp(g + bias + chk, 0.0, 1.0), g)
+        return torch.stack([g, g, g], dim=-1)
+
     # public API -----------------------------------------------------------
     def frame(self, k: int) -> FrameInputs:
         k_prev = max(k - 1, 0)
         scn = self.scn
-        depth, mask = self._depth_mask(scn.X_gt[k], [L[k] for L in scn.L_gt])
+        L_k = [L[k] for L in scn.L_gt]
+        depth, mask = self._depth_mask(scn.X_gt[k], L_k)
         if k > 0:
             depth_prev, mask_prev = self._depth_mask(
                 scn.X_gt[k_prev], [L[k_prev] for L in scn.L_gt]
@@ -132,7 +191,7 @@ class DenseScenario:
             flow = torch.zeros(depth.shape + (2,), dtype=torch.float32, device=self.device)
         return FrameInputs(
             frame_id=torch.tensor(k, dtype=torch.int32, device=self.device),
-            rgb=self._rgb_const,
+            rgb=self._world_rgb(scn.X_gt[k], L_k, depth, mask) if self.world_texture else self._rgb_const,
             depth=depth,
             flow=flow,
             mask=mask,

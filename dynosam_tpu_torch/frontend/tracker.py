@@ -1,11 +1,12 @@
 """Dense-flow feature tracker over fixed-capacity track tables
 (port of dynosam_tpu/frontend/tracker.py, provided-flow mode).
 
-The provided-flow / provided-mask branch of `track_frame` is ported with its
-detection (Shi-Tomasi response + per-cell argmax), spread dynamic sampling,
-requiresSampling IoU and object-slot bookkeeping. The KLT branch, ByteTrack
-relabelling and CLAHE are not ported: asking for them raises
-NotImplementedError.
+The provided-flow branch of `track_frame` is ported with its detection
+(Shi-Tomasi response + per-cell argmax), spread dynamic sampling,
+requiresSampling IoU and object-slot bookkeeping, and with the ByteTrack
+relabelling of masks that carry no persistent ids
+(prefer_provided_object_detection=False). The KLT branch and CLAHE are not
+ported: asking for them raises NotImplementedError.
 
 The corner response goes through `ops/cuda/shi_tomasi.py::shi_tomasi_response`
 when `tracker.use_pallas_kernels` is set (the CUDA kernel for a CUDA tensor,
@@ -20,6 +21,7 @@ import torch
 
 from dynosam_tpu.config import FrontendParams, TrackerParams
 from dynosam_tpu_torch.frontend.types import first_true
+from dynosam_tpu_torch.nn import bytetrack as bt
 from dynosam_tpu_torch.ops import interp
 from dynosam_tpu_torch.ops.cuda.shi_tomasi import (
     shi_tomasi_response as shi_tomasi_response_kernel,
@@ -50,6 +52,8 @@ class TrackerState:
     obj_mask_iou: torch.Tensor  # (J,) float
     obj_det_area: torch.Tensor  # (J,) float
     next_tid: torch.Tensor      # () int32 tracklet id counter
+    # object-level tracker for masks without persistent ids
+    bt_state: bt.ByteTrackState
 
 
 def empty_tracker_state(params: FrontendParams, device, dtype=torch.float32) -> TrackerState:
@@ -77,6 +81,7 @@ def empty_tracker_state(params: FrontendParams, device, dtype=torch.float32) -> 
         obj_mask_iou=full((j,), 1.0, dtype),
         obj_det_area=full((j,), 1e9, dtype),
         next_tid=full((), 0, torch.int32),
+        bt_state=bt.empty_state(capacity=2 * j, device=device),
     )
 
 
@@ -136,8 +141,6 @@ def check_supported(tp: TrackerParams):
     """Raise NotImplementedError for the tracker branches this port lacks."""
     if not tp.prefer_provided_optical_flow:
         raise NotImplementedError("KLT tracking (prefer_provided_optical_flow=False) is not ported")
-    if not tp.prefer_provided_object_detection:
-        raise NotImplementedError("ByteTrack relabelling (prefer_provided_object_detection=False) is not ported")
 
 
 def track_frame(
@@ -171,6 +174,20 @@ def track_frame(
         if tp.stagger_track_expiry:
             return torch.arange(n, device=dev) % (2 * tp.dynamic_feature_age_buffer)
         return 0
+
+    # ======== object-level tracking of untracked masks ===================
+    # per-frame detector labels without temporal identity are relabelled by
+    # ByteTrack so downstream object ids persist
+    bt_state = state.bt_state
+    if not tp.prefer_provided_object_detection:
+        max_dets = 2 * params.max_objects
+        boxes, scores, det_valid, det_labels = bt.masks_to_detections(mask, max_dets=max_dets)
+        bt_state, det_ids = bt.bytetrack_step(bt_state, boxes, scores, det_valid)
+        remap = torch.zeros((max_dets + 2,), dtype=torch.int32, device=dev)
+        remap[torch.clamp(det_labels, 0, max_dets + 1).long()] = torch.where(
+            det_valid & (det_ids > 0), det_ids, 0
+        ).to(torch.int32)
+        mask = remap[torch.clamp(mask, 0, max_dets + 1).long()]
 
     # ======== propagate tracks by the provided dense flow =================
     s_uv = state.s_uv + interp.sample_flow(flow, state.s_uv)
@@ -389,6 +406,7 @@ def track_frame(
         obj_mask_iou=obj_mask_iou,
         obj_det_area=obj_det_area,
         next_tid=next_tid.to(torch.int32),
+        bt_state=bt_state,
     )
 
 

@@ -1,0 +1,163 @@
+"""Read the committed flax YOLOv8-seg checkpoint and map it onto the port's
+module (nn/yolov8.py).
+
+The checkpoint (`dynosam_tpu/nn/checkpoints/yolov8t_seg_synth.msgpack`) is
+what `flax.serialization.to_bytes` wrote: a msgpack map of maps whose leaves
+are msgpack extension type 1, an ndarray, with the payload msgpack
+`[shape, dtype name, C-order bytes]` (`flax.serialization._ndarray_to_bytes`).
+`read_flax_msgpack` decodes that subset in pure Python, so loading needs
+neither flax nor the msgpack package.
+
+Mapping onto the torch module, whose submodules carry the flax names:
+conv kernels HWIO -> OIHW; the transposed conv's kernel (kh, kw, in, out)
+-> (in, out, kh, kw) flipped in space (flax's `transpose_kernel=False`
+with SAME padding places tap t of a stride-2 kernel at output 2i + 1 - t,
+torch's ConvTranspose2d at 2i + t); BatchNorm scale/bias/mean/var ->
+weight/bias/running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+
+import numpy as np
+import torch
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+class _Reader:
+    """Decoder for the msgpack subset flax writes."""
+
+    def __init__(self, buf: bytes):
+        self.buf = memoryview(buf)
+        self.pos = 0
+
+    def _take(self, n):
+        out = self.buf[self.pos: self.pos + n]
+        if len(out) != n:
+            raise ValueError("truncated msgpack data")
+        self.pos += n
+        return bytes(out)
+
+    def _unpack(self, fmt):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def read(self):
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.read() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return self._take(b & 0x1F).decode()
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        sized = {
+            0xC4: ("bin", ">B"), 0xC5: ("bin", ">H"), 0xC6: ("bin", ">I"),
+            0xD9: ("str", ">B"), 0xDA: ("str", ">H"), 0xDB: ("str", ">I"),
+            0xDC: ("arr", ">H"), 0xDD: ("arr", ">I"),
+            0xDE: ("map", ">H"), 0xDF: ("map", ">I"),
+            0xC7: ("ext", ">B"), 0xC8: ("ext", ">H"), 0xC9: ("ext", ">I"),
+        }
+        if b in sized:
+            kind, fmt = sized[b]
+            n = self._unpack(fmt)
+            if kind == "bin":
+                return self._take(n)
+            if kind == "str":
+                return self._take(n).decode()
+            if kind == "arr":
+                return [self.read() for _ in range(n)]
+            if kind == "map":
+                return self._map(n)
+            return self._ext(self._unpack(">b"), n)
+        fixext = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+        if b in fixext:
+            return self._ext(self._unpack(">b"), fixext[b])
+        scalars = {
+            0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+            0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q",
+        }
+        if b in scalars:
+            return self._unpack(scalars[b])
+        raise ValueError(f"msgpack type byte 0x{b:02x} is not in the flax subset")
+
+    def _map(self, n):
+        out = {}
+        for _ in range(n):
+            k = self.read()
+            out[k] = self.read()
+        return out
+
+    def _ext(self, code, n):
+        payload = self._take(n)
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"msgpack extension type {code} is not in the flax subset")
+        shape, dtype, data = _Reader(payload).read()
+        arr = np.frombuffer(data, dtype=np.dtype(dtype))
+        return arr.reshape(shape).copy() if code == _EXT_NDARRAY else arr[0]
+
+
+def read_flax_msgpack(path: str) -> dict:
+    """Nested dict of numpy arrays from a `flax.serialization.to_bytes` file."""
+    with open(path, "rb") as fh:
+        r = _Reader(fh.read())
+    tree = r.read()
+    if r.pos != len(r.buf):
+        raise ValueError(f"{path}: {len(r.buf) - r.pos} trailing bytes")
+    return tree
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def state_dict_from_flax(variables: dict) -> dict:
+    """{'params': ..., 'batch_stats': ...} of nn/yolov8.py's flax module ->
+    a state_dict of the port's YoloV8Seg (float32 tensors)."""
+    sd = {}
+    for path, a in _flatten(variables.get("params", {})):
+        a = np.asarray(a, np.float32)
+        name, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "kernel" and path[-2] == "upsample":
+            sd[name + ".weight"] = a[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif leaf == "kernel":
+            sd[name + ".weight"] = a.transpose(3, 2, 0, 1)
+        elif leaf == "scale":
+            sd[name + ".weight"] = a
+        elif leaf == "bias":
+            sd[name + ".bias"] = a
+        else:
+            raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
+    stat_names = {"mean": "running_mean", "var": "running_var"}
+    for path, a in _flatten(variables.get("batch_stats", {})):
+        sd[".".join(path[:-1]) + "." + stat_names[path[-1]]] = np.asarray(a, np.float32)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def load_flax_checkpoint(path: str):
+    """-> (YoloV8Seg in eval mode with the checkpoint's weights, metadata)."""
+    from dynosam_tpu_torch.nn import yolov8
+
+    with open(path + ".json") as fh:
+        meta = json.load(fh)
+    model = yolov8.YoloV8Seg(num_classes=meta["num_classes"], scale=meta["scale"])
+    sd = state_dict_from_flax(read_flax_msgpack(path))
+    # BatchNorm's batch counter has no flax counterpart
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = v
+    model.load_state_dict(sd, strict=True)
+    return model.eval(), meta

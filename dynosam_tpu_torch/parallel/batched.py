@@ -2,10 +2,11 @@
 sequential hybrid route of `make_fused_step` in
 dynosam_tpu/parallel/batched.py).
 
-One call runs frontend(k) -> backend ingestion -> decoupled hybrid LM on the
-window through k, and returns the new state and the frame's outputs.
-Advancing a full window (`window.advance_hybrid`) is not ported yet: the
-step raises NotImplementedError on the frame that would need it.
+One call runs frontend(k) -> window advance when the window is full ->
+backend ingestion -> decoupled hybrid LM on the window through k, and
+returns the new state and the frame's outputs. The window fill is the host
+integer `GraphState.num_frames`, so the reference's `lax.cond` on it
+(batched.py:108-112) is a Python branch here.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from dynosam_tpu.config import DynoConfig
 from dynosam_tpu_torch.backend import graph as graph_mod
 from dynosam_tpu_torch.backend import hybrid as hybrid_mod
+from dynosam_tpu_torch.backend import window as window_mod
 from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.cv import camera as cam
 from dynosam_tpu_torch.frontend.frontend import (
@@ -88,12 +90,13 @@ def make_fused_step(
         }
 
     def step(state: PipelineState, inputs: FrameInputs):
-        if state.graph.num_frames >= F:
-            raise NotImplementedError("window advance: next slice, see ROADMAP")
         fe_state, packet = frontend_step(
             state.frontend, inputs, intr, cfg.frontend, generator
         )
-        g = graph_mod.update_from_packet_hybrid(state.graph, packet, intr, cfg.backend)
+        g = state.graph
+        if g.num_frames >= F:
+            g = window_mod.advance_hybrid(g, cfg.backend)
+        g = graph_mod.update_from_packet_hybrid(g, packet, intr, cfg.backend)
         g = hybrid_mod.optimize(g, cfg.backend)
         return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet)
 

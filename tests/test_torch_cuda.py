@@ -1,6 +1,7 @@
-"""Card-only tests of the PyTorch port: the hand-written CUDA kernel against
-its plain version, and the fused step on the card against the same step on
-the CPU. They skip without a CUDA device. This file imports no JAX, so it
+"""Card-only tests of the PyTorch port: the hand-written CUDA kernels (K1
+Shi-Tomasi, K2 mask combination) against their plain versions, the
+detector engine and the fused step past its window on the card against the
+same code on the CPU. They skip without a CUDA device. This file imports no JAX, so it
 also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
@@ -17,8 +18,11 @@ from dynosam_tpu.config import (
     OptimizerParams,
     TrackerParams,
 )
+from dynosam_tpu_torch.bench_config import detector_config, detector_scene
 from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario
 from dynosam_tpu_torch.frontend.tracker import _cell_reduce
+from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
+from dynosam_tpu_torch.ops.cuda import mask_combine as mc
 from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
 from dynosam_tpu_torch.parallel.batched import init_pipeline_state, make_fused_step
 
@@ -62,6 +66,44 @@ def test_kernel_rejects_a_noncontiguous_tensor(cuda):
         st.shi_tomasi_response(img.t())
 
 
+@pytest.mark.parametrize("k, hp, wp, nm", [(32, 96, 160, 32), (5, 37, 61, 32), (1, 1, 1, 32),
+                                            (64, 8, 8, 16), (300, 24, 40, 32)])
+def test_mask_combine_kernel_matches_plain_version(cuda, k, hp, wp, nm):
+    proto = torch.randn((hp, wp, nm), generator=cuda, device="cuda")
+    coef = torch.randn((k, nm), generator=cuda, device="cuda")
+    before = mc.mask_combine.launches
+    out = mc.mask_combine(proto, coef)
+    assert mc.mask_combine.launches == before + 1
+    torch.testing.assert_close(out, mc.mask_combine_reference(proto, coef), rtol=0, atol=1e-5)
+
+
+def test_mask_combine_rejects_what_the_kernel_does_not_take(cuda):
+    proto = torch.randn((8, 8, 32), generator=cuda, device="cuda")
+    with pytest.raises(ValueError):         # shared memory for K=400 exceeds the limit
+        mc.mask_combine(proto, torch.randn((400, 32), generator=cuda, device="cuda"))
+    with pytest.raises(ValueError):         # devices differ
+        mc.mask_combine(proto, torch.randn((4, 32)))
+    with pytest.raises(ValueError):         # nm not a multiple of 4
+        p30 = torch.randn((8, 8, 30), generator=cuda, device="cuda")
+        mc.mask_combine(p30, torch.randn((4, 30), generator=cuda, device="cuda"))
+
+
+def test_detector_engine_on_the_card_matches_the_cpu(cuda):
+    _, intr = detector_config()
+    rgb = detector_scene(intr, 1).frame(0).rgb
+    dets = {}
+    for dev in ("cpu", "cuda"):
+        launches = mc.mask_combine.launches
+        label, det = YoloV8DetectorEngine(device=dev).detect(rgb.to(dev))
+        dets[dev] = (label.cpu(), det.valid.cpu(), det.boxes.cpu())
+        if dev == "cuda":
+            assert mc.mask_combine.launches == launches + 1
+    (lc, vc, bc), (lg, vg, bg) = dets["cpu"], dets["cuda"]
+    assert torch.equal(vc, vg) and int(vc.sum()) > 0
+    torch.testing.assert_close(bg[vg], bc[vc], rtol=0, atol=0.05)
+    assert float((lg == lc).float().mean()) >= 0.999
+
+
 def test_fused_step_on_the_card_matches_the_cpu(cuda):
     cfg = DynoConfig(
         frontend=FrontendParams(max_objects=4, tracker=TrackerParams(
@@ -69,23 +111,25 @@ def test_fused_step_on_the_card_matches_the_cpu(cuda):
             max_dynamic_features_per_frame=128, detection_cell_size=8,
             min_corner_response=1e-6)),
         backend=BackendParams(
-            optimization_mode=2, backend_updater_enum=3, max_frames=4, max_objects=4,
+            optimization_mode=2, backend_updater_enum=3, max_frames=3, max_objects=4,
             max_static_landmarks=128, max_dynamic_landmarks=128,
             optimizer=OptimizerParams(max_iterations=2)),
     )
     outs = {}
     for dev in ("cpu", "cuda"):
-        scene = default_dense_scenario(num_frames=4, device=dev)
+        # 3-frame window over 5 frames: the last two steps advance it
+        scene = default_dense_scenario(num_frames=5, device=dev)
         gen = torch.Generator(device=dev).manual_seed(0)
         step = make_fused_step(cfg, scene.intr, gen)
         state = init_pipeline_state(cfg, dev)
         launches = st.shi_tomasi_response.launches
         xs = []
-        for k in range(4):
+        for k in range(5):
             state, out = step(state, scene.frame(k))
             xs.append(out["X_world_cam"].cpu().numpy())
         outs[dev] = np.stack(xs)
+        assert bool(state.graph.prior_valid)
         if dev == "cuda":
-            assert st.shi_tomasi_response.launches == launches + 4
+            assert st.shi_tomasi_response.launches == launches + 5
     # noise-free scene: RANSAC's outcome does not depend on the draws
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4)

@@ -22,7 +22,7 @@ from dynosam_tpu_torch import convert
 from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario as t_dense
 from dynosam_tpu_torch.parallel import batched as tbatched
 from dynosam_tpu_torch.utils import lie as tlie
-from torch_port_util import assert_tree_matches, np_tree, small_cfg
+from torch_port_util import assert_tree_matches, jax_dense, np_tree, small_cfg
 
 torch.set_num_threads(1)
 NUM_FRAMES = 4
@@ -83,9 +83,15 @@ def test_fused_step_state_after_window(fused_runs):
 
 
 def test_fused_step_raises_when_the_window_would_advance(fused_runs):
+    """The frame that once raised here now advances the full window: it
+    runs, keeps the window at its size and turns the marginal prior on
+    (tests/test_torch_window.py holds the advance to the reference)."""
     _, _, _, (tstep, ts, td), _ = fused_runs
-    with pytest.raises(NotImplementedError, match="window advance"):
-        tstep(ts, td.frame(NUM_FRAMES))
+    assert ts.graph.num_frames == NUM_FRAMES and not bool(ts.graph.prior_valid)
+    ts, out = tstep(ts, td.frame(NUM_FRAMES))
+    assert ts.graph.num_frames == NUM_FRAMES and bool(ts.graph.prior_valid)
+    assert int(ts.graph.frame_ids[-1]) == NUM_FRAMES
+    assert bool(torch.isfinite(out["X_world_cam"]).all())
 
 
 def test_unported_backend_and_frontend_options_raise():
@@ -126,6 +132,30 @@ def test_renderer_matches_reference():
     _render_both(j_dense(num_frames=4), t_dense(num_frames=4), range(4))
 
 
+@pytest.mark.parametrize("scene", ["world_texture", "detector_scene"])
+def test_textured_renderer_matches_reference(scene):
+    """The world-anchored texture, and the detector scene's per-class object
+    texture, half extents and classes, at a reduced image size."""
+    h, w = 96, 160
+    _, intr = tbench.detector_config()
+    intr = dataclasses.replace(intr, fx=90.0, fy=90.0, cx=w / 2, cy=h / 2, width=w, height=h)
+    if scene == "detector_scene":
+        tdense = tbench.detector_scene(intr, num_frames=3)
+    else:
+        tdense = tbench.bench_scene(intr, num_frames=3)
+        tdense.world_texture = True
+    jdense = jax_dense(tdense)
+    for k in range(3):
+        jf, tf = jdense.frame(k), tdense.frame(k)
+        same = tf.mask.numpy() == np.asarray(jf.mask)
+        assert (~same).mean() <= 1e-3                  # silhouette-edge pixels only
+        np.testing.assert_allclose(tf.depth.numpy(), np.asarray(jf.depth), rtol=1e-5)
+        # the texture is sin() of metre coordinates at up to 17 rad/m: f32
+        # differences of ~1e-6 m in the surface points move it by ~1e-5
+        np.testing.assert_allclose(tf.rgb.numpy()[same], np.asarray(jf.rgb)[same], atol=1e-4)
+        assert np.unique(tf.rgb.numpy()).size > 100        # textured, not constant
+
+
 def test_bench_scene_matches_bench_make_frames():
     # the bench scene at a reduced image size (the geometry is the same)
     h, w, s = 96, 320, 0.25
@@ -149,6 +179,15 @@ def test_bench_config_matches_bench():
     for f in ("fx", "fy", "cx", "cy"):
         assert getattr(tintr, f) == float(getattr(jintr, f))
     assert (tintr.width, tintr.height, tintr.baseline) == (jintr.width, jintr.height, jintr.baseline)
+
+
+def test_detector_config_is_bench_config_with_detector_masks():
+    bcfg, _ = bench.bench_config()
+    cfg, intr = tbench.detector_config()
+    assert not cfg.frontend.tracker.prefer_provided_object_detection
+    assert cfg == bcfg.with_overrides({"frontend.tracker.prefer_provided_object_detection": False})
+    # the camera the committed checkpoint was trained at
+    assert (intr.width, intr.height, intr.fx, intr.fy, intr.cx, intr.cy) == (640, 384, 360.0, 360.0, 320.0, 192.0)
 
 
 def test_port_imports_no_jax():

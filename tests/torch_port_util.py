@@ -43,6 +43,37 @@ def small_cfg(max_frames=4):
     )
 
 
+def jax_spec(spec):
+    """The JAX ScenarioSpec of a port ScenarioSpec (no point clouds: the
+    dense renderer draws the scene)."""
+    from dynosam_tpu.dataproviders.simulator import ObjectSpec, ScenarioSpec
+
+    return ScenarioSpec(
+        num_frames=spec.num_frames, num_static=0, camera_motion_xi=spec.camera_motion_xi,
+        objects=[ObjectSpec(object_id=o.object_id, initial_pose_xi=o.initial_pose_xi,
+                            motion_xi=o.motion_xi, num_points=0) for o in spec.objects],
+    )
+
+
+def jax_intr(intr):
+    """The JAX CameraIntrinsics of port intrinsics."""
+    from dynosam_tpu.cv import camera as jcam
+
+    return jcam.CameraIntrinsics.create(intr.fx, intr.fy, intr.cx, intr.cy, width=intr.width,
+                                        height=intr.height, baseline=intr.baseline)
+
+
+def jax_dense(scene):
+    """The JAX DenseScenario rendering the same scene as a port DenseScenario."""
+    from dynosam_tpu.dataproviders.synthetic_dense import DenseScenario
+
+    return DenseScenario(
+        jax_spec(scene.scn.spec), jax_intr(scene.intr), ground_y=scene.ground_y,
+        far_depth=scene.far_depth, world_texture=scene.world_texture, object_texture=scene.object_texture,
+        object_half_extents=scene.obj_extents, object_classes=scene.object_classes,
+    )
+
+
 def np_tree(obj):
     """Nested dict of numpy arrays from a flax struct (or dict of arrays)."""
     d = serialization.to_state_dict(obj)
