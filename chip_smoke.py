@@ -6,25 +6,38 @@ Phases, each printing one line; any failure raises and exits non-zero:
      power limit (nvidia-smi);
   2. build both kernels (csrc/shi_tomasi.cu = K1, csrc/mask_combine.cu = K2;
      one nvcc per source, started together, sm_90a);
-  3. hold K1 against its plain PyTorch version on the card: random and
-     constant 384x1280 frames (the constant one ties every cell of the
-     per-cell argmax) and a (3, 384, 1280) batch, each image of which must
-     equal its single-image result; median device times of both versions;
+  3. hold K1 against its plain PyTorch version on the card. The fused entry
+     (response + per-cell argmax, the main path's): random and constant
+     frames at 384x1280 and 384x640 with cell 16 (on the constant frame
+     every cell ties, so each must take its top-left pixel), 384x1280 with
+     cell 8, and an (8, 384, 1280) batch whose images each equal their
+     single-image result; `best` bit for bit or within KERNEL_RTOL, with
+     the near-tie cells counted, and (u, v) equal in every cell. The map
+     entry: random, constant and a (3, 384, 1280) batch. Then, in one
+     process and in turns, at B=1 and B=8, median device times (a spin
+     kernel hides the enqueue) and times with the launch from Python of
+     the fused kernel, the map route (the map entry + torch `cell_reduce`)
+     and the plain pair (scripts/ab_torch_k1.py also times earlier kernel
+     sources beside them);
   4. hold K2 against its plain version: random (32, 96x160, 32) inputs, a
      ragged K=5 over 37x61 prototype pixels, and the real prototypes and
      coefficients of the detector scene's frame 0; median device times;
   5. bench path: the fused SLAM step (frontend -> window advance -> graph
      update -> decoupled hybrid LM) at bench_config() over 20 bench frames
-     rendered on the card (the 10-frame window advances 10 times); K1 must
-     launch once per frame; camera poses held to the renderer's ground truth
+     rendered on the card (the 10-frame window advances 10 times); the fused
+     K1 must launch once per frame and the map entry never; camera poses
+     held to the renderer's ground truth
      and poses + object motions to the JAX reference
      dynosam_tpu_torch/testdata/bench_ref_20f.npz;
   6. detector path: 24 frames of detector_scene() through YOLOv8-seg (K2)
-     -> ByteTrack relabelling -> fused step at detector_config(); K1 and K2
-     must each launch once per frame; detections, label images, object ids,
+     -> ByteTrack relabelling -> fused step at detector_config(); the fused
+     K1 and K2 must each launch once per frame, the map entry never;
+     detections, label images, object ids,
      camera poses and object motions held to
      dynosam_tpu_torch/testdata/det_ref_24f.npz;
-  7. print the kernel table and the contract line.
+  7. print the kernel table (with each kernel's bound: the larger of its
+     bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
+     SXM's published rates) and the contract line.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -59,76 +72,163 @@ DET_SCORE = 1e-3              # their scores
 DET_LABEL_AGREE = 0.999       # share of label-image pixels equal, per frame
 TIMING_RUNS = 50
 SPIN_CYCLES = 10_000_000      # ~5 ms of GPU clock, longer than any enqueue here
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+K1_OPS_PER_PIXEL = 29         # 28 flops of the response + 1 comparison of the argmax
 
 
 def say(msg):
     print(f"[smoke] {msg}", flush=True)
 
 
-def median_ms(torch, fn, args, spin, runs=TIMING_RUNS):
-    """Median time of one call over `runs` runs, each bracketed by CUDA
-    events. With `spin`, a spin kernel queued first keeps the card busy
-    while the host enqueues the call, so the events time the call's kernels
-    alone; without it they also time its launch from Python."""
-    for _ in range(5):
-        fn(*args)
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if spin:
-            torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn(*args)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def median_ms(torch, fns, spin, runs=TIMING_RUNS):
+    """{name: median time of one call} of the no-argument callables `fns`,
+    measured in turns (the order reversed every other run), each call
+    bracketed by CUDA events. With `spin`, a spin kernel queued first keeps
+    the card busy while the host enqueues the call, so the events time the
+    call's kernels alone; without it they also time its launch from Python."""
+    for fn in fns.values():
+        for _ in range(5):
+            fn()
+    names = list(fns)
+    times = {n: [] for n in names}
+    for k in range(runs):
+        for n in names if k % 2 == 0 else names[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if spin:
+                torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            fns[n]()
+            end.record()
+            end.synchronize()
+            times[n].append(start.elapsed_time(end))
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
+def bound_ms(nbytes, nops):
+    """(least time in ms, what bounds it): bytes over the memory rate or
+    operations over the f32 rate, whichever takes longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(shape, cell):
+    """K1 fused: each pixel read once, 3 floats written per full cell."""
+    H, W = shape[-2:]
+    n_img = 1 if len(shape) == 2 else shape[0]
+    cells = n_img * (H // cell) * (W // cell)
+    return bound_ms(4 * n_img * H * W + 12 * cells, K1_OPS_PER_PIXEL * n_img * H * W)
+
+
+def compare_cells(torch, st, img, cell):
+    """The fused K1 against its plain pair on `img` -> (max |best - plain|,
+    whether best is bit for bit equal, near-tie cells). (u, v) must be equal
+    in every cell but those whose plain top two responses lie within
+    KERNEL_RTOL * max |response| of each other (near ties, counted)."""
+    got = st.shi_tomasi_cell_max(img, cell)
+    resp = st.shi_tomasi_response_reference(img)
+    ref = st.cell_reduce(resp, cell)
+    torch.cuda.synchronize()
+    tol = KERNEL_RTOL * max(float(resp.abs().max()), 1e-30)
+    err = float((got[0] - ref[0]).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"fused K1 vs plain at {tuple(img.shape)}, cell {cell}: best off by {err}")
+    H, W = img.shape[-2:]
+    gh, gw = H // cell, W // cell
+    cells = resp[..., : gh * cell, : gw * cell].reshape(*img.shape[:-2], gh, cell, gw, cell)
+    top2 = cells.transpose(-3, -2).reshape(*img.shape[:-2], gh * gw, cell * cell).topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < tol
+    differ = (got[1] != ref[1]) | (got[2] != ref[2])
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"fused K1 vs plain at {tuple(img.shape)}, cell {cell}: "
+                             f"{int((differ & ~near).sum())} cells take another pixel")
+    return err, torch.equal(got[0], ref[0]) and not bool(differ.any()), int(near.sum())
 
 
 def check_k1(torch, seed):
-    from dynosam_tpu_torch.frontend.tracker import _cell_reduce
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     H, W = 384, 1280
+    B = 8
 
-    def compare(img):
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    # the map entry (the same kernel with its map output)
+    def compare_map(img):
         out = st.shi_tomasi_response(img)
         ref = st.shi_tomasi_response_reference(img)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        scale = float(ref.abs().max())
-        if not err <= KERNEL_RTOL * max(scale, 1e-30):
-            raise AssertionError(f"K1 vs plain: max abs err {err} at max |response| {scale}")
-        return out, ref, err
+        if not err <= KERNEL_RTOL * max(float(ref.abs().max()), 1e-30):
+            raise AssertionError(f"K1 map vs plain: max abs err {err}")
+        return out, err
 
-    _, _, err_rand = compare(torch.rand((H, W), generator=gen, device="cuda"))
-
-    const = torch.full((H, W), 0.5, device="cuda")
-    out, ref, err_const = compare(const)
-    ko, ro = _cell_reduce(out, 16), _cell_reduce(ref, 16)
-    for a, b in zip(ko, ro):
-        if not torch.equal(a, b):
-            raise AssertionError("per-cell argmax on a constant frame differs from the plain version")
-
-    batch = torch.rand((3, H, W), generator=gen, device="cuda")
-    out_b, _, err_batch = compare(batch)
+    map_errs = [compare_map(rand(H, W))[1], compare_map(torch.full((H, W), 0.5, device="cuda"))[1]]
+    batch3 = rand(3, H, W)
+    out_b, e = compare_map(batch3)
+    map_errs.append(e)
     for b in range(3):
-        if not torch.equal(out_b[b], st.shi_tomasi_response(batch[b].contiguous())):
-            raise AssertionError(f"batched kernel image {b} differs from its single-image result")
+        if not torch.equal(out_b[b], st.shi_tomasi_response(batch3[b].contiguous())):
+            raise AssertionError(f"batched map image {b} differs from its single-image result")
 
-    img = torch.rand((H, W), generator=gen, device="cuda")
-    ms = median_ms(torch, st.shi_tomasi_response, (img,), spin=True)
-    plain_ms = median_ms(torch, st.shi_tomasi_response_reference, (img,), spin=True)
-    call_ms = median_ms(torch, st.shi_tomasi_response, (img,), spin=False)
-    plain_call_ms = median_ms(torch, st.shi_tomasi_response_reference, (img,), spin=False)
-    max_err = max(err_rand, err_const, err_batch)
-    say(f"K1 matches plain: max abs err random {err_rand:.3e}, constant {err_const:.3e}, "
-        f"batch {err_batch:.3e}; ties equal; batch images equal single-image results; "
-        f"median device time {ms:.4f} ms kernel vs {plain_ms:.4f} ms plain at {H}x{W}; "
-        f"with the launch from Python {call_ms:.4f} ms vs {plain_call_ms:.4f} ms")
-    return max_err, ms, plain_ms
+    # the fused entry
+    cases = [((H, W), 16, "random"), ((H, W), 16, "constant"), ((H, 640), 16, "random"),
+             ((H, 640), 16, "constant"), ((H, W), 8, "random"), ((H, 640), 8, "constant"),
+             ((B, H, W), 16, "random")]
+    errs, bitwise, near = [], True, 0
+    for shape, cell, kind in cases:
+        img = rand(*shape) if kind == "random" else torch.full(shape, 0.5, device="cuda")
+        err, same, n_near = compare_cells(torch, st, img, cell)
+        errs.append(err)
+        bitwise &= same
+        if kind == "random":        # on a constant frame every cell ties by design
+            near += n_near
+        if kind == "constant":
+            _, u, v = st.shi_tomasi_cell_max(img, cell)
+            gw = shape[-1] // cell
+            idx = torch.arange(u.numel(), device="cuda")
+            if not (torch.equal(u, (idx % gw * cell).float()) and torch.equal(v, (idx // gw * cell).float())):
+                raise AssertionError(f"constant {shape} frame, cell {cell}: a cell took another pixel than its first")
+        if len(shape) == 3:
+            got = st.shi_tomasi_cell_max(img, cell)
+            for b in range(shape[0]):
+                one = st.shi_tomasi_cell_max(img[b].contiguous(), cell)
+                if not all(torch.equal(g[b], o) for g, o in zip(got, one)):
+                    raise AssertionError(f"fused batch image {b} differs from its single-image result")
+
+    # times, in turns in this process, at B=1 and B=8
+    times = {}
+    for label, img in (("b1", rand(H, W)), ("b8", rand(B, H, W))):
+        fns = {
+            "fused": lambda img=img: st.shi_tomasi_cell_max(img, 16),
+            "map_route": lambda img=img: st.cell_reduce(st.shi_tomasi_response(img), 16),
+            "plain": lambda img=img: st.shi_tomasi_cell_max_reference(img, 16),
+        }
+        times[label] = {"device": median_ms(torch, fns, spin=True),
+                        "call": median_ms(torch, fns, spin=False),
+                        "bound": k1_bound(tuple(img.shape), 16)}
+    t1, t8 = times["b1"], times["b8"]
+    say(f"K1 fused matches plain: best {'bit for bit' if bitwise else 'within KERNEL_RTOL'} "
+        f"(max abs err {max(errs):.3e}), (u, v) equal in every cell, {near} near-tie cells, over "
+        f"{len(cases)} cases (384x1280 and 384x640, cells 16 and 8, constant frames take each "
+        f"cell's first pixel, an (8, 384, 1280) batch equal to its single images); map entry max "
+        f"abs err {max(map_errs):.3e}, batch images equal")
+    for label, t in times.items():
+        d, c = t["device"], t["call"]
+        say(f"K1 at {label.upper()} 384x1280 cell 16, median device time: fused {d['fused']:.4f} ms, "
+            f"map route (map entry + torch cell_reduce) {d['map_route']:.4f} ms, plain pair "
+            f"{d['plain']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); with the launch "
+            f"from Python: fused {c['fused']:.4f}, map route {c['map_route']:.4f}, plain {c['plain']:.4f} ms")
+    return {
+        "max_abs_err": max(errs + map_errs), "ms": t1["device"]["fused"], "plain_ms": t1["device"]["plain"],
+        "bound": t1["bound"], "map_route_ms": t1["device"]["map_route"],
+        "call_ms": t1["call"]["fused"], "near_tie_cells": near, "best_bitwise": bitwise,
+        "b8": {"ms": t8["device"]["fused"], "plain_ms": t8["device"]["plain"],
+               "map_route_ms": t8["device"]["map_route"], "bound_ms": t8["bound"][0]},
+    }
 
 
 def check_k2(torch, seed):
@@ -170,16 +270,22 @@ def check_k2(torch, seed):
     real_proto, real_coef = single["proto"].contiguous(), det.mcoef.contiguous()
     err_real = compare(real_proto, real_coef)
 
-    ms = median_ms(torch, mc.mask_combine, (proto, coef), spin=True)
-    plain_ms = median_ms(torch, mc.mask_combine_reference, (proto, coef), spin=True)
-    call_ms = median_ms(torch, mc.mask_combine, (proto, coef), spin=False)
-    plain_call_ms = median_ms(torch, mc.mask_combine_reference, (proto, coef), spin=False)
+    fns = {"kernel": lambda: mc.mask_combine(proto, coef),
+           "plain": lambda: mc.mask_combine_reference(proto, coef)}
+    dev, call = median_ms(torch, fns, spin=True), median_ms(torch, fns, spin=False)
+    # coef, proto read once and the masks written once; 2 K nm flops per
+    # mask pixel for the product and 4 for the sigmoid
+    K, nm = coef.shape
+    P = proto.shape[0] * proto.shape[1]
+    bound = bound_ms(4 * (K * nm + P * nm + K * P), 2 * K * nm * P + 4 * K * P)
     say(f"K2 matches plain: max abs err random (32, 96x160, 32) {err_rand:.3e}, ragged "
         f"(5, 37x61, 32) {err_ragged:.3e}, detector frame 0 {tuple(real_coef.shape)} x "
         f"{tuple(real_proto.shape)} {err_real:.3e} (bound {K2_ATOL}); median device time "
-        f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain at (32, 96x160, 32); with the "
-        f"launch from Python {call_ms:.4f} ms vs {plain_call_ms:.4f} ms")
-    return max(err_rand, err_ragged, err_real), ms, plain_ms
+        f"{dev['kernel']:.4f} ms kernel vs {dev['plain']:.4f} ms plain at (32, 96x160, 32), "
+        f"bound {bound[0]:.5f} ms ({bound[1]}); with the launch from Python {call['kernel']:.4f} "
+        f"ms vs {call['plain']:.4f} ms")
+    return {"max_abs_err": max(err_rand, err_ragged, err_real), "ms": dev["kernel"],
+            "plain_ms": dev["plain"], "bound": bound, "call_ms": call["kernel"]}
 
 
 def rot_trans_err(torch, lie, A, B):
@@ -249,11 +355,12 @@ def run_bench_path(torch, seed, ref_path, device="cuda"):
     step = make_fused_step(cfg, intr, torch.Generator(device=device).manual_seed(seed))
     state = init_pipeline_state(cfg, device)
 
-    st.shi_tomasi_response.launches = 0
+    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
     outs, times = _drive(torch, step, state, frames, device)
-    launches = st.shi_tomasi_response.launches
-    if device == "cuda" and launches != BENCH_FRAMES:
-        raise AssertionError(f"K1 launched {launches} times over {BENCH_FRAMES} frames")
+    launches, map_launches = st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches
+    if device == "cuda" and (launches, map_launches) != (BENCH_FRAMES, 0):
+        raise AssertionError(f"fused K1 launched {launches} times and the map entry {map_launches} "
+                             f"times over {BENCH_FRAMES} frames")
 
     X = torch.stack([o["X_world_cam"] for o in outs])
     rot, trans = rot_trans_err(torch, lie, X, scene.scn.X_gt)
@@ -261,12 +368,13 @@ def run_bench_path(torch, seed, ref_path, device="cuda"):
         raise AssertionError(f"camera vs ground truth: {float(trans.max())} m, {float(rot.max())} rad")
     tr, rr, n_mot, mot = compare_to_reference(torch, lie, outs, np.load(ref_path), device)
     say(f"bench path: {BENCH_FRAMES} frames of bench_config on {frames[0].depth.device} "
-        f"(window of 10 advanced {BENCH_FRAMES - 10} times), K1 launches {launches}; camera vs "
+        f"(window of 10 advanced {BENCH_FRAMES - 10} times), fused K1 launches {launches}, map "
+        f"entry {map_launches}; camera vs "
         f"GT max {float(trans.max()):.2e} m / {float(rot.max()):.2e} rad; vs JAX ref max "
         f"{tr:.2e} m / {rr:.2e} rad; {n_mot} object motions vs JAX ref max {mot:.2e} m; first "
         f"frame {times[0] * 1e3:.1f} ms, median frames 2-10 {statistics.median(times[1:10]) * 1e3:.2f} "
         f"ms, median frames 11-{BENCH_FRAMES} (advancing) {statistics.median(times[10:]) * 1e3:.2f} ms")
-    return {"K1": launches}
+    return {"K1": launches, "K1 map": map_launches}
 
 
 def run_detector_path(torch, seed, ref_path, device="cuda"):
@@ -294,11 +402,12 @@ def run_detector_path(torch, seed, ref_path, device="cuda"):
         labels.append(label)
         return dataclasses.replace(fr, mask=label)
 
-    st.shi_tomasi_response.launches = 0
+    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
     mc.mask_combine.launches = 0
     outs, times = _drive(torch, step, state, frames, device, per_frame=detect)
-    launches = {"K1": st.shi_tomasi_response.launches, "K2": mc.mask_combine.launches}
-    if device == "cuda" and launches != {"K1": DET_FRAMES, "K2": DET_FRAMES}:
+    launches = {"K1": st.shi_tomasi_cell_max.launches, "K2": mc.mask_combine.launches,
+                "K1 map": st.shi_tomasi_response.launches}
+    if device == "cuda" and launches != {"K1": DET_FRAMES, "K2": DET_FRAMES, "K1 map": 0}:
         raise AssertionError(f"kernel launches {launches} over {DET_FRAMES} frames")
 
     ref = np.load(ref_path)
@@ -321,7 +430,8 @@ def run_detector_path(torch, seed, ref_path, device="cuda"):
                              f"{np.nonzero((ids != ref['object_ids']).any(1))[0].tolist()}")
     tr, rr, n_mot, mot = compare_to_reference(torch, lie, outs, ref, device)
     say(f"detector path: {DET_FRAMES} frames of detector_scene at detector_config on "
-        f"{frames[0].depth.device}, K1 launches {launches['K1']}, K2 launches {launches['K2']}; "
+        f"{frames[0].depth.device}, fused K1 launches {launches['K1']}, K2 launches "
+        f"{launches['K2']}, K1 map entry {launches['K1 map']}; "
         f"{n_det} valid detections as in the JAX ref, boxes within {box_err:.2e} px, scores "
         f"{score_err:.2e}; label images agree on >= {agree:.6f} of pixels; object ids equal; "
         f"camera vs JAX ref max {tr:.2e} m / {rr:.2e} rad; {n_mot} object motions vs JAX ref max "
@@ -374,17 +484,23 @@ def main():
     det_launches = run_detector_path(torch, args.seed, os.path.join(testdata, "det_ref_24f.npz"))
 
     # ---- 7. results -------------------------------------------------------------
-    def row(name, kid, source, replaces, check):
+    def row(name, kid, source, replaces, check, **extra):
         by_path = {"bench": bench_launches.get(kid, 0), "detector": det_launches.get(kid, 0)}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
-                "max_abs_err": check[0], "ms": check[1], "plain_ms": check[2]}
+                "max_abs_err": check["max_abs_err"], "ms": check["ms"], "plain_ms": check["plain_ms"],
+                "bound_ms": check["bound"][0], "bound_by": check["bound"][1],
+                # no single PyTorch call computes either kernel's function
+                "library_ms": None, **extra}
 
     print(json.dumps({"kernels": [
-        row("shi_tomasi_response", "K1", "dynosam_tpu_torch/csrc/shi_tomasi.cu",
-            "dynosam_tpu/ops/pallas/shi_tomasi.py:31", k1),
+        row("shi_tomasi_cell_max", "K1", "dynosam_tpu_torch/csrc/shi_tomasi.cu",
+            "dynosam_tpu/ops/pallas/shi_tomasi.py:31", k1,
+            map_launches_by_path={"bench": bench_launches["K1 map"], "detector": det_launches["K1 map"]},
+            map_route_ms=k1["map_route_ms"], call_ms=k1["call_ms"], best_bitwise=k1["best_bitwise"],
+            near_tie_cells=k1["near_tie_cells"], batched_b8=k1["b8"]),
         row("mask_combine", "K2", "dynosam_tpu_torch/csrc/mask_combine.cu",
-            "dynosam_tpu/ops/pallas/mask_combine.py:23", k2),
+            "dynosam_tpu/ops/pallas/mask_combine.py:23", k2, call_ms=k2["call_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,13 +2,15 @@
 
 Each module sits at the same relative path as its JAX counterpart in
 `dynosam_tpu/` and keeps its public function names; `dynosam_tpu` stays the
-reference that the port is tested against. The port imports no JAX: it
-shares only `dynosam_tpu.config` (pure dataclasses) with the reference.
+reference that the port is tested against. The port imports nothing of the
+JAX package: `config.py` is its own copy of the reference's dataclasses.
 
-This slice covers the fused SLAM step of `parallel/batched.py` on the
-provided-flow frontend and the hybrid backend (decoupled LM), up to a full
-window; the window advance is not ported yet. The Shi-Tomasi corner response
-runs as a hand-written CUDA kernel (`csrc/shi_tomasi.cu`).
+It covers the fused SLAM step of `parallel/batched.py` on the provided-flow
+frontend and the hybrid backend (decoupled LM, sliding window with its
+advance), and the detector path (YOLOv8-seg, ByteTrack). The hand-written
+CUDA kernels are in `csrc/`: the Shi-Tomasi response fused with the per-cell
+argmax (`shi_tomasi.cu`) and the YOLO mask combination (`mask_combine.cu`).
+Entry points that make tensors run on the card unless given a device.
 """
 
 __version__ = "0.1.0"

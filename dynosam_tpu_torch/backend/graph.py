@@ -18,7 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-from dynosam_tpu.config import BackendParams
+from dynosam_tpu_torch.config import BackendParams
 from dynosam_tpu_torch.cv import camera as cam
 from dynosam_tpu_torch.frontend.types import VisionPacket, first_true
 from dynosam_tpu_torch.utils import lie

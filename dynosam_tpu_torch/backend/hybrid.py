@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from dynosam_tpu.config import BackendParams
+from dynosam_tpu_torch.config import BackendParams
 from dynosam_tpu_torch.backend import factors
 from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.backend.solver import (

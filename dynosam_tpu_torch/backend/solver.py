@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from dynosam_tpu.config import BackendParams
+from dynosam_tpu_torch.config import BackendParams
 from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.utils import lie
 

@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from dynosam_tpu.config import BackendParams
+from dynosam_tpu_torch.config import BackendParams
 from dynosam_tpu_torch.backend import factors
 from dynosam_tpu_torch.backend import hybrid as hyb
 from dynosam_tpu_torch.backend.graph import GraphState

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from dynosam_tpu.config import (
+from dynosam_tpu_torch.config import (
     BackendParams,
     DynoConfig,
     FrontendParams,
@@ -97,7 +97,7 @@ def _bench_spec(num_frames):
     )
 
 
-def bench_scene(intr, num_frames=10, device="cpu") -> DenseScenario:
+def bench_scene(intr, num_frames=10, device="cuda") -> DenseScenario:
     """The benchmark's synthetic scene: camera driving forward with a slight
     yaw, three objects on the road."""
     return DenseScenario(_bench_spec(num_frames), intr, ground_y=1.6, far_depth=60.0,
@@ -117,7 +117,7 @@ def detector_config():
     return cfg, intr
 
 
-def detector_scene(intr, num_frames=24, device="cpu") -> DenseScenario:
+def detector_scene(intr, num_frames=24, device="cuda") -> DenseScenario:
     """The bench scene's camera motion and objects, rendered with the
     world-anchored texture and the per-class object appearance the
     checkpoint was trained on: two class-0 objects (1.8 x 0.8 m half

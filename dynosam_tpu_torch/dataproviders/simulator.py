@@ -39,7 +39,7 @@ class Scenario:
     X_gt (K, 4, 4) world_from_cam; per object L_gt (K, 4, 4) body poses and
     H_gt (K, 4, 4) world-frame motions H_k = L_k L_{k-1}^{-1} (identity at 0)."""
 
-    def __init__(self, spec: ScenarioSpec, device="cpu"):
+    def __init__(self, spec: ScenarioSpec, device="cuda"):
         self.spec = spec
         K = spec.num_frames
 

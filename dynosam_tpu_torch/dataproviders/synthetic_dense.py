@@ -41,7 +41,7 @@ class DenseScenario:
         object_texture: bool = False,
         object_half_extents=None,   # per-object (ex, ey); default 1.2 x 1.2 m
         object_classes=None,        # optional per-object class ids
-        device="cpu",
+        device="cuda",
     ):
         assert intr.width > 0 and intr.height > 0
         self.device = torch.device(device)
@@ -202,7 +202,7 @@ class DenseScenario:
 
 
 def default_dense_scenario(
-    num_frames=10, width=160, height=120, fov_scale=0.5, device="cpu"
+    num_frames=10, width=160, height=120, fov_scale=0.5, device="cuda"
 ) -> DenseScenario:
     """The small dense test scene of the reference: camera driving forward,
     two objects."""

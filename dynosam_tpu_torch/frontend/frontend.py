@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from dynosam_tpu.config import FrontendParams
+from dynosam_tpu_torch.config import FrontendParams
 from dynosam_tpu_torch.cv import camera as cam
 from dynosam_tpu_torch.frontend import motion
 from dynosam_tpu_torch.frontend import tracker as tracker_mod

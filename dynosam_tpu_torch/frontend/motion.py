@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dynosam_tpu.config import MotionSolverParams
+from dynosam_tpu_torch.config import MotionSolverParams
 from dynosam_tpu_torch.cv import camera as cam
 from dynosam_tpu_torch.ops import gauss_newton, kabsch, ransac
 from dynosam_tpu_torch.utils import lie

@@ -8,9 +8,10 @@ relabelling of masks that carry no persistent ids
 (prefer_provided_object_detection=False). The KLT branch and CLAHE are not
 ported: asking for them raises NotImplementedError.
 
-The corner response goes through `ops/cuda/shi_tomasi.py::shi_tomasi_response`
-when `tracker.use_pallas_kernels` is set (the CUDA kernel for a CUDA tensor,
-its plain version for a CPU tensor).
+Detection goes through `ops/cuda/shi_tomasi.py::shi_tomasi_cell_max` when
+`tracker.use_pallas_kernels` is set (the fused response + per-cell argmax
+kernel for a CUDA tensor, its plain version for a CPU tensor), else through
+the plain response and `_cell_reduce`.
 """
 
 from __future__ import annotations
@@ -19,12 +20,13 @@ from dataclasses import dataclass
 
 import torch
 
-from dynosam_tpu.config import FrontendParams, TrackerParams
+from dynosam_tpu_torch.config import FrontendParams, TrackerParams
 from dynosam_tpu_torch.frontend.types import first_true
 from dynosam_tpu_torch.nn import bytetrack as bt
 from dynosam_tpu_torch.ops import interp
 from dynosam_tpu_torch.ops.cuda.shi_tomasi import (
-    shi_tomasi_response as shi_tomasi_response_kernel,
+    cell_reduce as _cell_reduce,
+    shi_tomasi_cell_max,
     shi_tomasi_response_reference as shi_tomasi_response,
 )
 
@@ -88,22 +90,6 @@ def empty_tracker_state(params: FrontendParams, device, dtype=torch.float32) -> 
 # ---------------------------------------------------------------------------
 # Detection primitives
 # ---------------------------------------------------------------------------
-
-def _cell_reduce(score, cell):
-    """Per-cell max + argmax pixel coords (first index on ties).
-    score (H, W) -> best, u, v each (H//cell * W//cell,)."""
-    H, W = score.shape
-    gh, gw = H // cell, W // cell
-    s = score[: gh * cell, : gw * cell].reshape(gh, cell, gw, cell)
-    s = s.permute(0, 2, 1, 3).reshape(gh, gw, cell * cell)
-    best = torch.amax(s, dim=-1)
-    arg = torch.argmax(s, dim=-1)
-    dy, dx = arg // cell, arg % cell
-    dev = score.device
-    vs = torch.arange(gh, device=dev)[:, None] * cell + dy
-    us = torch.arange(gw, device=dev)[None, :] * cell + dx
-    return best.reshape(-1), us.reshape(-1).to(score.dtype), vs.reshape(-1).to(score.dtype)
-
 
 def _occupancy(uv, valid, cell, gh, gw):
     """Grid cells holding a valid feature -> (gh*gw,) bool. Invalid rows
@@ -224,10 +210,9 @@ def track_frame(
     cell = tp.detection_cell_size
     gh, gw = H // cell, W // cell
     if tp.use_pallas_kernels:
-        response = shi_tomasi_response_kernel(gray)
+        best, cu, cv = shi_tomasi_cell_max(gray, cell)
     else:
-        response = shi_tomasi_response(gray)
-    best, cu, cv = _cell_reduce(response, cell)
+        best, cu, cv = _cell_reduce(shi_tomasi_response(gray), cell)
     cand_uv = torch.stack([cu, cv], dim=-1)
     cand_label = interp.sample_label(mask, cand_uv)
     cand_depth = interp.sample_depth(depth, cand_uv).to(dtype)

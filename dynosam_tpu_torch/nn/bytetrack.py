@@ -34,7 +34,7 @@ class ByteTrackState:
     next_id: torch.Tensor     # () int32
 
 
-def empty_state(capacity: int = 32, device="cpu") -> ByteTrackState:
+def empty_state(capacity: int = 32, device="cuda") -> ByteTrackState:
     return ByteTrackState(
         mean=torch.zeros((capacity, 8), device=device),
         cov=torch.eye(8, device=device).expand(capacity, 8, 8).clone(),

@@ -84,7 +84,7 @@ class YoloV8DetectorEngine:
         class_ids: Optional[Sequence[int]] = DEFAULT_CLASS_FILTER,
         mask_threshold: float = 0.5,
         checkpoint: str = CKPT_PATH,
-        device="cpu",
+        device="cuda",
     ):
         """Default (model=None): the committed checkpoint, with its class
         count and scale from its metadata; a head of fewer than 80 classes

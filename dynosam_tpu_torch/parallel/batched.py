@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from dynosam_tpu.config import DynoConfig
+from dynosam_tpu_torch.config import DynoConfig
 from dynosam_tpu_torch.backend import graph as graph_mod
 from dynosam_tpu_torch.backend import hybrid as hybrid_mod
 from dynosam_tpu_torch.backend import window as window_mod

@@ -19,6 +19,7 @@ Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -75,6 +76,7 @@ def detector_reference():
     import numpy as np
     from flax import serialization
 
+    from dynosam_tpu.config import DynoConfig
     from dynosam_tpu.cv import camera as jcam
     from dynosam_tpu.dataproviders.simulator import ObjectSpec, ScenarioSpec
     from dynosam_tpu.dataproviders.synthetic_dense import DenseScenario
@@ -83,8 +85,9 @@ def detector_reference():
     from dynosam_tpu_torch import bench_config as tbench
 
     t0 = time.time()
-    cfg, tintr = tbench.detector_config()
-    tscene = tbench.detector_scene(tintr, DET_FRAMES)
+    tcfg, tintr = tbench.detector_config()
+    cfg = DynoConfig.from_dict(dataclasses.asdict(tcfg))
+    tscene = tbench.detector_scene(tintr, DET_FRAMES, device="cpu")
     intr = jcam.CameraIntrinsics.create(tintr.fx, tintr.fy, tintr.cx, tintr.cy, width=tintr.width,
                                         height=tintr.height, baseline=tintr.baseline)
     sp = tscene.scn.spec

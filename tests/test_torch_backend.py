@@ -26,7 +26,7 @@ from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.convert import dataclass_to_numpy
 from dynosam_tpu_torch.cv import camera as tcam
 from dynosam_tpu_torch.frontend.types import VisionPacket
-from torch_port_util import assert_tree_matches, np_tree, small_cfg, to_port
+from torch_port_util import assert_tree_matches, np_tree, port_cfg, small_cfg, to_port
 
 torch.set_num_threads(1)
 NUM_FRAMES = 5        # 4 fill the window, the 5th follows a reference advance
@@ -77,7 +77,7 @@ def _graph(jg):
 def test_update_from_packet_hybrid(run, k):
     bcfg, intr, records = run
     g_in, packet, g_out = records[k]
-    got = tgraph.update_from_packet_hybrid(_graph(g_in), to_port(VisionPacket, packet), intr, bcfg)
+    got = tgraph.update_from_packet_hybrid(_graph(g_in), to_port(VisionPacket, packet), intr, port_cfg(bcfg))
     ref = np_tree(g_out)
     if k == NUM_FRAMES - 1:
         assert bool(ref["prior_valid"])
@@ -96,7 +96,7 @@ def test_linearize(run, k, dynamic_scale):
     jg = records[k][2]
     lam = 1e-3
     ref = jhybrid.linearize(jg, bcfg, jnp.asarray(lam, jnp.float32), dynamic_scale=dynamic_scale)
-    got = thybrid.linearize(_graph(jg), bcfg, torch.tensor(lam), dynamic_scale=dynamic_scale)
+    got = thybrid.linearize(_graph(jg), port_cfg(bcfg), torch.tensor(lam), dynamic_scale=dynamic_scale)
     for name in ("S", "rhs"):
         r, g = np.asarray(getattr(ref, name)), getattr(got, name).numpy()
         np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4 * np.abs(r).max(), err_msg=name)
@@ -108,7 +108,7 @@ def test_total_error(run, k, dynamic_scale):
     bcfg, _, records = run
     jg = records[k][2]
     ref = float(jhybrid.total_error(jg, bcfg, dynamic_scale=dynamic_scale))
-    got = float(thybrid.total_error(_graph(jg), bcfg, dynamic_scale=dynamic_scale))
+    got = float(thybrid.total_error(_graph(jg), port_cfg(bcfg), dynamic_scale=dynamic_scale))
     assert got == pytest.approx(ref, rel=1e-4)
 
 
@@ -117,7 +117,7 @@ def test_optimize_decoupled(run, k):
     bcfg, _, records = run
     jg = records[k][2]
     ref = jhybrid.optimize_decoupled(jg, bcfg)
-    got = thybrid.optimize_decoupled(_graph(jg), bcfg)
+    got = thybrid.optimize_decoupled(_graph(jg), port_cfg(bcfg))
     # H loosened from 1e-4 to 5e-4: the object phase is ill-conditioned on
     # these few-frame states — the reference itself moves H[0, 3] by 8e-5
     # when its input poses are scaled by (1 + 1e-7), one f32 rounding
@@ -152,7 +152,7 @@ def test_step_gating_and_clipping(gated):
     n = 6 * F + 6 * J * F
     dx = (rng.standard_normal(n) * rng.choice([1e-4, 1.0], n)).astype(np.float32)
     ref = jsolver.gate_dx_by_type(jnp.asarray(dx), F, op)
-    got = tsolver.gate_dx_by_type(torch.from_numpy(dx), F, op)
+    got = tsolver.gate_dx_by_type(torch.from_numpy(dx), F, port_cfg(op))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     np.testing.assert_allclose(
         thybrid._clip_step(torch.from_numpy(dx), 0.2).numpy(),
@@ -164,5 +164,5 @@ def test_step_gating_and_clipping(gated):
 def test_damping_update(ok):
     op = OptimizerParams()
     ref = jsolver.damping_update(jnp.asarray(ok), jnp.asarray(1e-2, jnp.float32), op, 1e-4)
-    got = tsolver.damping_update(torch.tensor(ok), torch.tensor(1e-2), op, 1e-4)
+    got = tsolver.damping_update(torch.tensor(ok), torch.tensor(1e-2), port_cfg(op), 1e-4)
     assert float(got) == pytest.approx(float(ref), rel=1e-6)

@@ -19,7 +19,7 @@ from dynosam_tpu.nn import bytetrack as jbt
 from dynosam_tpu_torch.convert import dataclass_to_numpy
 from dynosam_tpu_torch.frontend import tracker as ttracker
 from dynosam_tpu_torch.nn import bytetrack as tbt
-from torch_port_util import assert_tree_matches, np_tree, small_cfg, t, to_port
+from torch_port_util import assert_tree_matches, np_tree, port_cfg, small_cfg, t, to_port
 
 torch.set_num_threads(1)
 TOL = 1e-4     # f32 Kalman algebra: ~1e-6 relative on box coordinates ~1e2
@@ -98,7 +98,7 @@ def _sequences():
 
 @pytest.mark.parametrize("case", ["two_objects", "occlusion", "low_score"])
 def test_bytetrack_step_sequence(case):
-    js, ts = jbt.empty_state(16), tbt.empty_state(16)
+    js, ts = jbt.empty_state(16), tbt.empty_state(16, device="cpu")
     step = jax.jit(jbt.bytetrack_step)
     for b, v, s in _sequences()[case]:
         js, jids = step(js, jnp.asarray(b), jnp.asarray(s), jnp.asarray(v))
@@ -148,7 +148,7 @@ def test_track_frame_relabels_untracked_masks(relabel_frames):
     for k, (gray, depth, flow, mask) in enumerate(relabel_frames):
         tstate = to_port(ttracker.TrackerState, jstate)
         jstate = jstep(jstate, gray, depth, flow, mask, jnp.asarray(k == 0))
-        tnew = ttracker.track_frame(tstate, t(gray), t(depth), t(flow), t(mask), params,
+        tnew = ttracker.track_frame(tstate, t(gray), t(depth), t(flow), t(mask), port_cfg(params),
                                     first_frame=torch.tensor(k == 0))
         assert_tree_matches(np_tree(jstate), dataclass_to_numpy(tnew), atol=1e-4)
         o = tnew.obj_ids.numpy()

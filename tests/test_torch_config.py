@@ -1,0 +1,105 @@
+"""The port stands alone: its copy of the configuration equals the
+reference's, field for field; no module of the port and nothing in
+chip_smoke.py imports the JAX package; and the entry points that make
+tensors default to the card, not the CPU."""
+
+import ast
+import dataclasses
+import inspect
+import os
+
+import pytest
+
+from dynosam_tpu import config as jconfig
+from dynosam_tpu_torch import bench_config as tbench
+from dynosam_tpu_torch import config as tconfig
+from dynosam_tpu_torch.dataproviders import simulator as tsim
+from dynosam_tpu_torch.dataproviders import synthetic_dense as tdense
+from dynosam_tpu_torch.nn import bytetrack as tbt
+from dynosam_tpu_torch.nn import detector as tdet
+from torch_port_util import port_cfg, small_cfg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG_CLASSES = sorted(
+    name for name, obj in vars(jconfig).items()
+    if dataclasses.is_dataclass(obj) and obj.__module__ == jconfig.__name__
+)
+
+
+def _default(f):
+    if f.default is not dataclasses.MISSING:
+        return f.default
+    if f.default_factory is not dataclasses.MISSING:
+        v = f.default_factory()
+        return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+    return dataclasses.MISSING
+
+
+@pytest.mark.parametrize("name", CONFIG_CLASSES)
+def test_config_dataclass_matches_the_reference(name):
+    jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+    assert dataclasses.is_dataclass(tcls)
+    jf, tf = dataclasses.fields(jcls), dataclasses.fields(tcls)
+    assert [f.name for f in tf] == [f.name for f in jf]
+    for a, b in zip(jf, tf):
+        assert str(b.type) == str(a.type), a.name
+        assert _default(b) == _default(a), a.name
+    assert dataclasses.asdict(tcls()) == dataclasses.asdict(jcls())
+
+
+def test_config_methods_match_the_reference():
+    j = small_cfg()
+    t = port_cfg(j)
+    assert isinstance(t, tconfig.DynoConfig)
+    assert dataclasses.asdict(t.normalized()) == dataclasses.asdict(j.normalized())
+    over = {"frontend.tracker.detection_cell_size": 16, "odometry_rotation_sigma": 0.3}
+    assert dataclasses.asdict(t.with_overrides(over)) == dataclasses.asdict(j.with_overrides(over))
+    raw = {"backend": {"max_frames": 7, "noise": {"robust_k_huber": 2.0}}, "unknown": 1}
+    assert (dataclasses.asdict(tconfig.DynoConfig.from_dict(raw))
+            == dataclasses.asdict(jconfig.DynoConfig.from_dict(raw)))
+    with pytest.raises(KeyError):
+        t.with_overrides({"no_such_field": 1})
+
+
+def _port_sources():
+    for base, _, files in os.walk(os.path.join(ROOT, "dynosam_tpu_torch")):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(base, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _reaches_the_jax_package(name):
+    return name is not None and name.split(".")[0] in ("dynosam_tpu", "jax", "jaxlib", "flax")
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """Every import statement, at any depth (inside functions too)."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}" for n in names
+                    if _reaches_the_jax_package(n)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", [
+    tsim.Scenario.__init__,
+    tdense.DenseScenario.__init__,
+    tdense.default_dense_scenario,
+    tbench.bench_scene,
+    tbench.detector_scene,
+    tdet.YoloV8DetectorEngine.__init__,
+    tbt.empty_state,
+], ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_the_card(entry):
+    default = inspect.signature(entry).parameters["device"].default
+    assert default in ("cuda", inspect.Parameter.empty), default

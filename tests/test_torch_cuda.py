@@ -1,5 +1,6 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels (K1
-Shi-Tomasi, K2 mask combination) against their plain versions, the
+Shi-Tomasi with its fused per-cell argmax, K2 mask combination) against
+their plain versions, the
 detector engine and the fused step past its window on the card against the
 same code on the CPU. They skip without a CUDA device. This file imports no JAX, so it
 also runs where JAX is absent:
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from dynosam_tpu.config import (
+from dynosam_tpu_torch.config import (
     BackendParams,
     DynoConfig,
     FrontendParams,
@@ -20,7 +21,6 @@ from dynosam_tpu.config import (
 )
 from dynosam_tpu_torch.bench_config import detector_config, detector_scene
 from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario
-from dynosam_tpu_torch.frontend.tracker import _cell_reduce
 from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
 from dynosam_tpu_torch.ops.cuda import mask_combine as mc
 from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
@@ -55,8 +55,8 @@ def test_batched_kernel_equals_single_images(cuda):
 
 def test_constant_frame_ties_take_the_first_index(cuda):
     img = torch.full((64, 96), 0.3, device="cuda")
-    for a, b in zip(_cell_reduce(st.shi_tomasi_response(img), 16),
-                    _cell_reduce(st.shi_tomasi_response_reference(img), 16)):
+    for a, b in zip(st.cell_reduce(st.shi_tomasi_response(img), 16),
+                    st.cell_reduce(st.shi_tomasi_response_reference(img), 16)):
         assert torch.equal(a, b)
 
 
@@ -64,6 +64,59 @@ def test_kernel_rejects_a_noncontiguous_tensor(cuda):
     img = torch.rand((64, 96), generator=cuda, device="cuda")
     with pytest.raises(ValueError):
         st.shi_tomasi_response(img.t())
+
+
+@pytest.mark.parametrize("batch", [None, 8])
+@pytest.mark.parametrize("cell", [8, 16])
+@pytest.mark.parametrize("hw", [(384, 1280), (384, 640), (100, 90)])
+def test_fused_cell_max_equals_plain_version(cuda, hw, cell, batch):
+    """Responses bit for bit (no FMA contraction on either side), so the
+    per-cell maxima and their pixels are equal in every cell."""
+    shape = hw if batch is None else (batch, *hw)
+    img = torch.rand(shape, generator=cuda, device="cuda")
+    before = st.shi_tomasi_cell_max.launches
+    got = st.shi_tomasi_cell_max(img, cell)
+    assert st.shi_tomasi_cell_max.launches == before + 1
+    ref = st.shi_tomasi_cell_max_reference(img, cell)
+    for name, a, b in zip("best u v".split(), got, ref):
+        assert a.shape == b.shape == (*shape[:-2], (hw[0] // cell) * (hw[1] // cell)), name
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    if batch is not None:
+        for b in range(batch):
+            for a, one in zip(got, st.shi_tomasi_cell_max(img[b].contiguous(), cell)):
+                assert torch.equal(a[b], one)
+
+
+@pytest.mark.parametrize("cell", [8, 16])
+def test_fused_cell_max_ties_take_each_cells_first_pixel(cuda, cell):
+    img = torch.full((384, 640), 0.5, device="cuda")
+    best, u, v = st.shi_tomasi_cell_max(img, cell)
+    gw = 640 // cell
+    cells = torch.arange(best.numel(), device="cuda")
+    assert torch.equal(u, (cells % gw * cell).float()) and torch.equal(v, (cells // gw * cell).float())
+    for a, b in zip((best, u, v), st.shi_tomasi_cell_max_reference(img, cell)):
+        assert torch.equal(a, b)
+
+
+def test_fused_cell_max_takes_nan_as_the_largest(cuda):
+    img = torch.rand((64, 96), generator=cuda, device="cuda")
+    img[20, 37] = float("nan")
+    got = st.shi_tomasi_cell_max(img, 16)
+    ref = st.shi_tomasi_cell_max_reference(img, 16)
+    assert bool(torch.isnan(got[0]).any())
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("bad", ["cell12", "float64", "noncontiguous", "rank1"])
+def test_fused_cell_max_rejects_what_the_kernel_does_not_take(cuda, bad):
+    img = torch.rand((64, 96), generator=cuda, device="cuda")
+    arg, cell = {"cell12": (img, 12), "float64": (img.double(), 16),
+                 "noncontiguous": (img.t(), 8), "rank1": (img.reshape(-1), 8)}[bad]
+    before = st.shi_tomasi_cell_max.launches
+    with pytest.raises((TypeError, ValueError)):
+        st.shi_tomasi_cell_max(arg, cell)
+    assert st.shi_tomasi_cell_max.launches == before
 
 
 @pytest.mark.parametrize("k, hp, wp, nm", [(32, 96, 160, 32), (5, 37, 61, 32), (1, 1, 1, 32),
@@ -90,7 +143,7 @@ def test_mask_combine_rejects_what_the_kernel_does_not_take(cuda):
 
 def test_detector_engine_on_the_card_matches_the_cpu(cuda):
     _, intr = detector_config()
-    rgb = detector_scene(intr, 1).frame(0).rgb
+    rgb = detector_scene(intr, 1, device="cpu").frame(0).rgb
     dets = {}
     for dev in ("cpu", "cuda"):
         launches = mc.mask_combine.launches
@@ -122,7 +175,7 @@ def test_fused_step_on_the_card_matches_the_cpu(cuda):
         gen = torch.Generator(device=dev).manual_seed(0)
         step = make_fused_step(cfg, scene.intr, gen)
         state = init_pipeline_state(cfg, dev)
-        launches = st.shi_tomasi_response.launches
+        launches = (st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches)
         xs = []
         for k in range(5):
             state, out = step(state, scene.frame(k))
@@ -130,6 +183,7 @@ def test_fused_step_on_the_card_matches_the_cpu(cuda):
         outs[dev] = np.stack(xs)
         assert bool(state.graph.prior_valid)
         if dev == "cuda":
-            assert st.shi_tomasi_response.launches == launches + 5
+            assert (st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches) == (
+                launches[0] + 5, launches[1])
     # noise-free scene: RANSAC's outcome does not depend on the draws
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4)

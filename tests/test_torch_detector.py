@@ -258,14 +258,14 @@ def test_engine_end_to_end_on_a_textured_frame(checkpoint):
     through both engines with the committed weights."""
     variables, meta, model = checkpoint
     _, intr = tbench.detector_config()
-    scene = tbench.detector_scene(intr, num_frames=1)
+    scene = tbench.detector_scene(intr, num_frames=1, device="cpu")
     rgb = np.asarray(jax_dense(scene).frame(0).rgb)
     # the renderers agree on the textured frame
     np.testing.assert_allclose(scene.frame(0).rgb.numpy(), rgb, atol=1e-5)
     kw = dict(input_hw=(intr.height, intr.width), class_ids=None)
     jeng = jdet.YoloV8DetectorEngine(variables, num_classes=meta["num_classes"], scale=meta["scale"],
                                      use_pallas_masks=False, **kw)
-    teng = tdet.YoloV8DetectorEngine(model, **kw)
+    teng = tdet.YoloV8DetectorEngine(model, device="cpu", **kw)
     jlab, jd = jeng.detect(jnp.asarray(rgb))
     tlab, td = teng.detect(t(rgb))
     v = np.asarray(jd.valid)

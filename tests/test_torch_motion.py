@@ -19,7 +19,7 @@ from dynosam_tpu_torch.cv import camera as tcam
 from dynosam_tpu_torch.frontend import motion as tmotion
 from dynosam_tpu_torch.ops import kabsch as tkabsch
 from dynosam_tpu_torch.ops import ransac as transac
-from torch_port_util import t
+from torch_port_util import port_cfg, t
 
 torch.set_num_threads(1)
 ATOL = 1e-4
@@ -31,6 +31,7 @@ PARAMS = MotionSolverParams(
     object_refinement_iterations=2,
     refit_rounds=1,
 )
+T_PARAMS = port_cfg(PARAMS)
 J_INTR = jcam.CameraIntrinsics.create(200.0, 200.0, 80.0, 60.0, width=160, height=120)
 T_INTR = tcam.CameraIntrinsics.create(200.0, 200.0, 80.0, 60.0, width=160, height=120)
 
@@ -111,7 +112,7 @@ def test_solve_camera_pose():
     )
     u = np.asarray(jax.random.uniform(key, (M, pw.shape[0])))
     got = tmotion.solve_camera_pose(
-        None, t(pw), t(uv), t(pc), t(valid), T_INTR, PARAMS, t(X_prior), uniforms=t(u)
+        None, t(pw), t(uv), t(pc), t(valid), T_INTR, T_PARAMS, t(X_prior), uniforms=t(u)
     )
     assert bool(ref.valid) and bool(got.valid)
     np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(ref.inliers))
@@ -148,7 +149,7 @@ def test_solve_all_object_motions():
     u = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (M, n)))(keys))
     got = tmotion.solve_all_object_motions(
         None, t(object_ids), t(labels), t(p_prev), t(uv), t(p_k), t(valid), t(X_k),
-        T_INTR, PARAMS, uniforms=t(u),
+        T_INTR, T_PARAMS, uniforms=t(u),
     )
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     assert got.valid.numpy().tolist() == [True, True, False, False]
@@ -176,7 +177,7 @@ def test_joint_flow_pose_refine(batched):
             jnp.asarray(valid), J_INTR, PARAMS,
         )
     got = tmotion.joint_flow_pose_refine(
-        t(T0), t(pw), t(kp_prev), t(flow), t(valid), T_INTR, PARAMS
+        t(T0), t(pw), t(kp_prev), t(flow), t(valid), T_INTR, T_PARAMS
     )
     for g, r in zip(got, ref):
         r = np.asarray(r)

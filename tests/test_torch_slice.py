@@ -22,7 +22,7 @@ from dynosam_tpu_torch import convert
 from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario as t_dense
 from dynosam_tpu_torch.parallel import batched as tbatched
 from dynosam_tpu_torch.utils import lie as tlie
-from torch_port_util import assert_tree_matches, jax_dense, np_tree, small_cfg
+from torch_port_util import assert_tree_matches, jax_dense, np_tree, port_cfg, small_cfg
 
 torch.set_num_threads(1)
 NUM_FRAMES = 4
@@ -32,11 +32,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def fused_runs():
     cfg = small_cfg(max_frames=NUM_FRAMES)
-    jd, td = j_dense(num_frames=NUM_FRAMES + 1), t_dense(num_frames=NUM_FRAMES + 1)
+    jd, td = j_dense(num_frames=NUM_FRAMES + 1), t_dense(num_frames=NUM_FRAMES + 1, device="cpu")
     jstep = jax.jit(jbatched.make_fused_step(cfg, jd.intr))
     js = jbatched.init_pipeline_state(cfg)
-    tstep = tbatched.make_fused_step(cfg, td.intr, torch.Generator().manual_seed(0))
-    ts = tbatched.init_pipeline_state(cfg, "cpu")
+    tcfg = port_cfg(cfg)
+    tstep = tbatched.make_fused_step(tcfg, td.intr, torch.Generator().manual_seed(0))
+    ts = tbatched.init_pipeline_state(tcfg, "cpu")
     jouts, touts = [], []
     for k in range(NUM_FRAMES):
         js, jo = jstep(js, jd.frame(k))
@@ -82,9 +83,9 @@ def test_fused_step_state_after_window(fused_runs):
     assert_tree_matches(ref, got, atol=1e-3)
 
 
-def test_fused_step_raises_when_the_window_would_advance(fused_runs):
-    """The frame that once raised here now advances the full window: it
-    runs, keeps the window at its size and turns the marginal prior on
+def test_fused_step_advances_the_full_window(fused_runs):
+    """The frame after a full window advances it: the step runs, keeps the
+    window at its size and turns the marginal prior on
     (tests/test_torch_window.py holds the advance to the reference)."""
     _, _, _, (tstep, ts, td), _ = fused_runs
     assert ts.graph.num_frames == NUM_FRAMES and not bool(ts.graph.prior_valid)
@@ -95,8 +96,8 @@ def test_fused_step_raises_when_the_window_would_advance(fused_runs):
 
 
 def test_unported_backend_and_frontend_options_raise():
-    cfg = small_cfg()
-    intr = t_dense(num_frames=1).intr
+    cfg = port_cfg(small_cfg())
+    intr = t_dense(num_frames=1, device="cpu").intr
     wcme = dataclasses.replace(cfg, backend=dataclasses.replace(cfg.backend, backend_updater_enum=0))
     with pytest.raises(NotImplementedError):
         tbatched.make_fused_step(wcme, intr)
@@ -129,7 +130,7 @@ def _render_both(jdense, tdense, frames):
 
 
 def test_renderer_matches_reference():
-    _render_both(j_dense(num_frames=4), t_dense(num_frames=4), range(4))
+    _render_both(j_dense(num_frames=4), t_dense(num_frames=4, device="cpu"), range(4))
 
 
 @pytest.mark.parametrize("scene", ["world_texture", "detector_scene"])
@@ -140,9 +141,9 @@ def test_textured_renderer_matches_reference(scene):
     _, intr = tbench.detector_config()
     intr = dataclasses.replace(intr, fx=90.0, fy=90.0, cx=w / 2, cy=h / 2, width=w, height=h)
     if scene == "detector_scene":
-        tdense = tbench.detector_scene(intr, num_frames=3)
+        tdense = tbench.detector_scene(intr, num_frames=3, device="cpu")
     else:
-        tdense = tbench.bench_scene(intr, num_frames=3)
+        tdense = tbench.bench_scene(intr, num_frames=3, device="cpu")
         tdense.world_texture = True
     jdense = jax_dense(tdense)
     for k in range(3):
@@ -163,7 +164,7 @@ def test_bench_scene_matches_bench_make_frames():
     _, tintr = tbench.bench_config()
     tintr = dataclasses.replace(tintr, fx=720.0 * s, fy=720.0 * s, cx=w / 2, cy=h / 2, width=w, height=h)
     jframes = bench.make_frames(jintr, num_frames=3)
-    tdense = tbench.bench_scene(tintr, num_frames=3)
+    tdense = tbench.bench_scene(tintr, num_frames=3, device="cpu")
 
     class _Frames:
         def frame(self, k):
@@ -175,7 +176,7 @@ def test_bench_scene_matches_bench_make_frames():
 def test_bench_config_matches_bench():
     jcfg, jintr = bench.bench_config()
     tcfg, tintr = tbench.bench_config()
-    assert tcfg == jcfg
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     for f in ("fx", "fy", "cx", "cy"):
         assert getattr(tintr, f) == float(getattr(jintr, f))
     assert (tintr.width, tintr.height, tintr.baseline) == (jintr.width, jintr.height, jintr.baseline)
@@ -185,7 +186,8 @@ def test_detector_config_is_bench_config_with_detector_masks():
     bcfg, _ = bench.bench_config()
     cfg, intr = tbench.detector_config()
     assert not cfg.frontend.tracker.prefer_provided_object_detection
-    assert cfg == bcfg.with_overrides({"frontend.tracker.prefer_provided_object_detection": False})
+    ref = bcfg.with_overrides({"frontend.tracker.prefer_provided_object_detection": False})
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
     # the camera the committed checkpoint was trained at
     assert (intr.width, intr.height, intr.fx, intr.fy, intr.cx, intr.cy) == (640, 384, 360.0, 360.0, 320.0, 192.0)
 
@@ -195,7 +197,8 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys, dynosam_tpu_torch\n"
         "for m in pkgutil.walk_packages(dynosam_tpu_torch.__path__, 'dynosam_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dynosam_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

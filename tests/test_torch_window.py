@@ -23,7 +23,7 @@ from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.convert import dataclass_to_numpy
 from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario as t_dense
 from dynosam_tpu_torch.parallel import batched as tbatched
-from torch_port_util import assert_tree_matches, np_tree, small_cfg, to_port
+from torch_port_util import assert_tree_matches, np_tree, port_cfg, small_cfg, to_port
 
 torch.set_num_threads(1)
 F = 4
@@ -68,7 +68,7 @@ def test_departing_information(full_windows, i):
     bcfg, windows = full_windows
     jg = windows[i]
     Mr, gr = (np.asarray(a) for a in jwindow._departing_information_hybrid(jg, bcfg))
-    M, g = twindow._departing_information_hybrid(to_port(GraphState, jg), bcfg)
+    M, g = twindow._departing_information_hybrid(to_port(GraphState, jg), port_cfg(bcfg))
     # f32 sums of up to Ld terms in another order; entries span the 1e8
     # gauge scale down to pixel information, so the bound is relative
     np.testing.assert_allclose(M.numpy(), Mr, rtol=1e-4, atol=1e-5 * _scale(Mr))
@@ -106,7 +106,7 @@ def test_advance_hybrid(full_windows, i):
     bcfg, windows = full_windows
     jg = windows[i]
     ref = jwindow.advance_hybrid(jg, bcfg)
-    got = twindow.advance_hybrid(to_port(GraphState, jg), bcfg)
+    got = twindow.advance_hybrid(to_port(GraphState, jg), port_cfg(bcfg))
     assert got.num_frames == F - 1
     _check_advanced(ref, got)
 
@@ -121,7 +121,7 @@ def test_slot_recycling_frees_an_unreferenced_object(full_windows):
                     kf_slot=jg.kf_slot.at[1].set(-1))
     assert int(jg.obj_ids[1]) > 0
     ref = jwindow.advance_hybrid(jg, bcfg)
-    got = twindow.advance_hybrid(to_port(GraphState, jg), bcfg)
+    got = twindow.advance_hybrid(to_port(GraphState, jg), port_cfg(bcfg))
     assert int(ref.obj_ids[1]) == -1 and bool(ref.slot_open[1])
     for name in ("obj_ids", "kf_valid", "kf_slot", "slot_open"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))
@@ -151,7 +151,7 @@ def test_eigh_branch_forced(full_windows, monkeypatch):
     monkeypatch.setattr(jnp.linalg, "cholesky", j_break)
     monkeypatch.setattr(torch.linalg, "cholesky_ex", t_break)
     ref = jwindow.advance_hybrid(jg, bcfg)
-    got = twindow.advance_hybrid(to_port(GraphState, jg), bcfg)
+    got = twindow.advance_hybrid(to_port(GraphState, jg), port_cfg(bcfg))
     assert used == ["broken", "eigh"]
     assert np.isfinite(np.asarray(ref.prior_L)).all()
     _check_advanced(ref, got, unique_sqrt=False)
@@ -162,11 +162,12 @@ def test_fused_step_past_the_window():
     held to the reference's fused step."""
     n = 7
     cfg = small_cfg(max_frames=F)
-    jd, td = j_dense(num_frames=n), t_dense(num_frames=n)
+    jd, td = j_dense(num_frames=n), t_dense(num_frames=n, device="cpu")
     jstep = jax.jit(jbatched.make_fused_step(cfg, jd.intr))
     js = jbatched.init_pipeline_state(cfg)
-    tstep = tbatched.make_fused_step(cfg, td.intr, torch.Generator().manual_seed(0))
-    ts = tbatched.init_pipeline_state(cfg, "cpu")
+    tcfg = port_cfg(cfg)
+    tstep = tbatched.make_fused_step(tcfg, td.intr, torch.Generator().manual_seed(0))
+    ts = tbatched.init_pipeline_state(tcfg, "cpu")
     n_motions = 0
     for k in range(n):
         js, jo = jstep(js, jd.frame(k))

@@ -3,6 +3,8 @@
 Data crosses between the JAX reference and the port as numpy arrays.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 from flax import serialization
@@ -14,6 +16,7 @@ from dynosam_tpu.config import (
     OptimizerParams,
     TrackerParams,
 )
+from dynosam_tpu_torch import config as tconfig
 from dynosam_tpu_torch import convert
 
 
@@ -41,6 +44,14 @@ def small_cfg(max_frames=4):
             optimizer=OptimizerParams(max_iterations=2),
         ),
     )
+
+
+def port_cfg(cfg):
+    """The port's config dataclass (of the same class name, from
+    dynosam_tpu_torch.config) holding the values of a reference config."""
+    cls = getattr(tconfig, type(cfg).__name__)
+    return cls(**{f.name: port_cfg(v) if dataclasses.is_dataclass(v := getattr(cfg, f.name)) else v
+                  for f in dataclasses.fields(cfg)})
 
 
 def jax_spec(spec):
