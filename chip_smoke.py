@@ -35,7 +35,20 @@ Phases, each printing one line; any failure raises and exits non-zero:
      detections, label images, object ids,
      camera poses and object motions held to
      dynosam_tpu_torch/testdata/det_ref_24f.npz;
-  7. print the kernel table (with each kernel's bound: the larger of its
+  7. pipeline path: the port's entry-point code (run_dynosam.open_dataset,
+     build_pipeline, DynoPipeline.run with prefetch) over the 60 frames of
+     tests/fixtures/kitti_fixture read from disk, (a) in the hybrid
+     incremental, sliding-window and full-batch modes at ACCURACY.md's
+     configuration, eager, each run writing its CSV logs and evaluated by
+     DatasetEvaluator: mature camera poses and matured object motions held
+     to dynosam_tpu_torch/testdata/kitti_ref_60f.npz, the evaluator's
+     numbers to the JAX seeds' range; (b) incremental again with deferred
+     outputs (mid-run drains), its logs equal to (a)'s byte for byte; (c)
+     the real-io configuration timed after a warm-up (frames/s and the
+     per-layer host times). Every run: the fused K1 once per frame, the map
+     entry never; the first frame's inputs and graph state on the card;
+     host syncs counted with torch's sync debug mode;
+  8. print the kernel table (with each kernel's bound: the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates) and the contract line.
 
@@ -75,6 +88,57 @@ SPIN_CYCLES = 10_000_000      # ~5 ms of GPU clock, longer than any enqueue here
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 K1_OPS_PER_PIXEL = 29         # 28 flops of the response + 1 comparison of the argmax
+# pipeline path: the committed dyno-KITTI fixture, all 60 frames
+KITTI_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "kitti_fixture")
+PIPE_FRAMES = 60
+KITTI_MODES = ("incremental", "sliding_window", "full_batch")
+DRAIN_EVERY = 16              # deferred run: drains after frames 16, 32, 48 and at the end
+DEFERRED_LOGS = ("camera_pose", "object_motion", "object_pose", "object_bbx")
+# ACCURACY.md's on-disk hybrid rows (camera ATE cm, ATE rot rad, AME rms cm,
+# AME median cm), printed beside the port's; they predate later changes of
+# the reference, so the port is held to a fresh JAX run instead
+ACCURACY_ROWS = {"incremental": (1.186, 0.00396, 1.336, 1.143),
+                 "sliding_window": (1.168, 0.00521, 1.251, 1.102),
+                 "full_batch": (1.108, 0.00201, 0.635, 0.429)}
+# Pipeline path against kitti_ref_60f.npz (JAX, seed 0), per mode: the
+# largest pose translation (m) and rotation (rad) over the 60 frames, the
+# largest and the median matured-motion translation (m). The port samples
+# RANSAC with its own generator, so it lands from JAX seed 0 as another seed
+# does, plus f32 reordering, which moves the CPU's readings with its thread
+# count. Each bound sits ~4x above the larger of the JAX seeds' spread (seeds
+# 1, 2 vs 0, the file's `seed_spread`) and the port's readings, in that
+# order: spread / H100 / CPU (2 threads; default threads in brackets).
+#   incremental  pose 2.8e-4 / 2.45e-4 / 2.1e-4 (1.3e-4) m, 2.4e-5 / 3.7e-5 /
+#                2.9e-5 rad; motions max 4.8e-4 / 1.4e-4 / 5.0e-4 (1.6e-4) m,
+#                median 1.1e-5 / 1.3e-5 / 1.4e-5 m
+#   full_batch   pose 1.2e-5 / 2.2e-5 / 4.3e-5 (1.2e-5) m, 1.4e-7 / 1.7e-7 /
+#                3.0e-6 rad; motions max 2.1e-3 / 5.7e-4 / 8.6e-4 (2.8e-4) m,
+#                median 4.2e-6 / 4.9e-6 / 7.6e-6 m
+#   sliding      pose 2.7e-4 / 2.6e-3 / 3.0e-4 (2.6e-3) m, 4.5e-5 / 1.1e-4 /
+#                6.8e-5 rad; motions max 3.3e-4 / 2.5e-3 / 2.5e-3 (2.2e-3) m,
+#                median 8.0e-5 / 1.2e-4 / 2.0e-5 m
+# The sliding readings are one LM accept/reject flip: at frame 29 the object
+# phase's candidate error lies within a few f32 ulps of the current one
+# (|err| ~ 1.4e4), the port rejects where JAX accepts, object 3's motion
+# moves 1.9e-2 m and, through the marginal prior, the trajectory from frame
+# 23 on ~1e-3 m; whether it flips depends on the order of the sums.
+KITTI_REF_BOUNDS = {
+    "incremental": {"pose_m": 1e-3, "pose_rad": 2e-4, "motion_max_m": 2e-3, "motion_median_m": 1e-4},
+    "full_batch": {"pose_m": 2e-4, "pose_rad": 1e-5, "motion_max_m": 8e-3, "motion_median_m": 4e-5},
+    "sliding_window": {"pose_m": 1e-2, "pose_rad": 5e-4, "motion_max_m": 1e-2, "motion_median_m": 1e-3},
+}
+KITTI_MOTION_OVERLAP = 0.98   # (frame, object) keys of matured motions shared; read 1.0
+# The evaluator's numbers must lie in the JAX seeds' [min, max], widened on
+# both sides by margin x the range's midpoint. The seeds spread by at most
+# 0.4% (ATE), 7% (ATE rot), 0.3% (AME rms, median). Beyond the seeds' range
+# the card read at most +0.22% (ATE), +15% (ATE rot, sliding), -0.07% (AME
+# rms) and -0.16% (median); against the seeds' mean the CPU read at most
+# +0.8%, +16%, +0.13% and -0.15%. ATE rot is
+# the aligned ATE's rotation: Umeyama on a nearly straight path is
+# ill-conditioned about the direction of travel, hence its wider margin,
+# twice the largest excess read.
+KITTI_RANGE_MARGIN = {"ate_unaligned_m": 0.02, "ate_rot_rad": 0.3, "ame_rms_m": 0.02,
+                      "ame_median_m": 0.02}
 
 
 def say(msg):
@@ -440,6 +504,264 @@ def run_detector_path(torch, seed, ref_path, device="cuda"):
     return launches
 
 
+class SyncCounter:
+    """Counts the host-device synchronizations inside a `with` block:
+    torch's sync debug mode warns on each one, and the warnings are
+    recorded (on a CUDA device; elsewhere the count stays None)."""
+
+    def __init__(self, torch, device):
+        self.torch, self.on = torch, torch.device(device).type == "cuda"
+        self.count = None
+        self.sites = {}     # "file:line" of the Python call that synchronized -> count
+
+    def __enter__(self):
+        import warnings
+
+        if self.on:
+            self._catch = warnings.catch_warnings(record=True)
+            self._seen = self._catch.__enter__()
+            warnings.simplefilter("always")
+            self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.torch.cuda.set_sync_debug_mode("default")
+            self._catch.__exit__(*exc)
+            root = os.path.dirname(os.path.abspath(__file__))
+            syncs = [w for w in self._seen if "synchroniz" in str(w.message)]
+            self.count = len(syncs)
+            for w in syncs:
+                site = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+                self.sites[site] = self.sites.get(site, 0) + 1
+        return False
+
+    def top(self, n=6):
+        return ", ".join(f"{k} x{v}" for k, v in sorted(self.sites.items(), key=lambda kv: -kv[1])[:n])
+
+
+def _device_types(obj):
+    import dataclasses
+
+    return {f.name: getattr(obj, f.name).device.type for f in dataclasses.fields(obj)
+            if hasattr(getattr(obj, f.name), "device")}
+
+
+def kitti_run(torch, cfg, out_dir, device, seed):
+    """One run of the port's entry-point code (run_dynosam.open_dataset +
+    build_pipeline + DynoPipeline.run) over the committed fixture, from
+    disk -> (pipeline, frames, wall seconds, host syncs). The first frame's
+    FrameInputs and the GraphState after it must lie on `device`."""
+    from dynosam_tpu_torch.run_dynosam import build_pipeline, open_dataset
+
+    intr, frame_it, gt_it, n = open_dataset(0, KITTI_FIXTURE, PIPE_FRAMES, cfg.backend.max_objects, device)
+    pipe = build_pipeline(cfg, intr, out_dir, device=device, seed=seed)
+    first = {}
+    process = pipe.process_frame
+
+    def checked(inputs, gt=None):
+        out = process(inputs, gt)
+        if not first:
+            first.update(inputs=_device_types(inputs), state=_device_types(pipe.backend.state))
+        return out
+
+    pipe.process_frame = checked
+    with SyncCounter(torch, device) as syncs:
+        t0 = time.perf_counter()
+        pipe.run(frame_it, gt_it)
+        dt = time.perf_counter() - t0
+    want = torch.device(device).type
+    off = {k: v for part in first.values() for k, v in part.items() if v != want}
+    if off:
+        raise AssertionError(f"pipeline tensors not on {want}: {off}")
+    return pipe, n, dt, syncs
+
+
+def _k1_counts(st):
+    return st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches
+
+
+def kitti_errors(pipe, ref, mode):
+    """Mature camera poses and matured object motions against the JAX
+    reference -> the KITTI_REF_BOUNDS readings (largest pose translation and
+    rotation, largest and median matured-motion translation), the motions
+    compared and the share of (frame, object) keys the two sides have in
+    common."""
+    import numpy as np
+
+    X = np.stack(pipe.trajectory).astype(np.float64)
+    X_ref = ref[f"{mode}_X"].astype(np.float64)
+    trans = np.linalg.norm(X[:, :3, 3] - X_ref[:, :3, 3], axis=-1).max()
+    # the angle from the skew part of R^T R_ref: linear in small angles, so
+    # f32 rounding of the matrices does not put a ~3e-4 rad floor under it
+    # as arccos of the trace would
+    dR = np.einsum("kji,kjl->kil", X[:, :3, :3], X_ref[:, :3, :3])
+    w = 0.5 * np.stack([dR[:, 2, 1] - dR[:, 1, 2], dR[:, 0, 2] - dR[:, 2, 0], dR[:, 1, 0] - dR[:, 0, 1]], -1)
+    rot = np.arcsin(np.clip(np.linalg.norm(w, axis=-1), 0.0, 1.0)).max()
+    ref_m = {tuple(int(v) for v in k): H for k, H in zip(ref[f"{mode}_motion_key"], ref[f"{mode}_motion_H"])}
+    got_m = pipe.backend.matured_motion
+    common = sorted(set(ref_m) & set(got_m))
+    overlap = len(common) / max(len(set(ref_m) | set(got_m)), 1)
+    mot = [float(np.linalg.norm(np.asarray(got_m[k])[:3, 3] - ref_m[k][:3, 3])) for k in common]
+    return {"pose_m": float(trans), "pose_rad": float(rot), "motion_max_m": max(mot, default=float("inf")),
+            "motion_median_m": float(np.median(mot)) if mot else float("inf"), "n_motions": len(common),
+            "overlap": overlap}
+
+
+def compare_kitti(pipe, ref, mode):
+    """kitti_errors held to the mode's KITTI_REF_BOUNDS and the key overlap
+    to KITTI_MOTION_OVERLAP -> the readings."""
+    err = kitti_errors(pipe, ref, mode)
+    if err["overlap"] < KITTI_MOTION_OVERLAP:
+        raise AssertionError(f"{mode}: matured motions share {err['overlap']:.4f} of their (frame, object) keys")
+    bounds = KITTI_REF_BOUNDS[mode]
+    if not all(err[k] <= b for k, b in bounds.items()):
+        raise AssertionError(f"{mode}: vs JAX reference, readings {err} against bounds {bounds}")
+    return err
+
+
+def check_kitti_summary(summary, ref, mode):
+    """The evaluator's numbers inside the JAX seeds' range, widened by the
+    margins -> the per-field (lo, hi) ranges."""
+    fields = [str(f) for f in ref["summary_fields"]]
+    seeds = ref["summary"][[str(m) for m in ref["modes"]].index(mode)]
+    ranges = {}
+    for name, margin in KITTI_RANGE_MARGIN.items():
+        col = seeds[:, fields.index(name)]
+        mid = 0.5 * (col.min() + col.max())
+        lo, hi = col.min() - margin * mid, col.max() + margin * mid
+        ranges[name] = (lo, hi)
+        if not lo <= summary[name] <= hi:
+            raise AssertionError(f"{mode}: {name} {summary[name]} outside [{lo}, {hi}] "
+                                 f"(JAX seeds {col.tolist()}, margin {margin})")
+    return ranges
+
+
+def _logs_equal(dir_a, dir_b, kinds):
+    for kind in kinds:
+        name = f"dynosam_tpu_{kind}_log.csv"
+        with open(os.path.join(dir_a, name), "rb") as fa, open(os.path.join(dir_b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"deferred {name} differs from the eager one")
+
+
+def run_pipeline_path(torch, seed, ref_path, device="cuda", smi=""):
+    """Phase 7: the host pipeline over the dyno-KITTI fixture from disk."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dynosam_tpu_torch.bench_config import kitti_accuracy_config, kitti_real_io_config
+    from dynosam_tpu_torch.dataproviders.base import create_dataset
+    from dynosam_tpu_torch.eval.evaluator import DatasetEvaluator, summarize
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.utils.stats import Statistics, Timer
+
+    ref = np.load(ref_path)
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="smoke_pipeline_")
+    launches = {"K1": 0, "K1 map": 0}
+
+    def count(n_frames):
+        k1, k1_map = _k1_counts(st)
+        if on_card and (k1, k1_map) != (n_frames, 0):
+            raise AssertionError(f"fused K1 launched {k1} times and the map entry {k1_map} times "
+                                 f"over {n_frames} frames")
+        launches["K1"] += k1
+        launches["K1 map"] += k1_map
+        return k1, k1_map
+
+    try:
+        # ---- (a) the three hybrid modes at ACCURACY.md's configuration ------
+        eager_dirs = {}
+        for mode in KITTI_MODES:
+            out = eager_dirs[mode] = os.path.join(tmp, mode)
+            st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+            pipe, n, dt, sync = kitti_run(torch, kitti_accuracy_config(mode, PIPE_FRAMES), out, device, seed)
+            syncs = sync.count
+            k1, k1_map = count(n)
+            t = Timer("smoke.evaluator").start()
+            summary = summarize(DatasetEvaluator(out).run_analysis()["dynosam_tpu"])
+            t.stop()
+            for v in summary.values():
+                if not np.isfinite(v):
+                    raise AssertionError(f"{mode}: non-finite evaluator summary {summary}")
+            acc = ACCURACY_ROWS[mode]
+            line = (f"pipeline {mode}: {n} frames on {device} in {dt:.2f} s ({n / dt:.2f} frames/s, "
+                    f"eager, {syncs if syncs is not None else 'n/a'} host syncs = "
+                    f"{syncs / n if syncs is not None else float('nan'):.1f}/frame), fused K1 launches "
+                    f"{k1}, map entry {k1_map}; evaluator {Statistics.get('smoke.evaluator').samples[-1]:.1f} "
+                    f"ms: camera ATE {summary['ate_unaligned_m'] * 100:.4f} cm, ATE rot "
+                    f"{summary['ate_rot_rad']:.5f} rad, AME rms {summary['ame_rms_m'] * 100:.4f} cm, "
+                    f"median {summary['ame_median_m'] * 100:.4f} cm, {summary['n_motions']:.0f} motions "
+                    f"(ACCURACY.md row, an older code state: {acc[0]} cm, {acc[1]} rad, {acc[2]} cm, "
+                    f"{acc[3]} cm)")
+            err = compare_kitti(pipe, ref, mode)
+            ranges = check_kitti_summary(summary, ref, mode)
+            fields = [str(f) for f in ref["spread_fields"]]
+            spread = ref["seed_spread"][KITTI_MODES.index(mode), 1:].max(axis=0)
+            line += (f"; vs JAX ref over {err['n_motions']} matured motions (key overlap "
+                     f"{err['overlap']:.4f}), reading / bound / JAX seeds 1, 2 vs 0: "
+                     + ", ".join(f"{k} {err[k]:.2e} / {b:.0e} / {spread[fields.index(k)]:.2e}"
+                                 for k, b in KITTI_REF_BOUNDS[mode].items())
+                     + "; evaluator inside the JAX seed ranges "
+                     + ", ".join(f"{k} [{lo:.6g}, {hi:.6g}]" for k, (lo, hi) in ranges.items()))
+            say(line)
+
+        # ---- (b) incremental again, deferred, with mid-run drains ------------
+        out = os.path.join(tmp, "incremental_deferred")
+        cfg = kitti_accuracy_config("incremental", PIPE_FRAMES).with_overrides(
+            {"pipeline.defer_host_outputs": True, "pipeline.drain_every": DRAIN_EVERY})
+        st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+        pipe, n, dt, sync = kitti_run(torch, cfg, out, device, seed)
+        syncs = sync.count
+        k1, k1_map = count(n)
+        _logs_equal(eager_dirs["incremental"], out, DEFERRED_LOGS)
+        say(f"pipeline incremental deferred (drain every {DRAIN_EVERY}): {n} frames in {dt:.2f} s "
+            f"({n / dt:.2f} frames/s, {syncs if syncs is not None else 'n/a'} host syncs = "
+            f"{syncs / n if syncs is not None else float('nan'):.1f}/frame), fused K1 launches {k1}, "
+            f"map entry {k1_map}; {', '.join(DEFERRED_LOGS)} logs equal the eager run's byte for byte; "
+            f"most frequent sync sites: {sync.top() if sync.count is not None else 'n/a'}")
+
+        # ---- (c) the real-io configuration, timed after a warm-up -------------
+        cfg = kitti_real_io_config()
+        ds = create_dataset(0, KITTI_FIXTURE, device=device, pad_to_multiple=32)
+        n = min(PIPE_FRAMES, len(ds))
+        warm = cfg.backend.max_frames + 2
+        out = os.path.join(tmp, "real_io")
+        from dynosam_tpu_torch.run_dynosam import build_pipeline
+
+        st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+        pipe = build_pipeline(cfg, ds.intrinsics(), out, device=device, seed=seed)
+        for k in range(warm):
+            pipe.process_frame(ds.frame(k), ds.ground_truth(k))
+        pipe._drain_outputs()
+        if on_card:
+            torch.cuda.synchronize()
+        Statistics.reset()
+        t0 = time.perf_counter()
+        pipe.run((ds.frame_host(k) for k in range(warm, n)), (ds.ground_truth(k) for k in range(warm, n)))
+        dt = time.perf_counter() - t0
+        count(n)
+        fps = (n - warm) / dt
+
+        def mean(tag):
+            c = Statistics.get(tag)
+            return f"{c.mean:.2f} ms x {c.count}"
+
+        say(f"{smi} | pipeline real-io (kitti-fixture-60f: incremental, 2 LM iterations, deferred, "
+            f"prefetch on): {fps:.3f} frames/s over frames {warm}-{n - 1} after {warm} warm frames, "
+            f"{dt:.3f} s including disk decode, prefetch, logging and finish(); host times per call: "
+            f"decode {mean('pipeline.decode')}, prefetch wait {mean('pipeline.prefetch_wait')}, "
+            f"frontend dispatch {mean('pipeline.frontend_dispatch')}, backend dispatch "
+            f"{mean('pipeline.backend_dispatch')}, drain {mean('pipeline.drain')}, mature re-log "
+            f"{mean('pipeline.relog')}, total {mean('pipeline.total')}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, fps
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the RANSAC and test-input generators")
@@ -479,13 +801,16 @@ def main():
     k1 = check_k1(torch, args.seed)
     k2 = check_k2(torch, args.seed)
 
-    # ---- 5, 6. the main paths, counts zeroed just before each ----------------
+    # ---- 5, 6, 7. the main paths, counts zeroed just before each -------------
     bench_launches = run_bench_path(torch, args.seed, os.path.join(testdata, "bench_ref_20f.npz"))
     det_launches = run_detector_path(torch, args.seed, os.path.join(testdata, "det_ref_24f.npz"))
+    pipe_launches, _ = run_pipeline_path(torch, args.seed, os.path.join(testdata, "kitti_ref_60f.npz"),
+                                         smi=smi)
 
-    # ---- 7. results -------------------------------------------------------------
+    # ---- 8. results -------------------------------------------------------------
     def row(name, kid, source, replaces, check, **extra):
-        by_path = {"bench": bench_launches.get(kid, 0), "detector": det_launches.get(kid, 0)}
+        by_path = {"bench": bench_launches.get(kid, 0), "detector": det_launches.get(kid, 0),
+                   "pipeline": pipe_launches.get(kid, 0)}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": check["max_abs_err"], "ms": check["ms"], "plain_ms": check["plain_ms"],
@@ -496,7 +821,8 @@ def main():
     print(json.dumps({"kernels": [
         row("shi_tomasi_cell_max", "K1", "dynosam_tpu_torch/csrc/shi_tomasi.cu",
             "dynosam_tpu/ops/pallas/shi_tomasi.py:31", k1,
-            map_launches_by_path={"bench": bench_launches["K1 map"], "detector": det_launches["K1 map"]},
+            map_launches_by_path={"bench": bench_launches["K1 map"], "detector": det_launches["K1 map"],
+                                  "pipeline": pipe_launches["K1 map"]},
             map_route_ms=k1["map_route_ms"], call_ms=k1["call_ms"], best_bitwise=k1["best_bitwise"],
             near_tie_cells=k1["near_tie_cells"], batched_b8=k1["b8"]),
         row("mask_combine", "K2", "dynosam_tpu_torch/csrc/mask_combine.cu",

@@ -475,6 +475,24 @@ def optimize(state: GraphState, cfg: BackendParams) -> GraphState:
 # Accessor helpers
 # ---------------------------------------------------------------------------
 
-def f2f_motion(state: GraphState, f: int):
-    """F2F world motions at frame slot f: H_{e,f} H_{e,f-1}^{-1}. (J,4,4)."""
-    return lie.mm(state.H[:, f], lie.inverse(state.H[:, max(f - 1, 0)]))
+def _slot_pair(f):
+    """(f, max(f - 1, 0)) as indices: host ints, or 0-dim int64 tensors
+    when `f` is a tensor (no host read)."""
+    if torch.is_tensor(f):
+        f = f.long()
+        return f, torch.clamp(f - 1, min=0)
+    return f, max(f - 1, 0)
+
+
+def f2f_motion(state: GraphState, f):
+    """F2F world motions at frame slot f (an int or a 0-dim tensor):
+    H_{e,f} H_{e,f-1}^{-1}. (J,4,4)."""
+    f, fprev = _slot_pair(f)
+    return lie.mm(state.H[:, f], lie.inverse(state.H[:, fprev]))
+
+
+def object_pose(state: GraphState, f):
+    """Object poses L_f = H_{e,f} L_e at frame slot f (an int or a 0-dim
+    tensor). (J, 4, 4)."""
+    f, _ = _slot_pair(f)
+    return lie.mm(state.H[:, f], state.L_e)

@@ -156,6 +156,32 @@ def _departing_information_hybrid(state: GraphState, cfg: BackendParams):
     return M, g
 
 
+_ADVANCE_INDICES = {}
+
+
+def _advance_indices(F: int, J: int, device):
+    """(perm [departing; keep], new_cols, keep_cols, nd) of an advance,
+    built once per window shape and device: copying them from the host on
+    every advance would cost a host sync each."""
+    key = (F, J, torch.device(device))
+    if key not in _ADVANCE_INDICES:
+        D = 6 * F + 6 * J * F
+        dep = _departing_indices(F, J)
+        nd = dep.shape[0]
+        keep = np.setdiff1d(np.arange(D), dep)
+        # keep-space column feeding each new-layout column
+        old_of_new = _remaining_old_for_new(F, J)
+        keep_pos = -np.ones(D, np.int64)
+        keep_pos[keep] = np.arange(D - nd)
+        rows = np.nonzero(old_of_new >= 0)[0]
+        cols = keep_pos[old_of_new[rows]]
+        ok = cols >= 0
+        _ADVANCE_INDICES[key] = tuple(
+            torch.as_tensor(a, device=device) for a in (np.concatenate([dep, keep]), rows[ok], cols[ok])
+        ) + (nd,)
+    return _ADVANCE_INDICES[key]
+
+
 def _departing_indices(F: int, J: int):
     """Tangent indices of {X_0, H_{:,0}} in the old layout (static numpy)."""
     idx = [np.arange(6)]
@@ -218,10 +244,7 @@ def _eliminate_and_roll(state: GraphState, cfg: BackendParams, M, g) -> GraphSta
     # diagonal; symmetrise before factorising
     M = 0.5 * (M + M.T)
 
-    dep = _departing_indices(F, J)
-    nd = dep.shape[0]
-    keep = np.setdiff1d(np.arange(D), dep)
-    perm = torch.as_tensor(np.concatenate([dep, keep]), device=dev)
+    perm, new_cols, keep_cols, nd = _advance_indices(F, J, dev)
     M_perm = M[perm][:, perm]                                  # [departing; keep]
     g_perm = g[perm]
 
@@ -234,16 +257,6 @@ def _eliminate_and_roll(state: GraphState, cfg: BackendParams, M, g) -> GraphSta
         torch.arange(D, device=dev) < nd, _EPS_REG, 0.0
     )
     M_perm = M_perm + torch.diag(reg)
-
-    # keep-space column feeding each new-layout column
-    old_of_new = _remaining_old_for_new(F, J)
-    keep_pos = -np.ones(D, np.int64)
-    keep_pos[keep] = np.arange(D - nd)
-    rows = np.nonzero(old_of_new >= 0)[0]
-    cols = keep_pos[old_of_new[rows]]
-    ok = cols >= 0
-    new_cols = torch.as_tensor(rows[ok], device=dev)
-    keep_cols = torch.as_tensor(cols[ok], device=dev)
 
     # f32-safe marginalisation without an explicit Schur complement: factor
     # the whole equilibrated matrix once; Schur(M_dd) == L22 L22^T (the

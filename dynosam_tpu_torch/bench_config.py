@@ -117,6 +117,45 @@ def detector_config():
     return cfg, intr
 
 
+KITTI_MODES = {"full_batch": 0, "sliding_window": 1, "incremental": 2}
+
+
+def kitti_accuracy_config(mode: str, num_frames: int = 60) -> DynoConfig:
+    """ACCURACY.md's on-disk configuration (scripts/accuracy_report.py
+    run_config_dataset) in hybrid mode `mode` ("incremental",
+    "sliding_window" or "full_batch"): 512 static + 768 dynamic track slots,
+    cell 8, 8 objects, an 8-frame window (the whole sequence for
+    full-batch), 10 LM iterations."""
+    opt_mode = KITTI_MODES[mode]
+    return DynoConfig(
+        frontend=FrontendParams(
+            max_objects=8,
+            tracker=TrackerParams(
+                max_features_per_frame=512,
+                min_features_per_frame=200,
+                max_dynamic_features_per_frame=768,
+                detection_cell_size=8,
+                min_corner_response=1e-6,
+            ),
+        ),
+        backend=BackendParams(
+            optimization_mode=opt_mode,
+            backend_updater_enum=3,
+            max_frames=num_frames if opt_mode == 0 else 8,
+            optimizer=OptimizerParams(max_iterations=10),
+        ),
+    )
+
+
+def kitti_real_io_config() -> DynoConfig:
+    """The real-io row of scripts/bench_table.py (row_real_io): the
+    incremental accuracy configuration with 2 LM iterations and deferred
+    host outputs."""
+    cfg = kitti_accuracy_config("incremental")
+    return cfg.with_overrides({"backend.optimizer.max_iterations": 2,
+                               "pipeline.defer_host_outputs": True})
+
+
 def detector_scene(intr, num_frames=24, device="cuda") -> DenseScenario:
     """The bench scene's camera motion and objects, rendered with the
     world-anchored texture and the per-class object appearance the

@@ -386,7 +386,13 @@ class DynoConfig:
     # ------------------------------------------------------------------
     @classmethod
     def from_yaml(cls, path: str) -> "DynoConfig":
-        import yaml
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(
+                "DynoConfig.from_yaml needs PyYAML, which this Python lacks; "
+                "give the parameters as a .flags file (load_flags_file) instead"
+            ) from e
 
         with open(path) as f:
             raw = yaml.safe_load(f) or {}
@@ -477,3 +483,30 @@ def _set_dotted(obj, dotted: str, value):
         updated = dataclasses.replace(node, **{p: updated})
     return updated
 
+
+def load_flags_file(path: str) -> Dict[str, Any]:
+    """Parse a reference-style `.flags` file (--name=value lines) into overrides."""
+    overrides: Dict[str, Any] = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line.startswith("--"):
+                continue
+            body = line[2:]
+            if "=" in body:
+                name, value = body.split("=", 1)
+            else:
+                name, value = body, "true"
+            value = value.strip()
+            if value.lower() in ("true", "false"):
+                parsed: Any = value.lower() == "true"
+            else:
+                try:
+                    parsed = int(value)
+                except ValueError:
+                    try:
+                        parsed = float(value)
+                    except ValueError:
+                        parsed = value
+            overrides[name.strip()] = parsed
+    return overrides

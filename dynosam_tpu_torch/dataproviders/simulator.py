@@ -3,7 +3,7 @@
 
 The reference's static landmark clouds, packet synthesis and their spec
 fields are not ported; the dense renderer (synthetic_dense.py) needs only
-the pose chains.
+the pose chains, and `ground_truth` gives the evaluator its per-frame view.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import List
 import numpy as np
 import torch
 
+from dynosam_tpu_torch.frontend.types import GroundTruthFrame
 from dynosam_tpu_torch.utils import lie
 
 
@@ -70,3 +71,21 @@ class Scenario:
                     dim=0,
                 )
             )
+
+    def ground_truth(self, k: int, max_objects: int = 16) -> GroundTruthFrame:
+        """Frame k's ground truth over `max_objects` slots, on the host."""
+        J = len(self.object_ids)
+        ids = np.full((max_objects,), -1, np.int32)
+        poses = np.tile(np.eye(4, dtype=np.float32), (max_objects, 1, 1))
+        motions = poses.copy()
+        if J:
+            ids[:J] = self.object_ids
+            poses[:J] = torch.stack([L[k] for L in self.L_gt]).cpu().numpy()
+            motions[:J] = torch.stack([H[k] for H in self.H_gt]).cpu().numpy()
+        return GroundTruthFrame(
+            X_world_cam=self.X_gt[k].cpu().numpy(),
+            object_ids=ids,
+            object_poses=poses,
+            object_motions=motions,
+            object_valid=np.arange(max_objects) < J,
+        )

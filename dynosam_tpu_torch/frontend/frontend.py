@@ -1,13 +1,15 @@
 """RGB-D instance frontend: one step per frame (port of
 dynosam_tpu/frontend/frontend.py, provided-flow path).
 
-track -> camera RANSAC + GN (constant-velocity fallback) -> joint
-optical-flow + pose refinement -> per-object motion solves (one batch over
-the object-slot axis) -> per-object joint refinement -> output packet.
+mask propagation -> track -> camera RANSAC + GN (constant-velocity
+fallback) -> joint optical-flow + pose refinement -> per-object motion
+solves (one batch over the object-slot axis) -> per-object joint
+refinement -> output packet.
 
-Not ported: IMU preintegration, in-loop stereo depth, mask propagation and
-KLT tracking. A config or state that would run one of them raises
-NotImplementedError.
+Mask propagation runs when `use_propogate_mask` is set and the state was
+built with an image shape (it then carries the previous mask). Not ported:
+IMU preintegration, in-loop stereo depth and KLT tracking. A config that
+would run one of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,31 +41,35 @@ class FrontendState:
     X_prev: torch.Tensor       # (4, 4) pose at k-1
     X_prev_prev: torch.Tensor  # (4, 4) pose at k-2 (constant-velocity prior)
     frame_idx: torch.Tensor    # () int32
+    # previous instance mask, carried when mask propagation runs; (0, 0)
+    # otherwise
+    prev_mask: torch.Tensor
 
 
-def check_supported(params: FrontendParams, image_shape=None):
+def check_supported(params: FrontendParams):
     """Raise NotImplementedError for the frontend branches this port lacks.
 
-    As in the reference, mask propagation runs only when the state is built
-    with an image shape, and stereo only when frames carry a right image
-    (the port's FrameInputs have none), so their default-on flags alone do
-    not ask for them."""
+    As in the reference, stereo runs only when frames carry a right image
+    (the port's FrameInputs have none), so its default-on flag alone does
+    not ask for it."""
     tracker_mod.check_supported(params.tracker)
     if params.use_imu:
         raise NotImplementedError("IMU preintegration (use_imu=True) is not ported")
-    if params.use_propogate_mask and image_shape is not None:
-        raise NotImplementedError("mask propagation (use_propogate_mask with an image_shape) is not ported")
 
 
 def empty_frontend_state(params: FrontendParams, device, dtype=torch.float32,
                          image_shape=None) -> FrontendState:
-    check_supported(params, image_shape)
+    """The state before frame 0. With `image_shape` (H, W) and
+    use_propogate_mask, the state carries the previous mask."""
+    check_supported(params)
     eye = torch.eye(4, dtype=dtype, device=device)
+    pm_shape = image_shape if (params.use_propogate_mask and image_shape is not None) else (0, 0)
     return FrontendState(
         tracker=empty_tracker_state(params, device, dtype),
         X_prev=eye,
         X_prev_prev=eye.clone(),
         frame_idx=torch.zeros((), dtype=torch.int32, device=device),
+        prev_mask=torch.zeros(tuple(pm_shape), dtype=torch.int32, device=device),
     )
 
 
@@ -72,6 +78,34 @@ def _to_gray(rgb):
         return rgb.to(torch.float32)
     rgb = rgb.to(torch.float32)
     return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+
+
+def _propogate_mask_repair(tracker: TrackerState, prev_mask, flow, mask, params: FrontendParams):
+    """Recover objects the detector lost this frame (propogateMask): for
+    each object tracked at k-1, poll the current mask at the flow-predicted
+    keypoints; where the majority vote is background, fill the background
+    pixels that the previous mask, advected by the flow, gives to that
+    object."""
+    H, W = mask.shape
+    pred_uv = tracker.d_uv + interp.sample_flow(flow, tracker.d_uv)
+    in_img = (
+        (pred_uv[:, 0] >= 0)
+        & (pred_uv[:, 0] <= W - 1)
+        & (pred_uv[:, 1] >= 0)
+        & (pred_uv[:, 1] <= H - 1)
+    )
+    cur_lab = interp.sample_label(mask, pred_uv)
+    votes = tracker.d_valid & (tracker.d_oid > 0) & in_img
+
+    obj = tracker.obj_ids                                              # (J,)
+    sel = (tracker.d_oid[None, :] == obj[:, None]) & votes[None, :]
+    n = torch.sum(sel, dim=1)
+    n_zero = torch.sum(sel & (cur_lab == 0)[None, :], dim=1)
+    lost = (obj > 0) & (n >= params.tracker.min_dynamic_tracks) & (n_zero * 2 > n)
+
+    adv = tracker_mod.propagate_mask(prev_mask, flow)                  # (H, W)
+    recov = torch.any((adv[..., None] == obj) & lost, dim=-1)
+    return torch.where((mask == 0) & recov, adv, mask)
 
 
 def frontend_step(
@@ -89,8 +123,15 @@ def frontend_step(
     old = state.tracker
     gray = _to_gray(inputs.rgb).contiguous()
 
+    # ---- mask propagation ---------------------------------------------------
+    pm_on = params.use_propogate_mask and state.prev_mask.numel() > 0
+    mask_k = inputs.mask
+    if pm_on:
+        repaired = _propogate_mask_repair(old, state.prev_mask, inputs.flow, inputs.mask, params)
+        mask_k = torch.where(first, inputs.mask, repaired)
+
     tracker = track_frame(
-        old, gray, inputs.depth, inputs.flow, inputs.mask, params, first_frame=first
+        old, gray, inputs.depth, inputs.flow, mask_k, params, first_frame=first
     )
     dtype = tracker.s_uv.dtype
     eye4 = torch.eye(4, dtype=dtype, device=gray.device)
@@ -258,5 +299,6 @@ def frontend_step(
         X_prev=X_k,
         X_prev_prev=torch.where(first, X_k, state.X_prev),
         frame_idx=state.frame_idx + 1,
+        prev_mask=mask_k.to(torch.int32) if pm_on else state.prev_mask,
     )
     return new_state, packet

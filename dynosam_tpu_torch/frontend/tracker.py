@@ -1,5 +1,6 @@
 """Dense-flow feature tracker over fixed-capacity track tables
-(port of dynosam_tpu/frontend/tracker.py, provided-flow mode).
+(port of dynosam_tpu/frontend/tracker.py, provided-flow mode), and the
+flow advection of the previous instance mask (`propagate_mask`).
 
 The provided-flow branch of `track_frame` is ported with its detection
 (Shi-Tomasi response + per-cell argmax), spread dynamic sampling,
@@ -98,7 +99,7 @@ def _occupancy(uv, valid, cell, gh, gw):
     vi = torch.clamp(torch.div(uv[:, 1], cell, rounding_mode="floor").long(), 0, gh - 1)
     flat = torch.where(valid, vi * gw + ui, gh * gw)
     occ = torch.zeros((gh * gw + 1,), dtype=torch.bool, device=uv.device)
-    occ[flat] = True
+    occ.index_fill_(0, flat, True)      # a scalar fill: no host value to copy
     return occ[: gh * gw]
 
 
@@ -414,3 +415,14 @@ def _update_object_slots(obj_ids, d_oid, d_valid):
         can = has_new & torch.any(free)
         ids = torch.where((slot == first_free) & can, new_id, ids).to(torch.int32)
     return ids
+
+
+def propagate_mask(prev_mask, flow):
+    """Advect the previous instance mask to the current frame with dense
+    flow: label(p) = prev_mask(p - flow(p)), the flow taken as locally
+    constant (a gather; an exact inverse warp would need backward flow)."""
+    H, W = prev_mask.shape
+    u = torch.arange(W, dtype=flow.dtype, device=flow.device)[None, :].expand(H, W)
+    v = torch.arange(H, dtype=flow.dtype, device=flow.device)[:, None].expand(H, W)
+    src = torch.stack([u, v], dim=-1) - flow
+    return interp.sample_nearest(prev_mask, src)

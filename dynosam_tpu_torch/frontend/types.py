@@ -2,12 +2,16 @@
 
 Fixed-capacity tables with validity masks, as in the reference. The IMU and
 right-image fields of `FrameInputs` are not part of this port yet.
+`GroundTruthFrame` holds host numpy arrays: ground truth is read only on
+the host (logging, evaluation).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -51,3 +55,21 @@ class FrameInputs:
     depth: torch.Tensor
     flow: torch.Tensor
     mask: torch.Tensor
+
+    def to(self, device, non_blocking=False) -> "FrameInputs":
+        """These inputs with every tensor on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
+            for f in dataclasses.fields(self)
+        })
+
+
+@dataclass
+class GroundTruthFrame:
+    """Ground truth of one frame, padded over objects (host numpy)."""
+
+    X_world_cam: np.ndarray      # (4, 4)
+    object_ids: np.ndarray       # (J,) int32, -1 pad
+    object_poses: np.ndarray     # (J, 4, 4) L_world_object
+    object_motions: np.ndarray   # (J, 4, 4) H_w (k-1 -> k); identity at k=0
+    object_valid: np.ndarray     # (J,) bool

@@ -22,12 +22,20 @@ def huber_weights(residual_norms, k):
     return torch.where(residual_norms <= k, torch.ones_like(safe), k / safe)
 
 
+_GENERATORS = {}
+
+
 def _generators(dtype, device):
-    """(6, 4, 4) se(3) generators in [omega, v] order."""
-    G = torch.zeros((6, 4, 4), dtype=dtype, device=device)
-    G[:3, :3, :3] = lie.hat(torch.eye(3, dtype=dtype, device=device))
-    G[3, 0, 3] = G[4, 1, 3] = G[5, 2, 3] = 1.0
-    return G
+    """(6, 4, 4) se(3) generators in [omega, v] order, built once per dtype
+    and device: writing their unit entries copies host scalars to the
+    device, a host sync per refinement iteration otherwise."""
+    key = (dtype, torch.device(device))
+    if key not in _GENERATORS:
+        G = torch.zeros((6, 4, 4), dtype=dtype, device=device)
+        G[:3, :3, :3] = lie.hat(torch.eye(3, dtype=dtype, device=device))
+        G[3:, :3, 3] = torch.eye(3, dtype=dtype, device=device)
+        _GENERATORS[key] = G
+    return _GENERATORS[key]
 
 
 def residual_and_jacobian(fn: Callable, T: torch.Tensor):

@@ -1,0 +1,156 @@
+"""Run the full pipeline on a dataset and, optionally, evaluate the results
+(the port's counterpart of scripts/run_dynosam.py, flag for flag, plus
+--device).
+
+Examples:
+  # the committed dyno-KITTI fixture, hybrid incremental, with evaluation
+  python -m dynosam_tpu_torch.run_dynosam --dataset_type 0 \\
+      --dataset_path tests/fixtures/kitti_fixture --flags params/backend.flags \\
+      --output_path results/kitti --run_analysis
+
+  # the same on the CPU
+  python -m dynosam_tpu_torch.run_dynosam ... --device cpu
+
+  # synthetic dense scene (no dataset needed), parameter overrides
+  python -m dynosam_tpu_torch.run_dynosam --dataset_type 100 --frames 16 \\
+      --params_path params/default.yaml --override opt_window_size=12
+
+The default configuration is the reference's (WCME, sliding window), whose
+formulation the port does not have yet: give --flags params/backend.flags or
+--params_path params/default.yaml for the hybrid backend.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import List, Optional
+
+from dynosam_tpu_torch.config import DynoConfig, load_flags_file
+
+
+def build_config(params_path: Optional[str] = None, flags: List[str] = (),
+                 overrides: List[str] = ()) -> DynoConfig:
+    """DynoConfig from a YAML file (else the defaults), then .flags files,
+    then name=value overrides."""
+    cfg = DynoConfig.from_yaml(params_path) if params_path else DynoConfig()
+    values = {}
+    for f in flags:
+        values.update(load_flags_file(f))
+    for ov in overrides:
+        k, v = ov.split("=", 1)
+        for cast in (int, float):
+            try:
+                v = cast(v)
+                break
+            except ValueError:
+                continue
+        if v in ("true", "false"):
+            v = v == "true"
+        values[k] = v
+    return cfg.with_overrides(values) if values else cfg
+
+
+def open_dataset(dataset_type: int, dataset_path: Optional[str], frames: Optional[int],
+                 max_objects: int, device):
+    """-> (intrinsics, host frames iterable, ground truths iterable, count)."""
+    if dataset_type == 100:
+        from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario
+
+        n = frames or 16
+        dense = default_dense_scenario(num_frames=n, device=device)
+        return (dense.intr, (dense.frame(k) for k in range(n)),
+                [dense.scn.ground_truth(k, max_objects) for k in range(n)], n)
+    from dynosam_tpu_torch.dataproviders.base import create_dataset
+
+    ds = create_dataset(dataset_type, dataset_path, device=device, pad_to_multiple=32)
+    n = min(frames or len(ds), len(ds))
+    return (ds.intrinsics(), (ds.frame_host(k) for k in range(n)),
+            (ds.ground_truth(k) for k in range(n)), n)
+
+
+def build_pipeline(cfg: DynoConfig, intr, output_path: str, name: str = "dynosam_tpu",
+                   use_detector: bool = False, device="cuda", seed: int = 0):
+    """The DynoPipeline of a run, logging under `output_path`."""
+    from dynosam_tpu_torch.pipeline.pipeline import DynoPipeline
+
+    os.makedirs(output_path, exist_ok=True)
+    detector = None
+    if use_detector:
+        from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
+
+        detector = YoloV8DetectorEngine(input_hw=(intr.height, intr.width), device=device)
+        cfg = cfg.with_overrides({"frontend.tracker.prefer_provided_object_detection": False})
+    return DynoPipeline(cfg, intr, output_path=output_path, module_name=name,
+                        detector=detector, device=device, seed=seed)
+
+
+def run(cfg: DynoConfig, dataset_type: int, dataset_path: Optional[str], output_path: str,
+        frames: Optional[int] = None, name: str = "dynosam_tpu", use_detector: bool = False,
+        device="cuda"):
+    """Run the pipeline over a dataset, writing the CSV logs and statistics
+    under `output_path` -> (pipeline, frames processed, wall seconds)."""
+    intr, frame_it, gt_it, n = open_dataset(
+        dataset_type, dataset_path, frames, cfg.backend.max_objects, device
+    )
+    pipe = build_pipeline(cfg, intr, output_path, name=name, use_detector=use_detector,
+                          device=device)
+    t0 = time.perf_counter()
+    pipe.run(frame_it, gt_it)
+    return pipe, n, time.perf_counter() - t0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dataset_type", type=int, default=100,
+                    help="DatasetType enum (0=KITTI, 100=synthetic)")
+    ap.add_argument("--dataset_path", default=None)
+    ap.add_argument("--params_path", default=None, help="DynoConfig YAML")
+    ap.add_argument("--flags", action="append", default=[],
+                    help=".flags files with --name=value overrides")
+    ap.add_argument("--override", action="append", default=[],
+                    help="single override name=value")
+    ap.add_argument("--output_path", default="results")
+    ap.add_argument("--name", default="dynosam_tpu", help="module/log prefix")
+    ap.add_argument("--frames", type=int, default=None, help="limit frames")
+    ap.add_argument("--run_analysis", action="store_true")
+    ap.add_argument("--viz", action="store_true", help="dump tracking images")
+    ap.add_argument("--use_detector", action="store_true",
+                    help="run the YOLOv8-seg engine (the committed checkpoint) instead of "
+                    "dataset masks (prefer_provided_object_detection=false)")
+    ap.add_argument("--detector_weights", default=None,
+                    help="ultralytics state_dict .pt for the detector")
+    ap.add_argument("--device", default="cuda", help="torch device of the pipeline")
+    args = ap.parse_args(argv)
+    if args.viz:
+        raise NotImplementedError("--viz: pipeline/viz.py is not ported (ROADMAP.md queue 1, item 18)")
+    if args.detector_weights:
+        raise NotImplementedError(
+            "--detector_weights: load_ultralytics_weights is not ported (ROADMAP.md queue 1, item 18)"
+        )
+
+    from dynosam_tpu_torch.utils.stats import Statistics
+
+    cfg = build_config(args.params_path, args.flags, args.override)
+    pipe, n, dt = run(cfg, args.dataset_type, args.dataset_path, args.output_path,
+                      frames=args.frames, name=args.name, use_detector=args.use_detector,
+                      device=args.device)
+    print(f"processed {n} frames in {dt:.2f}s ({n / dt:.1f} FPS incl. host I/O) on {pipe.device}")
+    print(Statistics.summary())
+
+    if args.run_analysis:
+        from dynosam_tpu_torch.eval.evaluator import DatasetEvaluator
+
+        evaluator = DatasetEvaluator(args.output_path)
+        report = evaluator.write_report()
+        print(f"evaluation written to {report}")
+        plots = evaluator.write_plots()
+        if plots:
+            print(f"plots written to {plots}")
+        with open(report) as f:
+            print(f.read())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Write the JAX reference outputs that chip_smoke.py holds the port to.
 
-Runs the JAX package on the CPU and writes two files under
+Runs the JAX package on the CPU and writes three files under
 dynosam_tpu_torch/testdata/:
 
   * bench_ref_20f.npz — the fused step (parallel/batched.py::make_fused_step)
@@ -13,12 +13,27 @@ dynosam_tpu_torch/testdata/:
     then the fused step runs on it with ByteTrack relabelling. Per frame: the
     detection table (det_boxes, det_scores, det_classes, det_valid), the
     label image as uint8, and the fused step's outputs as above.
+  * kitti_ref_60f.npz — the host pipeline (DynoPipeline -> RegularBackend,
+    CSV logs, DatasetEvaluator) over the 60 frames of
+    tests/fixtures/kitti_fixture in the three hybrid modes at ACCURACY.md's
+    on-disk configuration (dynosam_tpu_torch.bench_config.kitti_accuracy_config).
+    Per mode, RANSAC seed 0: the mature camera poses `<mode>_X` (60, 4, 4)
+    and the matured object motions `<mode>_motion_key` (N, 2) [frame id,
+    object id] with `<mode>_motion_H` (N, 4, 4). `summary` (mode, seed,
+    field) holds the evaluator's numbers under seeds 0, 1 and 2, and
+    `seed_spread` (mode, seed, field of `spread_fields`) how far each seed
+    lands from seed 0: its poses (largest translation, m, and rotation,
+    rad) and its matured motions on the shared keys (largest and median
+    translation, m).
 
-Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
+Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py [--only kitti]
+(~80 s for the first two files; ~32 min for the third, most of it the
+full-batch runs at a 60-frame window)
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import sys
@@ -33,6 +48,13 @@ DET_FRAMES = 24
 TESTDATA = os.path.join(ROOT, "dynosam_tpu_torch", "testdata")
 BENCH_OUT = os.path.join(TESTDATA, "bench_ref_20f.npz")
 DET_OUT = os.path.join(TESTDATA, "det_ref_24f.npz")
+KITTI_OUT = os.path.join(TESTDATA, "kitti_ref_60f.npz")
+KITTI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "kitti_fixture")
+KITTI_FRAMES = 60
+KITTI_MODES = ("incremental", "sliding_window", "full_batch")
+KITTI_SEEDS = (0, 1, 2)
+KITTI_SUMMARY_FIELDS = ("ate_unaligned_m", "ate_rot_rad", "ame_rms_m", "ame_median_m", "n_motions")
+KITTI_SPREAD_FIELDS = ("pose_m", "pose_rad", "motion_max_m", "motion_median_m")
 KEYS = ("X_world_cam", "object_ids", "object_motions", "object_motion_valid")
 
 
@@ -129,10 +151,113 @@ def detector_reference():
     _save(DET_OUT, outs, t0)
 
 
+def _summary(mod):
+    """One module of the JAX evaluator's report -> KITTI_SUMMARY_FIELDS, the
+    aggregation of scripts/accuracy_report.py: AME RMS over objects, AME
+    median averaged over objects."""
+    import numpy as np
+
+    objs = list(mod.get("objects", {}).values())
+    ame_t = [o["ame_trans_rmse"] for o in objs]
+    med_t = [o.get("ame_trans_median", float("nan")) for o in objs]
+    return (mod["camera"]["ate_unaligned_trans_rmse"], mod["camera"]["ate_rot_rmse"],
+            float(np.sqrt(np.mean(np.square(ame_t)))) if ame_t else float("nan"),
+            float(np.mean(med_t)) if med_t else float("nan"),
+            float(sum(o["n_frames"] for o in objs)))
+
+
+def _rot_angle(R, R_ref):
+    """Angle (rad) of R^T R_ref from its skew part, per frame: linear in
+    small angles, so f32 rounding puts no ~3e-4 rad floor under it as
+    arccos of the trace would."""
+    import numpy as np
+
+    dR = np.einsum("kji,kjl->kil", R.astype(np.float64), R_ref.astype(np.float64))
+    w = 0.5 * np.stack([dR[:, 2, 1] - dR[:, 1, 2], dR[:, 0, 2] - dR[:, 2, 0], dR[:, 1, 0] - dR[:, 0, 1]], -1)
+    return np.arcsin(np.clip(np.linalg.norm(w, axis=-1), 0.0, 1.0))
+
+
+def kitti_reference():
+    """The host pipeline (DynoPipeline -> RegularBackend -> CSV logs ->
+    DatasetEvaluator) over the committed 60-frame dyno-KITTI fixture, in the
+    three hybrid modes at ACCURACY.md's on-disk configuration, under RANSAC
+    seeds 0, 1 and 2. Seed 0's mature camera poses and matured object
+    motions are kept; every seed's evaluator summary sets the ranges."""
+    import shutil
+    import tempfile
+
+    import jax
+    import numpy as np
+
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu.eval.evaluator import DatasetEvaluator
+    from dynosam_tpu.pipeline.pipeline import DynoPipeline
+    from dynosam_tpu_torch.bench_config import kitti_accuracy_config
+
+    t0 = time.time()
+    ds = KittiDataProvider(KITTI_FIXTURE)
+    n = min(KITTI_FRAMES, len(ds))
+    frames = [ds.frame(k) for k in range(n)]
+    gts = [ds.ground_truth(k) for k in range(n)]
+    out = {"modes": np.array(KITTI_MODES), "seeds": np.array(KITTI_SEEDS),
+           "summary_fields": np.array(KITTI_SUMMARY_FIELDS), "spread_fields": np.array(KITTI_SPREAD_FIELDS)}
+    summary = np.zeros((len(KITTI_MODES), len(KITTI_SEEDS), len(KITTI_SUMMARY_FIELDS)))
+    spread = np.zeros((len(KITTI_MODES), len(KITTI_SEEDS), len(KITTI_SPREAD_FIELDS)))
+    for i, mode in enumerate(KITTI_MODES):
+        cfg = kitti_accuracy_config(mode, n)
+        # the port's config of the same values, read by the JAX package
+        jcfg = DynoConfig.from_dict(dataclasses.asdict(cfg))
+        for s, seed in enumerate(KITTI_SEEDS):
+            tmp = tempfile.mkdtemp(prefix="kitti_ref_")
+            try:
+                pipe = DynoPipeline(jcfg, ds.intrinsics(), output_path=tmp)
+                pipe.frontend_state = pipe.frontend_state.replace(key=jax.random.PRNGKey(seed))
+                for fr, gt in zip(frames, gts):
+                    pipe.process_frame(fr, gt)
+                pipe.finish()
+                rep = DatasetEvaluator(tmp).run_analysis()["dynosam_tpu"]
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            summary[i, s] = _summary(rep)
+            print(f"  mode {mode} seed {seed}: {summary[i, s].tolist()} "
+                  f"({time.time() - t0:.0f} s)", flush=True)
+            X = np.stack(pipe.trajectory).astype(np.float32)
+            motions = {k: np.asarray(v, np.float32) for k, v in pipe.backend.matured_motion.items()}
+            if seed == 0:
+                keys = sorted(motions)
+                out[f"{mode}_X"] = X
+                out[f"{mode}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
+                out[f"{mode}_motion_H"] = np.stack([motions[k] for k in keys])
+                X0, motions0 = X, motions
+            else:
+                # how far another seed lands from seed 0: poses (m, rad),
+                # matured motions on the shared keys (largest, median m)
+                common = sorted(set(motions) & set(motions0))
+                mot = [np.linalg.norm(motions[k][:3, 3] - motions0[k][:3, 3]) for k in common]
+                spread[i, s] = [
+                    np.linalg.norm(X[:, :3, 3] - X0[:, :3, 3], axis=-1).max(),
+                    _rot_angle(X[:, :3, :3], X0[:, :3, :3]).max(),
+                    max(mot), float(np.median(mot)),
+                ]
+    out["summary"] = summary
+    out["seed_spread"] = spread
+    _save(KITTI_OUT, out, t0)
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=["bench", "detector", "kitti"], action="append",
+                    help="write only these files (default: all three)")
+    args = ap.parse_args()
+    todo = args.only or ["bench", "detector", "kitti"]
     os.makedirs(TESTDATA, exist_ok=True)
-    bench_reference()
-    detector_reference()
+    if "bench" in todo:
+        bench_reference()
+    if "detector" in todo:
+        detector_reference()
+    if "kitti" in todo:
+        kitti_reference()
 
 
 if __name__ == "__main__":

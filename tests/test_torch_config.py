@@ -1,6 +1,7 @@
-"""The port stands alone: its copy of the configuration equals the
-reference's, field for field; no module of the port and nothing in
-chip_smoke.py imports the JAX package; and the entry points that make
+"""The port stands alone: its copy of the configuration (and of the YAML and
+.flags readers) equals the reference's, field for field; no module of the
+port and nothing in chip_smoke.py imports the JAX package, OpenCV or PIL,
+or loads the reference's native library; and the entry points that make
 tensors default to the card, not the CPU."""
 
 import ast
@@ -13,10 +14,15 @@ import pytest
 from dynosam_tpu import config as jconfig
 from dynosam_tpu_torch import bench_config as tbench
 from dynosam_tpu_torch import config as tconfig
+from dynosam_tpu_torch import run_dynosam as trun
+from dynosam_tpu_torch.backend import backend as tbackend
+from dynosam_tpu_torch.dataproviders import base as tbase
+from dynosam_tpu_torch.dataproviders import kitti as tkitti
 from dynosam_tpu_torch.dataproviders import simulator as tsim
 from dynosam_tpu_torch.dataproviders import synthetic_dense as tdense
 from dynosam_tpu_torch.nn import bytetrack as tbt
 from dynosam_tpu_torch.nn import detector as tdet
+from dynosam_tpu_torch.pipeline import pipeline as tpipe
 from torch_port_util import port_cfg, small_cfg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,6 +65,27 @@ def test_config_methods_match_the_reference():
             == dataclasses.asdict(jconfig.DynoConfig.from_dict(raw)))
     with pytest.raises(KeyError):
         t.with_overrides({"no_such_field": 1})
+    for flags in ("params/backend.flags",):
+        path = os.path.join(ROOT, flags)
+        assert tconfig.load_flags_file(path) == jconfig.load_flags_file(path)
+        over = jconfig.load_flags_file(path)
+        assert dataclasses.asdict(t.with_overrides(over)) == dataclasses.asdict(j.with_overrides(over))
+
+
+def test_load_flags_file_matches_the_reference(tmp_path):
+    path = tmp_path / "t.flags"
+    path.write_text("# comment\n--optimization_mode=0\n--use_vo_factor=False\n--flag_alone\n"
+                    "  --odometry_rotation_sigma=0.25  \n--name=text\n-not_a_flag=1\n")
+    got = tconfig.load_flags_file(str(path))
+    assert got == jconfig.load_flags_file(str(path))
+    assert got == {"optimization_mode": 0, "use_vo_factor": False, "flag_alone": True,
+                   "odometry_rotation_sigma": 0.25, "name": "text"}
+
+
+def test_from_yaml_matches_the_reference():
+    path = os.path.join(ROOT, "params", "default.yaml")
+    assert (dataclasses.asdict(tconfig.DynoConfig.from_yaml(path))
+            == dataclasses.asdict(jconfig.DynoConfig.from_yaml(path)))
 
 
 def _port_sources():
@@ -70,7 +97,10 @@ def _port_sources():
 
 
 def _reaches_the_jax_package(name):
-    return name is not None and name.split(".")[0] in ("dynosam_tpu", "jax", "jaxlib", "flax")
+    """The JAX package and JAX itself, and the image libraries the card's
+    machine lacks (the port decodes PNGs itself)."""
+    return name is not None and name.split(".")[0] in (
+        "dynosam_tpu", "jax", "jaxlib", "flax", "cv2", "PIL")
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
@@ -91,6 +121,18 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+def test_port_sources_load_no_native_library():
+    """The port reads the dyno-KITTI formats with numpy; it never loads the
+    reference's native/libdynoio.so."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as fh:
+            text = fh.read()
+        if "dynoio" in text:
+            bad.append(os.path.relpath(path, ROOT))
+    assert not bad, bad
+
+
 @pytest.mark.parametrize("entry", [
     tsim.Scenario.__init__,
     tdense.DenseScenario.__init__,
@@ -99,7 +141,31 @@ def test_port_sources_import_nothing_of_the_jax_package():
     tbench.detector_scene,
     tdet.YoloV8DetectorEngine.__init__,
     tbt.empty_state,
+    tkitti.KittiDataProvider.__init__,
+    tbase.create_dataset,
+    tbackend.RegularBackend.__init__,
+    tpipe.DynoPipeline.__init__,
+    trun.run,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(entry):
     default = inspect.signature(entry).parameters["device"].default
     assert default in ("cuda", inspect.Parameter.empty), default
+
+
+def test_command_line_defaults_to_the_card():
+    import argparse
+
+    seen = {}
+
+    def parse(self, argv=None):
+        seen.update({a.dest: a.default for a in self._actions})
+        raise SystemExit(0)
+
+    orig = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = parse
+    try:
+        with pytest.raises(SystemExit):
+            trun.main([])
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    assert seen["device"] == "cuda"

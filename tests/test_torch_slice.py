@@ -104,8 +104,13 @@ def test_unported_backend_and_frontend_options_raise():
     klt = cfg.with_overrides({"frontend.tracker.prefer_provided_optical_flow": False})
     with pytest.raises(NotImplementedError):
         tbatched.init_pipeline_state(klt, "cpu")
+    imu = cfg.with_overrides({"frontend.use_imu": True})
     with pytest.raises(NotImplementedError):
-        tbatched.init_pipeline_state(cfg, "cpu", image_shape=(120, 160))
+        tbatched.init_pipeline_state(imu, "cpu", image_shape=(120, 160))
+    # mask propagation is ported: with an image shape the state carries the
+    # previous mask
+    st = tbatched.init_pipeline_state(cfg, "cpu", image_shape=(120, 160))
+    assert tuple(st.frontend.prev_mask.shape) == (120, 160)
 
 
 def test_convert_round_trip():
