@@ -21,7 +21,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
      sources beside them);
   4. hold K2 against its plain version: random (32, 96x160, 32) inputs, a
      ragged K=5 over 37x61 prototype pixels, and the real prototypes and
-     coefficients of the detector scene's frame 0; median device times;
+     coefficients of the detector scene's frame 0; median device times of
+     the kernel, its plain version and the cuBLAS product coef @ proto^T
+     alone (the library yardstick);
   5. bench path: the fused SLAM step (frontend -> window advance -> graph
      update -> decoupled hybrid LM) at bench_config() over 20 bench frames
      rendered on the card (the 10-frame window advances 10 times); the fused
@@ -29,13 +31,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
      held to the renderer's ground truth
      and poses + object motions to the JAX reference
      dynosam_tpu_torch/testdata/bench_ref_20f.npz;
-  6. detector path: 24 frames of detector_scene() through YOLOv8-seg (K2)
+  6. KLT path: the fused step at bench_klt_config() (tracking by pyramidal
+     KLT with the forward-backward check on CLAHE-equalized frames) over 20
+     frames of the world-textured bench scene rendered on the card (the
+     window advances 10 times); the fused K1 once per frame, the map entry
+     never; poses + object motions held to
+     dynosam_tpu_torch/testdata/bench_klt_ref_20f.npz, the per-frame counts
+     of valid static and dynamic tracks to the same file, and camera poses to
+     the renderer's ground truth no further than the reference's own error
+     (which is metres on this scene) plus a margin;
+  7. stereo + IMU path: 12 frames at stereo_imu_config() (the KLT path with
+     the IMU and its rotation prior), each carrying the right image rendered
+     at +baseline, its provided depth corrupted by 1.15x and a 32-sample IMU
+     window; held to stereo_imu_ref_12f.npz and the ground truth as the KLT
+     path is, and the valid static tracks' depths to the true depth (stereo
+     repairs the corruption). Both phases print the median host time per
+     frame, the first frame's and the host syncs per frame with their sites;
+  8. detector path: 24 frames of detector_scene() through YOLOv8-seg (K2)
      -> ByteTrack relabelling -> fused step at detector_config(); the fused
      K1 and K2 must each launch once per frame, the map entry never;
      detections, label images, object ids,
      camera poses and object motions held to
      dynosam_tpu_torch/testdata/det_ref_24f.npz;
-  7. pipeline path: the port's entry-point code (run_dynosam.open_dataset,
+  9. pipeline path: the port's entry-point code (run_dynosam.open_dataset,
      build_pipeline, DynoPipeline.run with prefetch) over the 60 frames of
      tests/fixtures/kitti_fixture read from disk, (a) in the hybrid
      incremental, sliding-window and full-batch modes at ACCURACY.md's
@@ -48,9 +66,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
      per-layer host times). Every run: the fused K1 once per frame, the map
      entry never; the first frame's inputs and graph state on the card;
      host syncs counted with torch's sync debug mode;
-  8. print the kernel table (with each kernel's bound: the larger of its
+  10. print the kernel table (with each kernel's bound: the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
-     SXM's published rates) and the contract line.
+     SXM's published rates; launches per path under launches_by_path) and
+     the contract line.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -83,6 +102,37 @@ REF_MOTION_TRANS_M = 0.05
 DET_BOX_PX = 0.05             # box corners of matched valid detections
 DET_SCORE = 1e-3              # their scores
 DET_LABEL_AGREE = 0.999       # share of label-image pixels equal, per frame
+# KLT and stereo + IMU paths. On this scene both lose the camera (the JAX
+# reference reads 4.84 m / 0.079 rad and 5.08 m / 0.084 rad off the ground
+# truth): LK locks one texture period off on the far wall and passes the
+# forward-backward check, and the near ground's flow exceeds the pyramid's
+# reach. So the ground truth bounds each frame at the reference's own error
+# plus GT_TRANS_M / GT_ROT_RAD (plus the path's pose bound below where that
+# is larger), and the port is held to the reference. Largest over the
+# frames, torch on the CPU (4 threads) against JAX on the CPU / the H100:
+#   klt         poses 3.0e-3 / 1.97e-3 m, 4.7e-5 / 3.5e-4 rad (equal to 1e-4
+#               m through frame 10, diverging after the first window
+#               advance); motions 6.2e-4 / 7.2e-4 m over 7; track counts
+#               equal in every frame on both
+#   stereo_imu  poses 0.145 / 0.165 m, 3.8e-3 / 3.4e-3 rad (equal to 1e-4 m
+#               through frame 6; from frame 7 the ill-posed camera solve
+#               amplifies a few flipped stereo matches); motions 6.8e-4 /
+#               7.4e-4 m over 4; counts within 0.83% on both
+# Each bound sits ~6-15x (klt) / ~3-4x (stereo_imu) above the larger reading.
+KLT_FRAMES = 20
+STEREO_IMU_FRAMES = 12
+IMU_SAMPLES = 32
+KLT_REF_BOUNDS = {
+    "klt": {"ref_m": 0.03, "ref_rad": 2e-3, "motion_m": 0.01, "count_rel": 0.02},
+    "stereo_imu": {"ref_m": 0.5, "ref_rad": 0.015, "motion_m": 0.01, "count_rel": 0.03},
+}
+# stereo must repair the 1.15x corrupted depth: the median relative error of
+# the valid static tracks' depths against the true depth, over frames 1..,
+# within tests/test_frontend_wiring.py's 5% (CPU and H100 read 0.06%). That test
+# keeps only tracks nearer than 15 m because its far wall subtends ~1 px of
+# disparity; here every static point lies within 60 m, >= 6.4 px at fx 720
+# and a 0.537 m baseline, so all of them count.
+STEREO_DEPTH_RELERR = 0.05
 TIMING_RUNS = 50
 SPIN_CYCLES = 10_000_000      # ~5 ms of GPU clock, longer than any enqueue here
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -334,8 +384,11 @@ def check_k2(torch, seed):
     real_proto, real_coef = single["proto"].contiguous(), det.mcoef.contiguous()
     err_real = compare(real_proto, real_coef)
 
+    proto2d = proto.reshape(-1, proto.shape[-1])
     fns = {"kernel": lambda: mc.mask_combine(proto, coef),
-           "plain": lambda: mc.mask_combine_reference(proto, coef)}
+           "plain": lambda: mc.mask_combine_reference(proto, coef),
+           # the library yardstick: the cuBLAS product alone, no sigmoid
+           "library": lambda: coef @ proto2d.T}
     dev, call = median_ms(torch, fns, spin=True), median_ms(torch, fns, spin=False)
     # coef, proto read once and the masks written once; 2 K nm flops per
     # mask pixel for the product and 4 for the sigmoid
@@ -345,11 +398,13 @@ def check_k2(torch, seed):
     say(f"K2 matches plain: max abs err random (32, 96x160, 32) {err_rand:.3e}, ragged "
         f"(5, 37x61, 32) {err_ragged:.3e}, detector frame 0 {tuple(real_coef.shape)} x "
         f"{tuple(real_proto.shape)} {err_real:.3e} (bound {K2_ATOL}); median device time "
-        f"{dev['kernel']:.4f} ms kernel vs {dev['plain']:.4f} ms plain at (32, 96x160, 32), "
+        f"{dev['kernel']:.4f} ms kernel vs {dev['plain']:.4f} ms plain vs {dev['library']:.4f} ms "
+        f"for the cuBLAS product coef @ proto^T alone at (32, 96x160, 32), "
         f"bound {bound[0]:.5f} ms ({bound[1]}); with the launch from Python {call['kernel']:.4f} "
         f"ms vs {call['plain']:.4f} ms")
     return {"max_abs_err": max(err_rand, err_ragged, err_real), "ms": dev["kernel"],
-            "plain_ms": dev["plain"], "bound": bound, "call_ms": call["kernel"]}
+            "plain_ms": dev["plain"], "library_ms": dev["library"], "bound": bound,
+            "call_ms": call["kernel"]}
 
 
 def rot_trans_err(torch, lie, A, B):
@@ -360,8 +415,10 @@ def rot_trans_err(torch, lie, A, B):
     return rot, trans
 
 
-def _drive(torch, step, state, frames, device, per_frame=None):
-    """Run the step over the frames; -> (outputs, host seconds per frame)."""
+def _drive(torch, step, state, frames, device, per_frame=None, after=None):
+    """Run the step over the frames; -> (outputs, host seconds per frame).
+    `after(state)`, called untimed after each step, adds its result to the
+    frame's outputs under "after"."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     outs, times = [], []
     for fr in frames:
@@ -372,25 +429,29 @@ def _drive(torch, step, state, frames, device, per_frame=None):
         state, out = step(state, fr)
         sync()
         times.append(time.perf_counter() - t0)
+        if after is not None:
+            out = {**out, "after": after(state)}
         outs.append(out)
     for k, out in enumerate(outs):
         for name, v in out.items():
-            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            if torch.is_tensor(v) and v.is_floating_point() and not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"frame {k}: non-finite {name}")
         if out["X_world_cam"].device.type != device:
             raise AssertionError("main path left the card")
     return outs, times
 
 
-def compare_to_reference(torch, lie, outs, ref, device):
+def compare_to_reference(torch, lie, outs, ref, device, bounds=None):
     """Camera poses and object motions against a JAX reference file ->
-    (pose trans, pose rot, motions compared, motion err) maxima."""
+    (pose trans, pose rot, motions compared, motion err) maxima, held to
+    `bounds` (trans m, rot rad, motion m; default the bench path's)."""
     import numpy as np
 
+    trans_b, rot_b, motion_b = bounds or (REF_TRANS_M, REF_ROT_RAD, REF_MOTION_TRANS_M)
     X = torch.stack([o["X_world_cam"] for o in outs])
     X_ref = torch.as_tensor(ref["X_world_cam"], device=device)
     rot, trans = rot_trans_err(torch, lie, X, X_ref)
-    if float(trans.max()) > REF_TRANS_M or float(rot.max()) > REF_ROT_RAD:
+    if float(trans.max()) > trans_b or float(rot.max()) > rot_b:
         raise AssertionError(f"camera vs JAX reference: {float(trans.max())} m, {float(rot.max())} rad")
     ids = torch.stack([o["object_ids"] for o in outs]).cpu().numpy()
     valid = torch.stack([o["object_motion_valid"] for o in outs]).cpu().numpy()
@@ -400,7 +461,7 @@ def compare_to_reference(torch, lie, outs, ref, device):
     if n_motions == 0:
         raise AssertionError("no object motion valid in both the port and the JAX reference")
     mot_err = np.linalg.norm(H[..., :3, 3] - ref["object_motions"][..., :3, 3], axis=-1)[both]
-    if float(mot_err.max()) > REF_MOTION_TRANS_M:
+    if float(mot_err.max()) > motion_b:
         raise AssertionError(f"object motion vs JAX reference: {float(mot_err.max())} m")
     return float(trans.max()), float(rot.max()), n_motions, float(mot_err.max())
 
@@ -439,6 +500,109 @@ def run_bench_path(torch, seed, ref_path, device="cuda"):
         f"frame {times[0] * 1e3:.1f} ms, median frames 2-10 {statistics.median(times[1:10]) * 1e3:.2f} "
         f"ms, median frames 11-{BENCH_FRAMES} (advancing) {statistics.median(times[10:]) * 1e3:.2f} ms")
     return {"K1": launches, "K1 map": map_launches}
+
+
+def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False):
+    """The fused step tracking by KLT on the world-textured bench scene; with
+    stereo_imu, under stereo_imu_config() on frames that carry a right
+    image, a corrupted depth and an IMU window -> (launches, readings
+    against the ground truth and the JAX reference, the phase's line)."""
+    import numpy as np
+
+    from dynosam_tpu_torch import bench_config as bc
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.parallel.batched import init_pipeline_state, make_fused_step
+    from dynosam_tpu_torch.utils import lie
+
+    n = STEREO_IMU_FRAMES if stereo_imu else KLT_FRAMES
+    name = "stereo_imu" if stereo_imu else "klt"
+    cfg, intr = bc.stereo_imu_config() if stereo_imu else bc.bench_klt_config()
+    scene = bc.bench_scene(intr, n, device=device, world_texture=True)
+    frames = [bc.stereo_imu_frame(scene, k, IMU_SAMPLES) if stereo_imu else scene.frame(k)
+              for k in range(n)]
+    step = make_fused_step(cfg, intr, torch.Generator(device=device).manual_seed(seed))
+    state = init_pipeline_state(cfg, device, image_shape=(intr.height, intr.width))
+
+    def after(state):
+        trk = state.frontend.tracker
+        return trk.s_valid.sum(), trk.d_valid.sum(), trk.s_uv.clone(), trk.s_depth.clone(), trk.s_valid.clone()
+
+    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+    with SyncCounter(torch, device) as sync:
+        outs, times = _drive(torch, step, state, frames, device, after=after)
+    launches, map_launches = st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches
+    if device == "cuda" and (launches, map_launches) != (n, 0):
+        raise AssertionError(f"{name}: fused K1 launched {launches} times and the map entry "
+                             f"{map_launches} times over {n} frames")
+    # the driver's own per-frame synchronize() calls are not the program's
+    sites = {k: v for k, v in sync.sites.items() if not k.startswith("chip_smoke.py")}
+    syncs = None if sync.count is None else sum(sites.values())
+
+    ref = np.load(ref_path)
+    X = torch.stack([o["X_world_cam"] for o in outs])
+    rot, trans = rot_trans_err(torch, lie, X, scene.scn.X_gt)
+    rot_r, trans_r = rot_trans_err(torch, lie, torch.as_tensor(ref["X_world_cam"], device=device),
+                                   scene.scn.X_gt)
+    got_counts = np.array([[int(o["after"][0]), int(o["after"][1])] for o in outs])
+    ref_counts = np.stack([ref["n_static"], ref["n_dynamic"]], -1)
+    rd = {"gt_m": float(trans.max()), "gt_rad": float(rot.max()),
+          "ref_gt_m": float(trans_r.max()), "ref_gt_rad": float(rot_r.max()),
+          # how far past the reference's own error to the ground truth
+          "gt_excess_m": float((trans - trans_r).max()), "gt_excess_rad": float((rot - rot_r).max()),
+          "count_rel": float((np.abs(got_counts - ref_counts) / np.maximum(ref_counts, 1)).max())}
+    rd["ref_m"], rd["ref_rad"], rd["n_motions"], rd["motion_m"] = compare_to_reference(
+        torch, lie, outs, ref, device, bounds=(np.inf,) * 3)
+    if stereo_imu:
+        # valid static tracks: median relative depth error over frames 1..,
+        # against the uncorrupted depth
+        errs = []
+        for k, o in enumerate(outs[1:], start=1):
+            _, _, uv, depth, valid = o["after"]
+            true_depth, _ = scene._depth_mask(scene.scn.X_gt[k], [L[k] for L in scene.scn.L_gt])
+            H, W = true_depth.shape
+            iu = torch.clamp(torch.round(uv[:, 0]).long(), 0, W - 1)
+            iv = torch.clamp(torch.round(uv[:, 1]).long(), 0, H - 1)
+            gt = true_depth[iv, iu]
+            sel = valid & (depth > 0)
+            errs.append((torch.abs(depth - gt) / gt)[sel])
+        errs = torch.cat(errs)
+        rd["depth_tracks"] = int(errs.numel())
+        rd["depth_relerr"] = float(torch.median(errs)) if errs.numel() else float("inf")
+    line = (f"{name} path: {n} frames of {'stereo_imu_config' if stereo_imu else 'bench_klt_config'} "
+        f"(KLT + CLAHE{', stereo, IMU rotation prior' if stereo_imu else ''}) on {frames[0].depth.device}, "
+        f"fused K1 launches {launches}, map entry {map_launches}; camera vs GT max {rd['gt_m']:.2e} m / "
+        f"{rd['gt_rad']:.2e} rad (the JAX ref's own {rd['ref_gt_m']:.2e} m / {rd['ref_gt_rad']:.2e} rad, "
+        f"the port at most {rd['gt_excess_m']:.2e} m / {rd['gt_excess_rad']:.2e} rad past it in any frame); vs JAX ref max {rd['ref_m']:.2e} m / {rd['ref_rad']:.2e} rad; "
+        f"{rd['n_motions']} object motions vs JAX ref max {rd['motion_m']:.2e} m; valid track counts "
+        f"vs JAX ref within {rd['count_rel']:.2%} (static {got_counts[-1, 0]} / {ref_counts[-1, 0]}, "
+        f"dynamic {got_counts[-1, 1]} / {ref_counts[-1, 1]} at the last frame)"
+        + (f"; static track depths ({rd['depth_tracks']} over frames 1-{n - 1}) median relative "
+           f"error {rd['depth_relerr']:.3%} against the true depth (provided depth off by 15%)"
+           if stereo_imu else "")
+        + f"; first frame {times[0] * 1e3:.1f} ms, median frame {statistics.median(times[1:]) * 1e3:.2f} "
+        f"ms, host syncs {syncs if syncs is not None else 'n/a'} = "
+        f"{syncs / n if syncs is not None else float('nan'):.1f}/frame (sites: "
+        f"{', '.join(f'{k} x{v}' for k, v in sorted(sites.items(), key=lambda kv: -kv[1])) or 'n/a'})")
+    return {"K1": launches, "K1 map": map_launches}, rd, line
+
+
+def run_klt_path(torch, seed, ref_path, device="cuda", stereo_imu=False):
+    """Phases 6 and 7: klt_readings held to KLT_REF_BOUNDS, the ground truth
+    (past the reference's own error) and, with stereo, the depth repair ->
+    launches."""
+    launches, rd, line = klt_readings(torch, seed, ref_path, device, stereo_imu)
+    name = "stereo_imu" if stereo_imu else "klt"
+    b = KLT_REF_BOUNDS[name]
+    checks = {"ref_m": b["ref_m"], "ref_rad": b["ref_rad"], "motion_m": b["motion_m"],
+              "count_rel": b["count_rel"], "gt_excess_m": max(GT_TRANS_M, b["ref_m"]),
+              "gt_excess_rad": max(GT_ROT_RAD, b["ref_rad"])}
+    if stereo_imu:
+        checks["depth_relerr"] = STEREO_DEPTH_RELERR
+    over = {k: (rd[k], v) for k, v in checks.items() if not rd[k] <= v}
+    if over:
+        raise AssertionError(f"{name}: readings over their bounds (reading, bound): {over}")
+    say(line)
+    return launches
 
 
 def run_detector_path(torch, seed, ref_path, device="cuda"):
@@ -801,28 +965,33 @@ def main():
     k1 = check_k1(torch, args.seed)
     k2 = check_k2(torch, args.seed)
 
-    # ---- 5, 6, 7. the main paths, counts zeroed just before each -------------
+    # ---- 5-9. the main paths, counts zeroed just before each -----------------
     bench_launches = run_bench_path(torch, args.seed, os.path.join(testdata, "bench_ref_20f.npz"))
+    klt_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "bench_klt_ref_20f.npz"))
+    stereo_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "stereo_imu_ref_12f.npz"),
+                                   stereo_imu=True)
     det_launches = run_detector_path(torch, args.seed, os.path.join(testdata, "det_ref_24f.npz"))
     pipe_launches, _ = run_pipeline_path(torch, args.seed, os.path.join(testdata, "kitti_ref_60f.npz"),
                                          smi=smi)
 
-    # ---- 8. results -------------------------------------------------------------
+    # ---- 10. results ------------------------------------------------------------
+    paths = {"bench": bench_launches, "klt": klt_launches, "stereo_imu": stereo_launches,
+             "detector": det_launches, "pipeline": pipe_launches}
+
     def row(name, kid, source, replaces, check, **extra):
-        by_path = {"bench": bench_launches.get(kid, 0), "detector": det_launches.get(kid, 0),
-                   "pipeline": pipe_launches.get(kid, 0)}
+        by_path = {p: launches.get(kid, 0) for p, launches in paths.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": check["max_abs_err"], "ms": check["ms"], "plain_ms": check["plain_ms"],
                 "bound_ms": check["bound"][0], "bound_by": check["bound"][1],
-                # no single PyTorch call computes either kernel's function
-                "library_ms": None, **extra}
+                # no single PyTorch call computes K1's function; K2's yardstick
+                # is the cuBLAS product without the sigmoid
+                "library_ms": check.get("library_ms"), **extra}
 
     print(json.dumps({"kernels": [
         row("shi_tomasi_cell_max", "K1", "dynosam_tpu_torch/csrc/shi_tomasi.cu",
             "dynosam_tpu/ops/pallas/shi_tomasi.py:31", k1,
-            map_launches_by_path={"bench": bench_launches["K1 map"], "detector": det_launches["K1 map"],
-                                  "pipeline": pipe_launches["K1 map"]},
+            map_launches_by_path={p: launches.get("K1 map", 0) for p, launches in paths.items()},
             map_route_ms=k1["map_route_ms"], call_ms=k1["call_ms"], best_bitwise=k1["best_bitwise"],
             near_tie_cells=k1["near_tie_cells"], batched_b8=k1["b8"]),
         row("mask_combine", "K2", "dynosam_tpu_torch/csrc/mask_combine.cu",

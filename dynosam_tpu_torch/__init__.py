@@ -5,9 +5,11 @@ Each module sits at the same relative path as its JAX counterpart in
 reference that the port is tested against. The port imports nothing of the
 JAX package: `config.py` is its own copy of the reference's dataclasses.
 
-It covers the fused SLAM step of `parallel/batched.py` on the provided-flow
-frontend and the hybrid backend (decoupled LM, sliding window with its
-advance), and the detector path (YOLOv8-seg, ByteTrack). The hand-written
+It covers the fused SLAM step of `parallel/batched.py` with every branch of
+the frontend (provided flow or pyramidal KLT with CLAHE, in-loop stereo
+depth, IMU preintegration with the known-rotation RANSAC) and the hybrid
+backend (decoupled LM, sliding window with its advance), the detector path
+(YOLOv8-seg, ByteTrack) and the host pipeline. The hand-written
 CUDA kernels are in `csrc/`: the Shi-Tomasi response fused with the per-cell
 argmax (`shi_tomasi.cu`) and the YOLO mask combination (`mask_combine.cu`).
 Entry points that make tensors run on the card unless given a device.

@@ -6,6 +6,15 @@ scene as `bench.make_frames()` (384 x 1280, three moving objects), rendered
 with torch on the given device. bench.py itself cannot be imported here: it
 reaches the JAX package.
 
+`bench_klt_config()` is the KLT path: the same settings tracking by
+pyramidal KLT on CLAHE-equalized frames instead of the provided flow, on the
+bench scene rendered with the world-anchored texture (`world_texture=True`,
+as `bench.make_frames(world_texture=True)`), which moves with the geometry
+as LK needs. `stereo_imu_config()` adds the IMU with its rotation prior,
+and `stereo_imu_frame()` gives each frame a right image rendered at
++baseline, the 1.15x corrupted provided depth that only stereo repairs, and
+the exact IMU window of the interval before it.
+
 `detector_config()` and `detector_scene()` are the detector path: the same
 settings with the masks coming from YOLOv8-seg (relabelled by ByteTrack)
 instead of the renderer, at the committed checkpoint's own camera (384 x
@@ -15,7 +24,10 @@ frames), on textured frames the detector can see objects in.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from dynosam_tpu_torch.config import (
     BackendParams,
@@ -29,6 +41,8 @@ from dynosam_tpu_torch.config import (
 from dynosam_tpu_torch.cv import camera as cam
 from dynosam_tpu_torch.dataproviders.simulator import ObjectSpec, ScenarioSpec
 from dynosam_tpu_torch.dataproviders.synthetic_dense import DenseScenario
+from dynosam_tpu_torch.frontend.types import FrameInputs
+from dynosam_tpu_torch.utils import lie
 
 HEIGHT, WIDTH = 384, 1280
 DET_HEIGHT, DET_WIDTH = 384, 640
@@ -97,11 +111,51 @@ def _bench_spec(num_frames):
     )
 
 
-def bench_scene(intr, num_frames=10, device="cuda") -> DenseScenario:
+def bench_scene(intr, num_frames=10, device="cuda", world_texture=False) -> DenseScenario:
     """The benchmark's synthetic scene: camera driving forward with a slight
-    yaw, three objects on the road."""
+    yaw, three objects on the road; `world_texture` anchors the texture to
+    the surfaces (the KLT path's frames)."""
     return DenseScenario(_bench_spec(num_frames), intr, ground_y=1.6, far_depth=60.0,
-                         object_half_extents=[(1.6, 1.6)] * 3, device=device)
+                         object_half_extents=[(1.6, 1.6)] * 3, world_texture=world_texture,
+                         device=device)
+
+
+def bench_klt_config():
+    """(cfg, intr): bench_config() tracking by KLT (3 levels, 7x7 window,
+    8 iterations, forward-backward check at 1 px) on CLAHE-equalized frames
+    (grid 8, clip 2.0), the defaults of TrackerParams."""
+    cfg, intr = bench_config()
+    return cfg.with_overrides({"frontend.tracker.prefer_provided_optical_flow": False}), intr
+
+
+def stereo_imu_config():
+    """(cfg, intr): bench_klt_config() with the IMU and its rotation prior
+    (known-rotation RANSAC); in-loop stereo stays at its default (on) and
+    runs on frames that carry a right image."""
+    cfg, intr = bench_klt_config()
+    return cfg.with_overrides({"frontend.use_imu": True, "frontend.imu.use_rotation_prior": True}), intr
+
+
+def render_right(scene: DenseScenario, k: int):
+    """The rectified right image of frame k (H, W, 3): the scene rendered
+    from X_gt[k] @ T_lr, T_lr translating by the baseline along camera x."""
+    scn = scene.scn
+    T_lr = torch.eye(4, dtype=torch.float32, device=scene.device)
+    T_lr[0, 3] = float(scene.intr.baseline)
+    X_r = lie.compose(scn.X_gt[k], T_lr)
+    L_k = [L[k] for L in scn.L_gt]
+    depth_r, mask_r = scene._depth_mask(X_r, L_k)
+    return scene._world_rgb(X_r, L_k, depth_r, mask_r)
+
+
+def stereo_imu_frame(scene: DenseScenario, k: int, imu_samples: int = 32) -> FrameInputs:
+    """Frame k with its right image, its provided depth corrupted by 1.15x
+    (triangulated stereo depth is the only route back to the geometry) and
+    the IMU window of (k-1, k]."""
+    fr = scene.frame(k)
+    imu, imu_valid = scene.scn.imu_window(k, imu_samples)
+    return dataclasses.replace(fr, depth=fr.depth * 1.15, right=render_right(scene, k),
+                               imu_samples=imu, imu_valid=imu_valid)
 
 
 def detector_config():

@@ -3,9 +3,9 @@
 `pipeline_state_from_numpy` takes the nested dict of numpy arrays that
 `flax.serialization.to_state_dict` gives for the reference's PipelineState
 and builds the port's `PipelineState`; `pipeline_state_to_numpy` does the
-reverse for the fields the port has, the tracker's ByteTrack state
-included. Leaves the port does not carry are dropped: the RANSAC key (a
-torch.Generator replaces it) and the KLT, mask-propagation and IMU carries.
+reverse for the fields the port has, the tracker's ByteTrack state and
+the KLT, mask-propagation and IMU carries included. The one leaf the port
+does not carry is dropped: the RANSAC key (a torch.Generator replaces it).
 """
 
 from __future__ import annotations

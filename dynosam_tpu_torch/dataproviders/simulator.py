@@ -1,9 +1,11 @@
-"""Kinematic scenario: ground-truth camera and object pose chains
-(port of the trajectory part of dynosam_tpu/dataproviders/simulator.py).
+"""Kinematic scenario: ground-truth camera and object pose chains and the
+exact IMU measurements of the camera's trajectory (port of the trajectory
+and IMU parts of dynosam_tpu/dataproviders/simulator.py).
 
 The reference's static landmark clouds, packet synthesis and their spec
 fields are not ported; the dense renderer (synthetic_dense.py) needs only
-the pose chains, and `ground_truth` gives the evaluator its per-frame view.
+the pose chains, `ground_truth` gives the evaluator its per-frame view and
+`imu_window` the frontend its IMU input.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ class ScenarioSpec:
         default_factory=lambda: np.array([0.0, 0.01, 0.0, 0.0, 0.0, 0.4])
     )
     objects: List[ObjectSpec] = field(default_factory=list)
+    frame_dt: float = 0.1                # seconds between frames (IMU timing)
 
 
 class Scenario:
@@ -50,10 +53,10 @@ class Scenario:
         xi = np.asarray(spec.camera_motion_xi, np.float32)
         if xi.ndim == 1:
             xi = np.tile(xi[None, :], (max(K - 1, 1), 1))
-        twists = t(xi)
+        self.camera_twists = t(xi)                        # (K-1, 6)
         poses = [lie.identity(device=device)]
         for k in range(K - 1):
-            poses.append(lie.compose(poses[-1], lie.se3_exp(twists[k])))
+            poses.append(lie.compose(poses[-1], lie.se3_exp(self.camera_twists[k])))
         self.X_gt = torch.stack(poses)
 
         self.object_ids = [o.object_id for o in spec.objects]
@@ -71,6 +74,40 @@ class Scenario:
                     dim=0,
                 )
             )
+
+    def camera_velocity(self, k: int):
+        """World-frame linear velocity at the start of interval (k, k+1]: a
+        piecewise-constant twist keeps the body velocity constant within an
+        interval, v_w(t) = R(t) v_b."""
+        kk = min(k, self.camera_twists.shape[0] - 1)
+        v_b = self.camera_twists[kk, 3:] / self.spec.frame_dt
+        return lie.rotate_points(lie.rotation(self.X_gt[k]), v_b)
+
+    def imu_window(self, k: int, n_samples: int = 32, gravity=(0.0, 9.81, 0.0)):
+        """Exact IMU measurements over the interval (k-1, k] -> ((S, 7) rows
+        [dt ax ay az gx gy gz], (S,) mask), the FrameInputs.imu_samples
+        contract. Within an interval the twist is constant: gyro = w_b and
+        the specific force at local time t is f(t) = w_b x v_b - R(t)^T g
+        with R(t) = R_{k-1} exp(hat(w_b) t). k = 0 gives an all-invalid
+        window."""
+        S = n_samples
+        dev = self.X_gt.device
+        if k <= 0:
+            return (torch.zeros((S, 7), dtype=torch.float32, device=dev),
+                    torch.zeros((S,), dtype=torch.bool, device=dev))
+        dt_f = self.spec.frame_dt
+        xi = self.camera_twists[k - 1]
+        w_b = xi[:3] / dt_f
+        v_b = xi[3:] / dt_f
+        g = torch.tensor(gravity, dtype=torch.float32, device=dev)
+        R_prev = lie.rotation(self.X_gt[k - 1])
+        dt_s = dt_f / S
+        t_mid = (torch.arange(S, dtype=torch.float32, device=dev) + 0.5) * dt_s
+        R_t = lie.mm(R_prev, lie.so3_exp(w_b[None, :] * t_mid[:, None]))        # (S, 3, 3)
+        f = torch.linalg.cross(w_b, v_b)[None, :] - lie.einsum("sba,b->sa", R_t, g)
+        rows = torch.cat([torch.full((S, 1), dt_s, dtype=torch.float32, device=dev), f,
+                          w_b.expand(S, 3)], dim=-1)
+        return rows, torch.ones((S,), dtype=torch.bool, device=dev)
 
     def ground_truth(self, k: int, max_objects: int = 16) -> GroundTruthFrame:
         """Frame k's ground truth over `max_objects` slots, on the host."""

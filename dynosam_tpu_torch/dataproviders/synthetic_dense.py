@@ -202,7 +202,7 @@ class DenseScenario:
 
 
 def default_dense_scenario(
-    num_frames=10, width=160, height=120, fov_scale=0.5, device="cuda"
+    num_frames=10, width=160, height=120, fov_scale=0.5, world_texture=False, device="cuda"
 ) -> DenseScenario:
     """The small dense test scene of the reference: camera driving forward,
     two objects."""
@@ -226,4 +226,4 @@ def default_dense_scenario(
             ),
         ],
     )
-    return DenseScenario(spec, intr, device=device)
+    return DenseScenario(spec, intr, world_texture=world_texture, device=device)

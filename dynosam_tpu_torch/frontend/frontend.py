@@ -1,20 +1,25 @@
 """RGB-D instance frontend: one step per frame (port of
-dynosam_tpu/frontend/frontend.py, provided-flow path).
+dynosam_tpu/frontend/frontend.py).
 
-mask propagation -> track -> camera RANSAC + GN (constant-velocity
-fallback) -> joint optical-flow + pose refinement -> per-object motion
-solves (one batch over the object-slot axis) -> per-object joint
-refinement -> output packet.
+mask propagation -> track (provided flow or KLT) -> in-loop stereo depth ->
+IMU preintegration -> camera RANSAC + GN (IMU or constant-velocity prior and
+fallback, optional IMU rotation prior) -> joint optical-flow + pose
+refinement (and stereo again) -> per-object motion solves (one batch over
+the object-slot axis) -> per-object joint refinement -> output packet.
 
-Mask propagation runs when `use_propogate_mask` is set and the state was
-built with an image shape (it then carries the previous mask). Not ported:
-IMU preintegration, in-loop stereo depth and KLT tracking. A config that
-would run one of them raises NotImplementedError.
+Every branch of the reference runs here. Mask propagation runs when
+`use_propogate_mask` is set and the state was built with an image shape (it
+then carries the previous mask). KLT mode needs the image shape too: the
+state carries the previous frame, CLAHE-equalized when use_clahe is on
+(each frame is equalized once; detection stays on the raw gray). Stereo runs
+when the frames carry a right image and use_stereo_track is on; the IMU when
+they carry an IMU window and use_imu is on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -22,6 +27,8 @@ import torch
 
 from dynosam_tpu_torch.config import FrontendParams
 from dynosam_tpu_torch.cv import camera as cam
+from dynosam_tpu_torch.cv import stereo as stereo_mod
+from dynosam_tpu_torch.frontend import imu as imu_mod
 from dynosam_tpu_torch.frontend import motion
 from dynosam_tpu_torch.frontend import tracker as tracker_mod
 from dynosam_tpu_torch.frontend.tracker import TrackerState, empty_tracker_state, track_frame
@@ -41,27 +48,28 @@ class FrontendState:
     X_prev: torch.Tensor       # (4, 4) pose at k-1
     X_prev_prev: torch.Tensor  # (4, 4) pose at k-2 (constant-velocity prior)
     frame_idx: torch.Tensor    # () int32
+    # previous grayscale frame, carried in KLT mode (CLAHE-equalized when
+    # use_clahe is on); (0, 0) otherwise
+    prev_gray: torch.Tensor
     # previous instance mask, carried when mask propagation runs; (0, 0)
     # otherwise
     prev_mask: torch.Tensor
-
-
-def check_supported(params: FrontendParams):
-    """Raise NotImplementedError for the frontend branches this port lacks.
-
-    As in the reference, stereo runs only when frames carry a right image
-    (the port's FrameInputs have none), so its default-on flag alone does
-    not ask for it."""
-    tracker_mod.check_supported(params.tracker)
-    if params.use_imu:
-        raise NotImplementedError("IMU preintegration (use_imu=True) is not ported")
+    # world-frame linear velocity for the IMU nav-state propagation (zeros
+    # and untouched when the IMU is off)
+    v_world: torch.Tensor
 
 
 def empty_frontend_state(params: FrontendParams, device, dtype=torch.float32,
                          image_shape=None) -> FrontendState:
-    """The state before frame 0. With `image_shape` (H, W) and
-    use_propogate_mask, the state carries the previous mask."""
-    check_supported(params)
+    """The state before frame 0. `image_shape` (H, W) is required in KLT
+    mode; with use_propogate_mask it makes the state carry the previous
+    mask."""
+    klt_mode = not params.tracker.prefer_provided_optical_flow
+    if klt_mode and image_shape is None:
+        raise ValueError(
+            "prefer_provided_optical_flow=False: pass "
+            "image_shape=(height, width) so the state can carry prev_gray"
+        )
     eye = torch.eye(4, dtype=dtype, device=device)
     pm_shape = image_shape if (params.use_propogate_mask and image_shape is not None) else (0, 0)
     return FrontendState(
@@ -69,8 +77,18 @@ def empty_frontend_state(params: FrontendParams, device, dtype=torch.float32,
         X_prev=eye,
         X_prev_prev=eye.clone(),
         frame_idx=torch.zeros((), dtype=torch.int32, device=device),
+        prev_gray=torch.zeros(tuple(image_shape) if klt_mode else (0, 0), dtype=dtype, device=device),
         prev_mask=torch.zeros(tuple(pm_shape), dtype=torch.int32, device=device),
+        v_world=torch.zeros((3,), dtype=dtype, device=device),
     )
+
+
+@functools.lru_cache(maxsize=8)
+def _imu_params(gravity, accel_bias, gyro_bias, device) -> imu_mod.ImuParams:
+    """The IMU constants on `device`, made once: a host-to-device copy each
+    frame would wait on the card."""
+    return imu_mod.ImuParams.create(gravity=gravity, accel_bias=accel_bias, gyro_bias=gyro_bias,
+                                    device=device)
 
 
 def _to_gray(rgb):
@@ -117,11 +135,18 @@ def frontend_step(
 ):
     """Process one frame -> (new FrontendState, VisionPacket). RANSAC
     samples come from `generator` (on the frame's device)."""
-    check_supported(params)
     first = state.frame_idx == 0
     not_first = ~first
     old = state.tracker
+    tp = params.tracker
     gray = _to_gray(inputs.rgb).contiguous()
+    klt_mode = not tp.prefer_provided_optical_flow
+    # KLT mode: equalize the new frame once and carry it as prev_gray; the
+    # LK pair is equalized, detection stays on the raw gray
+    if klt_mode and tp.use_clahe:
+        gray_t = tracker_mod._clahe_padded(gray, tp.clahe_grid, tp.clahe_clip_limit)
+    else:
+        gray_t = gray
 
     # ---- mask propagation ---------------------------------------------------
     pm_on = params.use_propogate_mask and state.prev_mask.numel() > 0
@@ -131,10 +156,29 @@ def frontend_step(
         mask_k = torch.where(first, inputs.mask, repaired)
 
     tracker = track_frame(
-        old, gray, inputs.depth, inputs.flow, mask_k, params, first_frame=first
+        old, gray, inputs.depth, inputs.flow, mask_k, params, first_frame=first,
+        prev_gray=state.prev_gray if klt_mode else None,
+        gray_lk=gray_t if klt_mode else None,
     )
     dtype = tracker.s_uv.dtype
     eye4 = torch.eye(4, dtype=dtype, device=gray.device)
+
+    # ---- in-loop stereo depth (stereoTrack #1) ----------------------------
+    # KLT-match the static features into the rectified right image and take
+    # their triangulated depths before the camera solve
+    has_right = params.use_stereo_track and inputs.right is not None
+    if has_right:
+        right_gray = _to_gray(inputs.right).contiguous()
+
+        def _stereo_refresh(trk):
+            depth_st, _, ok = stereo_mod.stereo_track(
+                gray, right_gray, trk.s_uv, trk.s_valid, intr.fx, intr.baseline,
+                levels=tp.klt_levels, half=max(tp.klt_window_half, 3), iters=tp.klt_iterations,
+                min_eig=tp.klt_min_eig, fb_threshold=tp.klt_fb_threshold,
+            )
+            return dataclasses.replace(trk, s_depth=torch.where(ok & trk.s_valid, depth_st, trk.s_depth))
+
+        tracker = _stereo_refresh(tracker)
 
     # ---- camera ego-motion ------------------------------------------------
     # correspondence: same slot, same tracklet, valid at both frames
@@ -147,9 +191,29 @@ def frontend_step(
     vel = lie.compose(lie.inverse(state.X_prev_prev), state.X_prev)
     X_prior = lie.compose(state.X_prev, vel)
 
+    # ---- IMU preintegration ------------------------------------------------
+    # the preintegrated nav-state gives the prior/fallback pose and, with
+    # use_rotation_prior, the rotation of the known-rotation RANSAC
+    use_imu = params.use_imu and inputs.imu_samples is not None
+    R_known = None
+    pim_dt = None
+    if use_imu:
+        imu_params = _imu_params(tuple(params.imu.gravity), tuple(params.imu.accel_bias),
+                                 tuple(params.imu.gyro_bias), gray.device)
+        pim = imu_mod.preintegrate(inputs.imu_samples, inputs.imu_valid, imu_params)
+        pim_dt = pim.dt
+        X_imu, _ = imu_mod.predict(state.X_prev, state.v_world, pim, imu_params)
+        has_imu = (pim.dt > 0) & not_first
+        X_prior = torch.where(has_imu, X_imu, X_prior)
+        if params.imu.use_rotation_prior:
+            # RANSAC solves T_cam_world: pin its rotation to the IMU's
+            R_known = torch.where(
+                has_imu, lie.rotation(X_imu).transpose(-1, -2), lie.rotation(X_prior).transpose(-1, -2)
+            )
+
     cam_res = motion.solve_camera_pose(
         generator, pts_world_prev, tracker.s_uv, pts_cam_k, s_match,
-        intr, params.motion_solver, X_prior,
+        intr, params.motion_solver, X_prior, R_known=R_known,
     )
     X_k = torch.where(first, eye4, cam_res.pose)
 
@@ -180,6 +244,10 @@ def frontend_step(
             s_uv=torch.where(upd[:, None], uv_ref, tracker.s_uv),
             s_depth=torch.where(upd, depth_ref, tracker.s_depth),
         )
+        # stereoTrack #2: the refinement moved the keypoints, so match them
+        # into the right image again
+        if has_right:
+            tracker = _stereo_refresh(tracker)
 
     # ---- object motions -----------------------------------------------------
     d_match = old.d_valid & tracker.d_valid & (old.d_tid == tracker.d_tid) & not_first
@@ -294,11 +362,23 @@ def frontend_step(
         pose_valid=cam_res.valid | first,
     )
 
+    # velocity for the next IMU propagation: finite difference of the solved
+    # poses over the preintegration span
+    v_new = state.v_world
+    if use_imu:
+        v_new = torch.where(
+            pim_dt > 1e-6,
+            (lie.translation(X_k) - lie.translation(state.X_prev)) / torch.clamp(pim_dt, min=1e-6),
+            state.v_world,
+        )
+
     new_state = FrontendState(
         tracker=tracker,
         X_prev=X_k,
         X_prev_prev=torch.where(first, X_k, state.X_prev),
         frame_idx=state.frame_idx + 1,
+        prev_gray=gray_t.to(state.prev_gray.dtype) if klt_mode else state.prev_gray,
         prev_mask=mask_k.to(torch.int32) if pm_on else state.prev_mask,
+        v_world=v_new,
     )
     return new_state, packet

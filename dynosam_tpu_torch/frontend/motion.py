@@ -66,15 +66,24 @@ def solve_camera_pose(
     params: MotionSolverParams,
     X_prior,            # (4, 4)
     uniforms: Optional[torch.Tensor] = None,   # (M, N) injected RANSAC draws
+    R_known: Optional[torch.Tensor] = None,    # (3, 3) camera rotation R_cam_world at k
 ) -> MotionSolveResult:
     """Estimate X_world_cam at frame k; falls back to X_prior on failure.
 
-    The IMU known-rotation mode of the reference (R_known) is not ported."""
+    With R_known (the known-rotation mode, an IMU rotation prior), each
+    hypothesis pins the rotation and takes the mean of its sample points'
+    translations t = p_c - R p_w; the refit and GN stages still refine the
+    full pose."""
     rp = params.camera
     data = {"p_w": pts_world, "uv": uv_k, "p_c": pts_cam_k}
 
-    def solve_fn(s):
-        return kabsch.solve_rigid_3pt(s["p_w"], s["p_c"])
+    if R_known is None:
+        def solve_fn(s):
+            return kabsch.solve_rigid_3pt(s["p_w"], s["p_c"])
+    else:
+        def solve_fn(s):
+            t = torch.mean(s["p_c"] - lie.rotate_points(R_known, s["p_w"]), dim=-2)
+            return lie.make_pose(R_known, t)
 
     use_pnp = params.use_ego_motion_pnp
     if use_pnp:

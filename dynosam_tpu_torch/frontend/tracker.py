@@ -1,18 +1,21 @@
-"""Dense-flow feature tracker over fixed-capacity track tables
-(port of dynosam_tpu/frontend/tracker.py, provided-flow mode), and the
-flow advection of the previous instance mask (`propagate_mask`).
+"""Feature tracker over fixed-capacity track tables (port of
+dynosam_tpu/frontend/tracker.py), and the flow advection of the previous
+instance mask (`propagate_mask`).
 
-The provided-flow branch of `track_frame` is ported with its detection
-(Shi-Tomasi response + per-cell argmax), spread dynamic sampling,
-requiresSampling IoU and object-slot bookkeeping, and with the ByteTrack
-relabelling of masks that carry no persistent ids
-(prefer_provided_object_detection=False). The KLT branch and CLAHE are not
-ported: asking for them raises NotImplementedError.
+`track_frame` propagates the tracks in either of the reference's modes: by
+the provided dense flow (prefer_provided_optical_flow), or by sparse
+pyramidal KLT with the forward-backward check over the static and dynamic
+tracks in one batch (ops/lk.py), on a pre-equalized pair when use_clahe is
+on (`_clahe_padded`; frontend_step equalizes each frame once). Then come the
+validity gates, detection (Shi-Tomasi response + per-cell argmax), spread
+dynamic sampling, the requiresSampling IoU and the object-slot bookkeeping,
+with the ByteTrack relabelling of masks that carry no persistent ids
+(prefer_provided_object_detection=False).
 
 Detection goes through `ops/cuda/shi_tomasi.py::shi_tomasi_cell_max` when
 `tracker.use_pallas_kernels` is set (the fused response + per-cell argmax
 kernel for a CUDA tensor, its plain version for a CPU tensor), else through
-the plain response and `_cell_reduce`.
+the plain response and `_cell_reduce`. It always runs on the raw `gray`.
 """
 
 from __future__ import annotations
@@ -21,10 +24,11 @@ from dataclasses import dataclass
 
 import torch
 
-from dynosam_tpu_torch.config import FrontendParams, TrackerParams
+from dynosam_tpu_torch.config import FrontendParams
 from dynosam_tpu_torch.frontend.types import first_true
 from dynosam_tpu_torch.nn import bytetrack as bt
-from dynosam_tpu_torch.ops import interp
+from dynosam_tpu_torch.ops import interp, lk
+from dynosam_tpu_torch.ops.clahe import clahe
 from dynosam_tpu_torch.ops.cuda.shi_tomasi import (
     cell_reduce as _cell_reduce,
     shi_tomasi_cell_max,
@@ -124,10 +128,14 @@ def _fill_free_slots(slot_tid, slot_valid, cand_score, cand_ok, max_new):
 # Main per-frame step
 # ---------------------------------------------------------------------------
 
-def check_supported(tp: TrackerParams):
-    """Raise NotImplementedError for the tracker branches this port lacks."""
-    if not tp.prefer_provided_optical_flow:
-        raise NotImplementedError("KLT tracking (prefer_provided_optical_flow=False) is not ported")
+def _clahe_padded(gray, grid: int, clip: float):
+    """CLAHE for any H, W: edge-pad to multiples of `grid`, equalize, crop."""
+    H, W = gray.shape
+    ph, pw = (-H) % grid, (-W) % grid
+    if ph or pw:
+        g = torch.nn.functional.pad(gray[None, None], (0, pw, 0, ph), mode="replicate")[0, 0]
+        return clahe(g, grid=grid, clip_limit=clip)[:H, :W]
+    return clahe(gray, grid=grid, clip_limit=clip)
 
 
 def track_frame(
@@ -138,11 +146,14 @@ def track_frame(
     mask,                 # (H, W) int32 instance labels at k
     params: FrontendParams,
     first_frame,          # () bool tensor
+    prev_gray=None,       # (H, W) grayscale of k-1, KLT mode only
+    gray_lk=None,         # (H, W) CLAHE-equalized frame k for the LK pair
 ) -> TrackerState:
-    """One tracking step (provided-flow mode). See the reference docstring
-    for the slot correspondence contract."""
+    """One tracking step. See the reference docstring for the slot
+    correspondence contract. In KLT mode (prefer_provided_optical_flow
+    False) the LK pair is (prev_gray, gray_lk), both equalized when
+    use_clahe is on; gray_lk defaults to `gray` with CLAHE off."""
     tp = params.tracker
-    check_supported(tp)
     H, W = gray.shape
     dtype = gray.dtype
     dev = gray.device
@@ -176,15 +187,44 @@ def track_frame(
         ).to(torch.int32)
         mask = remap[torch.clamp(mask, 0, max_dets + 1).long()]
 
-    # ======== propagate tracks by the provided dense flow =================
-    s_uv = state.s_uv + interp.sample_flow(flow, state.s_uv)
-    d_uv = state.d_uv + interp.sample_flow(flow, state.d_uv)
+    # ======== propagate tracks (provided dense flow OR sparse KLT) ========
+    ns = state.s_uv.shape[0]
+    if tp.prefer_provided_optical_flow:
+        s_uv = state.s_uv + interp.sample_flow(flow, state.s_uv)
+        d_uv = state.d_uv + interp.sample_flow(flow, state.d_uv)
+        s_prop_ok = d_prop_ok = True
+    else:
+        if prev_gray is None:
+            raise ValueError(
+                "prefer_provided_optical_flow=False requires prev_gray "
+                "(carry it in FrontendState; see frontend_step)"
+            )
+        if tp.use_clahe and gray_lk is None:
+            raise ValueError(
+                "use_clahe=True requires gray_lk (the CLAHE-equalized current "
+                "frame): the LK pair must arrive pre-equalized; frontend_step "
+                "equalizes each frame once and carries the result as prev_gray"
+            )
+        uv1_all, ok_all = lk.lk_track(
+            prev_gray,
+            gray_lk if gray_lk is not None else gray,
+            torch.cat([state.s_uv, state.d_uv], dim=0),
+            torch.cat([state.s_valid, state.d_valid], dim=0),
+            levels=tp.klt_levels,
+            half=tp.klt_window_half,
+            iters=tp.klt_iterations,
+            min_eig=tp.klt_min_eig,
+            fb_threshold=tp.klt_fb_threshold,
+        )
+        s_uv, d_uv = uv1_all[:ns], uv1_all[ns:]
+        s_prop_ok, d_prop_ok = ok_all[:ns], ok_all[ns:]
 
     # ======== static track validity =======================================
     s_label = interp.sample_label(mask, s_uv)
     s_depth = interp.sample_depth(depth, s_uv).to(dtype)
     s_ok = (
         state.s_valid
+        & s_prop_ok
         & not_first
         & in_bounds(s_uv)
         & (s_label == 0)
@@ -198,6 +238,7 @@ def track_frame(
     d_depth = interp.sample_depth(depth, d_uv).to(dtype)
     d_ok = (
         state.d_valid
+        & d_prop_ok
         & not_first
         & in_bounds(d_uv)
         & (d_label == state.d_oid)
@@ -251,7 +292,6 @@ def track_frame(
         sv = torch.clamp(torch.div(cand_uv[:, 1], sup, rounding_mode="floor").long(), 0, sgh - 1)
         cand_ok_s = cand_ok_s & ~occ_sup[sv, su]
     need_static = torch.sum(s_ok) < tp.min_features_per_frame
-    ns = state.s_uv.shape[0]
     max_new_s = torch.where(need_static | first_frame, ns, 0)
     assign_s = _fill_free_slots(state.s_tid, s_ok, best, cand_ok_s, max_new_s)
 

@@ -1,7 +1,8 @@
 """Frontend <-> backend data contracts (port of dynosam_tpu/frontend/types.py).
 
-Fixed-capacity tables with validity masks, as in the reference. The IMU and
-right-image fields of `FrameInputs` are not part of this port yet.
+Fixed-capacity tables with validity masks, as in the reference. The IMU
+window and the right image of `FrameInputs` are optional (None when a
+dataset has neither).
 `GroundTruthFrame` holds host numpy arrays: ground truth is read only on
 the host (logging, evaluation).
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,19 +50,30 @@ class VisionPacket:
 @dataclass
 class FrameInputs:
     """Per-frame sensor inputs: rgb (H, W, 3) float, depth (H, W) metric z,
-    flow (H, W, 2) k-1 -> k on frame k-1 pixels, mask (H, W) int32 labels."""
+    flow (H, W, 2) k-1 -> k on frame k-1 pixels, mask (H, W) int32 labels;
+    optionally the IMU window over (t_{k-1}, t_k] for preintegration
+    (frontend/imu.py: (S, 7) rows [dt ax ay az gx gy gz] and an (S,) mask)
+    and the rectified right image (H, W[, 3]) that turns on the in-loop
+    stereo depth."""
 
     frame_id: torch.Tensor  # () int32
     rgb: torch.Tensor
     depth: torch.Tensor
     flow: torch.Tensor
     mask: torch.Tensor
+    imu_samples: Optional[torch.Tensor] = None
+    imu_valid: Optional[torch.Tensor] = None
+    right: Optional[torch.Tensor] = None
+
+    def tensors(self) -> dict:
+        """{field name: tensor} of the fields that are set."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
     def to(self, device, non_blocking=False) -> "FrameInputs":
-        """These inputs with every tensor on `device`."""
+        """These inputs with every tensor on `device` (unset fields stay None)."""
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
-            for f in dataclasses.fields(self)
+            k: v.to(device, non_blocking=non_blocking) for k, v in self.tensors().items()
         })
 
 

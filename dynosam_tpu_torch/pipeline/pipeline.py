@@ -49,8 +49,7 @@ def _upload(inputs: FrameInputs, device: torch.device, stream) -> tuple:
         return inputs, None
     with torch.cuda.stream(stream):
         out = dataclasses.replace(inputs, **{
-            f.name: getattr(inputs, f.name).pin_memory().to(device, non_blocking=True)
-            for f in dataclasses.fields(inputs)
+            k: v.pin_memory().to(device, non_blocking=True) for k, v in inputs.tensors().items()
         })
         event = torch.cuda.Event()
         event.record(stream)
@@ -85,8 +84,8 @@ def _prefetch(it: Iterator, size: int, device: torch.device) -> Iterator:
         if event is not None:
             consumer = torch.cuda.current_stream(device)
             consumer.wait_event(event)
-            for f in dataclasses.fields(item):
-                getattr(item, f.name).record_stream(consumer)
+            for v in item.tensors().values():
+                v.record_stream(consumer)
         yield item
 
 

@@ -1,6 +1,6 @@
 """Write the JAX reference outputs that chip_smoke.py holds the port to.
 
-Runs the JAX package on the CPU and writes three files under
+Runs the JAX package on the CPU and writes five files under
 dynosam_tpu_torch/testdata/:
 
   * bench_ref_20f.npz — the fused step (parallel/batched.py::make_fused_step)
@@ -25,10 +25,22 @@ dynosam_tpu_torch/testdata/:
     lands from seed 0: its poses (largest translation, m, and rotation,
     rad) and its matured motions on the shared keys (largest and median
     translation, m).
+  * bench_klt_ref_20f.npz — the KLT path: the fused step at bench_config()
+    tracking by KLT on CLAHE-equalized frames (prefer_provided_optical_flow
+    False) over the first 20 frames of bench.make_frames(world_texture=True).
+    Per frame the fused step's outputs as above and the counts of valid
+    static and dynamic tracks after the step (n_static, n_dynamic).
+  * stereo_imu_ref_12f.npz — the stereo + IMU path: the KLT configuration
+    with use_imu and the IMU rotation prior, over 12 frames of the same
+    world-textured bench scene, each frame carrying the right image rendered
+    at +baseline along camera x, its provided depth corrupted by 1.15x and
+    the 32-sample IMU window of the interval before it. The same keys as
+    the KLT file.
 
-Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py [--only kitti]
+Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
+    [--only bench|detector|kitti|klt|stereo_imu]
 (~80 s for the first two files; ~32 min for the third, most of it the
-full-batch runs at a 60-frame window)
+full-batch runs at a 60-frame window; a few minutes for each of the last two)
 """
 
 from __future__ import annotations
@@ -48,6 +60,12 @@ DET_FRAMES = 24
 TESTDATA = os.path.join(ROOT, "dynosam_tpu_torch", "testdata")
 BENCH_OUT = os.path.join(TESTDATA, "bench_ref_20f.npz")
 DET_OUT = os.path.join(TESTDATA, "det_ref_24f.npz")
+KLT_FRAMES = 20
+KLT_OUT = os.path.join(TESTDATA, "bench_klt_ref_20f.npz")
+STEREO_IMU_FRAMES = 12
+STEREO_IMU_OUT = os.path.join(TESTDATA, "stereo_imu_ref_12f.npz")
+IMU_SAMPLES = 32
+DEPTH_CORRUPTION = 1.15
 KITTI_OUT = os.path.join(TESTDATA, "kitti_ref_60f.npz")
 KITTI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "kitti_fixture")
 KITTI_FRAMES = 60
@@ -66,16 +84,21 @@ def _save(path, arrays, t0):
           f"in {time.time() - t0:.1f} s", flush=True)
 
 
-def _run(step, state, frames, per_frame=None):
+def _run(step, state, frames, per_frame=None, track_counts=False):
+    """The step over the frames -> {output key: (frames, ...)}; with
+    track_counts also n_static / n_dynamic, the valid tracks per frame."""
     import numpy as np
 
-    outs = {k: [] for k in KEYS}
+    outs = {k: [] for k in KEYS + (("n_static", "n_dynamic") if track_counts else ())}
     for fr in frames:
         if per_frame is not None:
             fr = per_frame(fr)
         state, out = step(state, fr)
         for key in KEYS:
             outs[key].append(np.asarray(out[key]))
+        if track_counts:
+            outs["n_static"].append(int(state.frontend.tracker.s_valid.sum()))
+            outs["n_dynamic"].append(int(state.frontend.tracker.d_valid.sum()))
     return {k: np.stack(v) for k, v in outs.items()}
 
 
@@ -90,6 +113,68 @@ def bench_reference():
     frames = bench.make_frames(intr, num_frames=BENCH_FRAMES)
     step = jax.jit(make_fused_step(cfg, intr))
     _save(BENCH_OUT, _run(step, init_pipeline_state(cfg), frames), t0)
+
+
+def _klt_cfg(**overrides):
+    import bench
+
+    cfg, intr = bench.bench_config()
+    return cfg.with_overrides({"frontend.tracker.prefer_provided_optical_flow": False, **overrides}), intr
+
+
+def klt_reference():
+    import jax
+
+    import bench
+    from dynosam_tpu.parallel.batched import init_pipeline_state, make_fused_step
+
+    t0 = time.time()
+    cfg, intr = _klt_cfg()
+    frames = bench.make_frames(intr, num_frames=KLT_FRAMES, world_texture=True)
+    step = jax.jit(make_fused_step(cfg, intr))
+    state = init_pipeline_state(cfg, image_shape=(intr.height, intr.width))
+    _save(KLT_OUT, _run(step, state, frames, track_counts=True), t0)
+
+
+def stereo_imu_reference():
+    import jax
+    import jax.numpy as jnp
+
+    from dynosam_tpu.dataproviders.simulator import ObjectSpec, ScenarioSpec
+    from dynosam_tpu.dataproviders.synthetic_dense import DenseScenario
+    from dynosam_tpu.parallel.batched import init_pipeline_state, make_fused_step
+    from dynosam_tpu_torch import bench_config as tbench
+
+    t0 = time.time()
+    cfg, intr = _klt_cfg(**{"frontend.use_imu": True, "frontend.imu.use_rotation_prior": True})
+    # the port's bench scene, world-textured, rendered by the JAX package
+    tscene = tbench.bench_scene(tbench.bench_config()[1], STEREO_IMU_FRAMES, device="cpu",
+                                world_texture=True)
+    sp = tscene.scn.spec
+    spec = ScenarioSpec(
+        num_frames=sp.num_frames, num_static=0, camera_motion_xi=sp.camera_motion_xi,
+        frame_dt=sp.frame_dt,
+        objects=[ObjectSpec(object_id=o.object_id, initial_pose_xi=o.initial_pose_xi,
+                            motion_xi=o.motion_xi, num_points=0) for o in sp.objects],
+    )
+    scene = DenseScenario(spec, intr, ground_y=tscene.ground_y, far_depth=tscene.far_depth,
+                          world_texture=True, object_half_extents=tscene.obj_extents)
+    T_lr = jnp.eye(4).at[0, 3].set(float(intr.baseline))
+
+    def frame(k):
+        fr = scene.frame(k)
+        X_r = scene.scn.X_gt[k] @ T_lr
+        L_k = scene._L_all[:, k]
+        depth_r, mask_r = scene._depth_mask(X_r, L_k)
+        imu, imu_valid = scene.scn.imu_window(k, IMU_SAMPLES)
+        return fr.replace(depth=fr.depth * DEPTH_CORRUPTION,
+                          right=scene._world_rgb(X_r, L_k, depth_r, mask_r),
+                          imu_samples=imu, imu_valid=imu_valid)
+
+    step = jax.jit(make_fused_step(cfg, intr))
+    state = init_pipeline_state(cfg, image_shape=(intr.height, intr.width))
+    frames = [frame(k) for k in range(STEREO_IMU_FRAMES)]
+    _save(STEREO_IMU_OUT, _run(step, state, frames, track_counts=True), t0)
 
 
 def detector_reference():
@@ -247,10 +332,10 @@ def kitti_reference():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["bench", "detector", "kitti"], action="append",
-                    help="write only these files (default: all three)")
+    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu"],
+                    action="append", help="write only these files (default: all five)")
     args = ap.parse_args()
-    todo = args.only or ["bench", "detector", "kitti"]
+    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu"]
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -258,6 +343,10 @@ def main():
         detector_reference()
     if "kitti" in todo:
         kitti_reference()
+    if "klt" in todo:
+        klt_reference()
+    if "stereo_imu" in todo:
+        stereo_imu_reference()
 
 
 if __name__ == "__main__":

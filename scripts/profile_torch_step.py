@@ -1,7 +1,14 @@
-"""Per-layer time of the port's two main paths on a CUDA card.
+"""Per-layer time of the port's main paths on a CUDA card.
 
   * bench: the fused step at bench_config over 20 bench frames (the
     10-frame window fills, then advances every frame);
+  * klt: bench_klt_config over 20 frames of the world-textured bench scene:
+    CLAHE (once per frame), then inside the tracker LK forward and back
+    (ops/lk.py::lk_flow, each with its pyramids) and the rest of the tracker
+    as their own layers;
+  * stereo_imu: stereo_imu_config over 12 such frames, each with a right
+    image, a corrupted depth and an IMU window (bench_config.stereo_imu_frame);
+    stereo matching (twice per frame) and IMU preintegration are layers too;
   * detector: detector_scene() at detector_config over 24 frames, each
     frame labelled by YOLOv8-seg before the fused step (ByteTrack relabels
     the masks inside the tracker).
@@ -10,13 +17,14 @@ Each path runs twice on fresh states: the first pass warms up (kernel build,
 cuBLAS/cuSOLVER/cuDNN handles, allocator), the second is measured. Layers
 are timed on the host clock with a torch.cuda.synchronize() at each
 boundary (so the layer times add up to more than an unhooked step):
-tracker, the rest of the frontend (RANSAC, GN, joint refinement), window
-advance, graph update and hybrid optimize; on the detector path also the
+tracker, the rest of the frontend (RANSAC, GN, joint refinement; stereo,
+IMU and CLAHE taken out), window advance, graph update and hybrid optimize; on the detector path also the
 network, decode + NMS, mask combination (with K2 alone inside it), label
 image and ByteTrack. A third pass runs under torch.profiler for device busy
 time, device op count and the top kernels by device time.
 
 Usage: python scripts/profile_torch_step.py [--out PATH.json] [--seed N]
+    [--paths bench,klt,stereo_imu,detector]
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the full result, with the top kernels, as JSON here")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paths", default="bench,klt,stereo_imu,detector",
+                    help="comma-separated paths to profile, in order")
     args = ap.parse_args()
 
     import torch
@@ -48,8 +58,11 @@ def main():
     from dynosam_tpu_torch.backend import graph as graph_mod
     from dynosam_tpu_torch.backend import hybrid as hybrid_mod
     from dynosam_tpu_torch.backend import window as window_mod
+    from dynosam_tpu_torch.cv import stereo as stereo_mod
     from dynosam_tpu_torch.frontend import frontend as fe_mod
+    from dynosam_tpu_torch.frontend import imu as imu_mod
     from dynosam_tpu_torch.frontend import tracker as tracker_mod
+    from dynosam_tpu_torch.ops import lk as lk_mod
     from dynosam_tpu_torch.nn import detector as det_mod
     from dynosam_tpu_torch.nn import postprocess as pp_mod
     from dynosam_tpu_torch.parallel import batched as batched_mod
@@ -90,11 +103,37 @@ def main():
         (tracker_mod.bt, "bytetrack_step", "bytetrack_step"),
     ]
 
+    lk_calls = [0]
+
+    def lk_flow_named(fn):
+        # lk_track calls lk_flow forward, then back
+        def wrapper(*a, **kw):
+            name = "lk_forward" if lk_calls[0] % 2 == 0 else "lk_back"
+            lk_calls[0] += 1
+            return timed(name, fn)(*a, **kw)
+        return wrapper
+
+    klt_hooks = [
+        (tracker_mod, "_clahe_padded", "clahe"),
+        (lk_mod, "lk_track", "lk_track"),
+    ]
+    stereo_imu_hooks = [
+        (stereo_mod, "stereo_track", "stereo_track"),
+        (imu_mod, "preintegrate", "imu_preintegrate"),
+    ]
+
     def make_path(name):
+        engine = None
         if name == "bench":
             cfg, intr = bc.bench_config()
             frames = bc.bench_scene(intr, 20, device="cuda").frames()
-            engine = None
+        elif name == "klt":
+            cfg, intr = bc.bench_klt_config()
+            frames = bc.bench_scene(intr, 20, device="cuda", world_texture=True).frames()
+        elif name == "stereo_imu":
+            cfg, intr = bc.stereo_imu_config()
+            scene = bc.bench_scene(intr, 12, device="cuda", world_texture=True)
+            frames = [bc.stereo_imu_frame(scene, k) for k in range(12)]
         else:
             cfg, intr = bc.detector_config()
             frames = bc.detector_scene(intr, 24, device="cuda").frames()
@@ -104,7 +143,7 @@ def main():
     def run_pass(cfg, intr, frames, engine):
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         step = make_fused_step(cfg, intr, gen)
-        state = init_pipeline_state(cfg, "cuda")
+        state = init_pipeline_state(cfg, "cuda", image_shape=(intr.height, intr.width))
         times = []
         for f in frames:
             torch.cuda.synchronize()
@@ -131,7 +170,7 @@ def main():
 
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         step = make_fused_step(cfg, intr, gen)
-        state = init_pipeline_state(cfg, "cuda")
+        state = init_pipeline_state(cfg, "cuda", image_shape=(intr.height, intr.width))
 
         def one(state, f):
             if engine is not None:
@@ -153,7 +192,7 @@ def main():
         return wall, kernels, by_name
 
     result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "paths": {}}
-    for name in ("bench", "detector"):
+    for name in args.paths.split(","):
         cfg, intr, frames, engine = make_path(name)
         run_pass(cfg, intr, frames, engine)                       # warm-up
         layers.clear()
@@ -161,16 +200,43 @@ def main():
         if engine is not None:
             # the network's own time: its forward, as the engine calls it
             hooks = hooks + det_hooks + [(engine.model, "forward", "network")]
-        step_times = hooked(hooks, lambda: run_pass(cfg, intr, frames, engine))
-        layers["motion_and_refine"] = [a - b for a, b in zip(layers["frontend_total"], layers["tracker"])]
+        if name in ("klt", "stereo_imu"):
+            hooks = hooks + klt_hooks
+        if name == "stereo_imu":
+            hooks = hooks + stereo_imu_hooks
+        orig_flow = lk_mod.lk_flow
+        lk_mod.lk_flow = lk_flow_named(orig_flow)
+        lk_calls[0] = 0
+        try:
+            step_times = hooked(hooks, lambda: run_pass(cfg, intr, frames, engine))
+        finally:
+            lk_mod.lk_flow = orig_flow
+        n = len(frames)
+
+        def per_frame(key):
+            # a layer's calls summed within each frame (stereo runs twice)
+            v = layers.get(key, [])
+            k = len(v) // n if v else 0
+            return [sum(v[i * k:(i + 1) * k]) for i in range(n)] if k else [0.0] * n
+
+        # frontend minus the tracker and minus what ran outside it this frame
+        layers["motion_and_refine"] = [
+            f - t - c - st - im for f, t, c, st, im in zip(
+                layers["frontend_total"], layers["tracker"], per_frame("clahe"),
+                per_frame("stereo_track"), per_frame("imu_preintegrate"))]
+        if "lk_track" in layers:
+            # lk_flow also runs inside stereo matching: the tracker's LK is
+            # the first lk_track call of each frame
+            trk_lk = layers["lk_track"][:: len(layers["lk_track"]) // n]
+            layers["tracker_rest"] = [t - lkt for t, lkt in zip(layers["tracker"], trk_lk)]
         wall, kernels, by_name = profile_pass(cfg, intr, frames, engine)
         busy_us = sum(by_name.values())
         n_prof = len(frames) - 1
-        steady = step_times[10:] if name == "bench" else step_times[1:]
+        steady = step_times[10:] if name in ("bench", "klt") else step_times[1:]
         r = {
             "frames": len(frames),
             "step_ms": [t * 1e3 for t in step_times],
-            # bench: frames 11-20, where every step advances the window
+            # bench, klt: frames 11-20, where every step advances the window
             "step_ms_median_steady": statistics.median(steady) * 1e3,
             "layer_ms_median": {k: statistics.median(v[1:] if len(v) > 1 else v) * 1e3
                                 for k, v in layers.items()},

@@ -1,7 +1,14 @@
 """The port's slice as a whole against the JAX reference: the fused step over
-a filled 4-frame window of the noise-free dense scene, the renderer, the
-bench configuration and scene, state conversion, and that the port imports
-no JAX."""
+a filled 4-frame window of the noise-free dense scene, in provided-flow and
+in KLT mode; frontend_step in KLT mode (CLAHE on and off), with in-loop
+stereo and with the IMU and its rotation prior; the renderer, the bench
+configurations and scenes, state conversion, and that the port imports no
+JAX.
+
+The KLT-mode runs take the reference's own RANSAC draws (injected), so the
+only differences are f32 rounding: measured on these frames, poses within
+1e-6, passing tracks' positions within 2e-4 px, stereo depths within 1.3e-3
+m of ~10-40 m, object motions within 5e-5; the valid flags equal."""
 
 import dataclasses
 import os
@@ -22,7 +29,18 @@ from dynosam_tpu_torch import convert
 from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario as t_dense
 from dynosam_tpu_torch.parallel import batched as tbatched
 from dynosam_tpu_torch.utils import lie as tlie
-from torch_port_util import assert_tree_matches, jax_dense, np_tree, port_cfg, small_cfg
+from dynosam_tpu.frontend import frontend as jfrontend
+from dynosam_tpu_torch.frontend import frontend as tfrontend
+from torch_port_util import (
+    assert_tree_matches,
+    inject_draws,
+    jax_dense,
+    np_tree,
+    port_cfg,
+    reference_draws,
+    small_cfg,
+    t,
+)
 
 torch.set_num_threads(1)
 NUM_FRAMES = 4
@@ -96,21 +114,135 @@ def test_fused_step_advances_the_full_window(fused_runs):
 
 
 def test_unported_backend_and_frontend_options_raise():
+    """The WCME backend still raises; KLT, the IMU and mask propagation
+    build (KLT needs the image shape, as in the reference)."""
     cfg = port_cfg(small_cfg())
     intr = t_dense(num_frames=1, device="cpu").intr
     wcme = dataclasses.replace(cfg, backend=dataclasses.replace(cfg.backend, backend_updater_enum=0))
     with pytest.raises(NotImplementedError):
         tbatched.make_fused_step(wcme, intr)
     klt = cfg.with_overrides({"frontend.tracker.prefer_provided_optical_flow": False})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="image_shape"):
         tbatched.init_pipeline_state(klt, "cpu")
+    st = tbatched.init_pipeline_state(klt, "cpu", image_shape=(120, 160))
+    assert tuple(st.frontend.prev_gray.shape) == (120, 160)
     imu = cfg.with_overrides({"frontend.use_imu": True})
-    with pytest.raises(NotImplementedError):
-        tbatched.init_pipeline_state(imu, "cpu", image_shape=(120, 160))
-    # mask propagation is ported: with an image shape the state carries the
-    # previous mask
+    st = tbatched.init_pipeline_state(imu, "cpu", image_shape=(120, 160))
+    assert tuple(st.frontend.prev_gray.shape) == (0, 0) and tuple(st.frontend.v_world.shape) == (3,)
+    # mask propagation: with an image shape the state carries the previous mask
     st = tbatched.init_pipeline_state(cfg, "cpu", image_shape=(120, 160))
     assert tuple(st.frontend.prev_mask.shape) == (120, 160)
+
+
+FE_FRAMES = 4
+FE_MODES = {
+    "klt_clahe": {},
+    "klt_no_clahe": {"frontend.tracker.use_clahe": False},
+    "klt_stereo": {},
+    "klt_imu_rotation_prior": {"frontend.use_imu": True, "frontend.imu.use_rotation_prior": True},
+}
+
+
+def _fe_frames(jd, mode):
+    """The JAX scene's frames; stereo gets right images rendered at
+    +baseline and 1.15x corrupted depth, the IMU mode 32-sample windows."""
+    import jax.numpy as jnp
+
+    T_lr = jnp.eye(4).at[0, 3].set(float(jd.intr.baseline))
+    out = []
+    for k in range(FE_FRAMES):
+        fr = jd.frame(k)
+        if mode == "klt_stereo":
+            X_r, L_k = jd.scn.X_gt[k] @ T_lr, jd._L_all[:, k]
+            depth_r, mask_r = jd._depth_mask(X_r, L_k)
+            fr = fr.replace(depth=fr.depth * 1.15, right=jd._world_rgb(X_r, L_k, depth_r, mask_r))
+        elif mode == "klt_imu_rotation_prior":
+            imu, imu_valid = jd.scn.imu_window(k, 32)
+            fr = fr.replace(imu_samples=imu, imu_valid=imu_valid)
+        out.append(fr)
+    return out
+
+
+def _port_frame(td, k, jf):
+    """The port's frame k holding the JAX frame's numbers."""
+    names = ("rgb", "depth", "flow", "mask", "right", "imu_samples", "imu_valid")
+    return dataclasses.replace(td.frame(k), **{n: None if getattr(jf, n) is None else t(getattr(jf, n))
+                                               for n in names})
+
+
+@pytest.mark.parametrize("mode", list(FE_MODES))
+def test_frontend_step_klt_modes_match_reference(mode, monkeypatch):
+    cfg = small_cfg().with_overrides({"frontend.tracker.prefer_provided_optical_flow": False,
+                                      **FE_MODES[mode]})
+    tcfg = port_cfg(cfg)
+    jd = j_dense(num_frames=FE_FRAMES, world_texture=True)
+    td = t_dense(num_frames=FE_FRAMES, world_texture=True, device="cpu")
+    hw = (jd.intr.height, jd.intr.width)
+    js = jfrontend.empty_frontend_state(cfg.frontend, image_shape=hw)
+    ts = tfrontend.empty_frontend_state(tcfg.frontend, "cpu", image_shape=hw)
+    inject_draws(monkeypatch, reference_draws(js.key, cfg.frontend, FE_FRAMES))
+    jstep = jax.jit(lambda st, fr: jfrontend.frontend_step(st, fr, jd.intr, cfg.frontend))
+    n_valid = 0
+    for k, jf in enumerate(_fe_frames(jd, mode)):
+        js, jp = jstep(js, jf)
+        ts, tp = tfrontend.frontend_step(ts, _port_frame(td, k, jf), td.intr, tcfg.frontend)
+        np.testing.assert_allclose(tp.X_world_cam.numpy(), np.asarray(jp.X_world_cam), atol=1e-5)
+        for table in ("static_tracks", "dynamic_tracks"):
+            r, g = getattr(jp, table), getattr(tp, table)
+            v = np.asarray(r.valid)
+            np.testing.assert_array_equal(g.valid.numpy(), v)
+            np.testing.assert_array_equal(g.tracklet_id.numpy(), np.asarray(r.tracklet_id))
+            np.testing.assert_allclose(g.uv.numpy()[v], np.asarray(r.uv)[v], atol=1e-3)
+            np.testing.assert_allclose(g.depth.numpy()[v], np.asarray(r.depth)[v], rtol=1e-4, atol=2e-3)
+            n_valid += int(v.sum())
+        ov = np.asarray(jp.object_valid)
+        np.testing.assert_array_equal(tp.object_valid.numpy(), ov)
+        np.testing.assert_allclose(tp.object_motions.numpy()[ov], np.asarray(jp.object_motions)[ov], atol=1e-3)
+        np.testing.assert_allclose(ts.prev_gray.numpy(), np.asarray(js.prev_gray), atol=1e-6)
+        np.testing.assert_allclose(ts.v_world.numpy(), np.asarray(js.v_world), atol=1e-5)
+    assert n_valid > 400
+    if mode == "klt_stereo":
+        # stereo took the static depths back from the 1.15x corruption
+        true_depth, _ = td._depth_mask(td.scn.X_gt[FE_FRAMES - 1],
+                                       [L[FE_FRAMES - 1] for L in td.scn.L_gt])
+        s = tp.static_tracks
+        uv = s.uv[s.valid].round().long()
+        gt = true_depth[uv[:, 1].clamp(0, hw[0] - 1), uv[:, 0].clamp(0, hw[1] - 1)]
+        near = gt < 15.0
+        assert int(near.sum()) >= 5
+        assert float(torch.median(torch.abs(s.depth[s.valid][near] - gt[near]) / gt[near])) < 0.05
+
+
+def test_fused_step_klt_mode_matches_reference(monkeypatch):
+    """Two frames past the window fill (the window advances twice)."""
+    n = NUM_FRAMES + 2
+    cfg = small_cfg(max_frames=NUM_FRAMES).with_overrides(
+        {"frontend.tracker.prefer_provided_optical_flow": False})
+    tcfg = port_cfg(cfg)
+    jd = j_dense(num_frames=n, world_texture=True)
+    td = t_dense(num_frames=n, world_texture=True, device="cpu")
+    hw = (jd.intr.height, jd.intr.width)
+    js = jbatched.init_pipeline_state(cfg, image_shape=hw)
+    ts = tbatched.init_pipeline_state(tcfg, "cpu", image_shape=hw)
+    inject_draws(monkeypatch, reference_draws(js.frontend.key, cfg.frontend, n))
+    jstep = jax.jit(jbatched.make_fused_step(cfg, jd.intr))
+    tstep = tbatched.make_fused_step(tcfg, td.intr)
+    n_motions = 0
+    for k in range(n):
+        jf = jd.frame(k)
+        js, jo = jstep(js, jf)
+        ts, to = tstep(ts, _port_frame(td, k, jf))
+        rot, trans = _rot_trans(to["X_world_cam"].numpy(), np.asarray(jo["X_world_cam"]))
+        assert trans < 1e-4 and rot < 1e-4, (k, trans, rot)
+        v = np.asarray(jo["object_motion_valid"])
+        np.testing.assert_array_equal(to["object_motion_valid"].numpy(), v)
+        np.testing.assert_allclose(to["object_motions"].numpy()[v], np.asarray(jo["object_motions"])[v], atol=1e-3)
+        n_motions += int(v.sum())
+    assert n_motions > 0 and ts.graph.num_frames == NUM_FRAMES and bool(ts.graph.prior_valid)
+    ref, got = np_tree(js), convert.pipeline_state_to_numpy(ts)
+    assert_tree_matches(ref["frontend"]["tracker"], {k: got["frontend"]["tracker"][k]
+                                                    for k in ("s_valid", "s_tid", "d_valid", "d_tid", "obj_ids")},
+                        atol=0.0)
 
 
 def test_convert_round_trip():

@@ -61,7 +61,7 @@ def jax_spec(spec):
 
     return ScenarioSpec(
         num_frames=spec.num_frames, num_static=0, camera_motion_xi=spec.camera_motion_xi,
-        objects=[ObjectSpec(object_id=o.object_id, initial_pose_xi=o.initial_pose_xi,
+        frame_dt=spec.frame_dt, objects=[ObjectSpec(object_id=o.object_id, initial_pose_xi=o.initial_pose_xi,
                             motion_xi=o.motion_xi, num_points=0) for o in spec.objects],
     )
 
@@ -122,3 +122,36 @@ def assert_tree_matches(ref, got, atol, rtol=0.0, path=""):
             np.testing.assert_array_equal(v, r, err_msg=p)
         else:
             np.testing.assert_allclose(v, r, atol=atol, rtol=rtol, err_msg=p)
+
+
+def reference_draws(key, fp, n_frames):
+    """The uniforms of the JAX frontend's RANSAC draws over `n_frames` frames
+    from its state key `key`, in the order the port samples: per frame the
+    camera's (M, Ns), then the objects' (J, M, Nd)."""
+    import jax
+
+    rs = fp.motion_solver
+    out = []
+    for _ in range(n_frames):
+        key, k_cam, k_obj = jax.random.split(key, 3)
+        out.append(np.asarray(jax.random.uniform(
+            k_cam, (rs.camera.num_hypotheses(), fp.tracker.max_features_per_frame))))
+        shape = (rs.object.num_hypotheses(), fp.tracker.max_dynamic_features_per_frame)
+        keys = jax.random.split(k_obj, fp.max_objects)
+        out.append(np.asarray(jax.vmap(lambda k: jax.random.uniform(k, shape))(keys)))
+    return out
+
+
+def inject_draws(monkeypatch, draws):
+    """Make the port's RANSAC sample from `draws` (reference_draws), one
+    array per call, in order."""
+    from dynosam_tpu_torch.ops import ransac
+
+    orig = ransac._sample_indices
+    queue = list(draws)
+
+    def sample(generator, valid, num_hypotheses, sample_size, uniforms=None):
+        return orig(generator, valid, num_hypotheses, sample_size, uniforms=t(queue.pop(0)))
+
+    monkeypatch.setattr(ransac, "_sample_indices", sample)
+    return queue
