@@ -66,7 +66,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
      per-layer host times). Every run: the fused K1 once per frame, the map
      entry never; the first frame's inputs and graph state on the card;
      host syncs counted with torch's sync debug mode;
-  10. print the kernel table (with each kernel's bound: the larger of its
+  10. formulations: the fused step at bench_config() with the WCME
+     (backend_updater_enum 0) and WCPE (1) backends and the joint hybrid
+     solve (decoupled_object_solve off) over the 20 bench frames (10
+     advances each), camera poses held to the ground truth at the bench's
+     bounds and poses + object motions to
+     dynosam_tpu_torch/testdata/bench_{wcme,wcpe,joint}_ref_20f.npz, the
+     joint run's marginal covariances of its final window to the
+     reference's; then the pipeline path's entry-point code over the 60
+     fixture frames in incremental mode with WCME and WCPE, held to
+     kitti_forms_ref_60f.npz as phase 9 holds hybrid. Every run: the fused
+     K1 once per frame, the map entry never, host syncs counted with their
+     sites;
+  11. print the kernel table (with each kernel's bound: the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates; launches per path under launches_by_path) and
      the contract line.
@@ -189,6 +201,37 @@ KITTI_MOTION_OVERLAP = 0.98   # (frame, object) keys of matured motions shared; 
 # twice the largest excess read.
 KITTI_RANGE_MARGIN = {"ate_unaligned_m": 0.02, "ate_rot_rad": 0.3, "ame_rms_m": 0.02,
                       "ame_median_m": 0.02}
+
+# formulations phase. FORM_BENCH: the fused step's configuration overrides;
+# FORM_KITTI: backend_updater_enum of the fixture runs (incremental mode).
+FORM_BENCH = {"wcme": {"backend.backend_updater_enum": 0}, "wcpe": {"backend.backend_updater_enum": 1},
+              "joint": {"backend.decoupled_object_solve": False}}
+FORM_KITTI = {"wcme": 0, "wcpe": 1}
+# Bench forms against their JAX references: the bench path's bounds. At this
+# width WCME's and WCPE's LM takes no step after frame 1, in the reference
+# as in the port: their f32 reduced system is indefinite (eigenvalues
+# [-3.5e8, 4.2e8] at frame 1 on the H100, scripts/probe_torch_forms.py; the
+# same linearisation in float64 is positive definite, 1.1e-4 up), every
+# Cholesky fails and every candidate is rejected. Their motions are then the frontend's RANSAC estimates, and
+# where an object re-enters (object 2 at frame 12) that estimate follows
+# the draws: the CPU's seeds 0-5 read 6.7e-3-1.35e-2 m there, the card's
+# seed 0 4.80 m (the card's backend equal to the CPU's on the card's
+# inputs). So their motions are held only where settled. Torch on the CPU
+# (4 threads) read poses 1.9e-5 / 2.0e-5 / 1.9e-5 m and 2.1e-7 / 4.9e-7 /
+# 3.3e-7 rad (wcme / wcpe / joint); settled motions 2.5e-4 / 2.5e-4 m (the
+# frontend's draws again, object 2 at frame 8), joint's (all) 7.1e-5 m; the
+# H100 read poses 1.3e-5 / 1.6e-5 / 1.7e-5 m, settled motions 1.5e-3 /
+# 1.5e-3 m, joint's 4.3e-4 m. The joint marginal covariances read 2.7e-2
+# (CPU) and 3.2e-2 (H100) of each block's largest entry (an f32 inverse of
+# a system spanning 1e-5 to 1e8).
+FORM_COV_REL = 0.1
+# Fixture forms against kitti_forms_ref_60f.npz (seed 0), as phase 9: JAX
+# seeds 1, 2 vs 0 / torch on the CPU (4 threads), wcme and wcpe alike:
+# pose 1.2e-5 / 1.7e-5 m, 1.8e-7 / 2.5e-7 rad; motions max 5.0e-4 /
+# 3.4e-4 m, median 7.3e-6 / 1.8e-5 (wcpe 1.1e-5 / 1.8e-5) m; the H100 read
+# pose 1.7e-5 / 1.6e-5 m, 1.3e-7 rad, motions max 5.5e-4 m, median 1.3e-5 /
+# 2.0e-5 m (wcme / wcpe). Bounds ~4x the largest reading, the poses' ~10x.
+FORM_KITTI_BOUNDS = {"pose_m": 2e-4, "pose_rad": 2e-6, "motion_max_m": 2e-3, "motion_median_m": 1e-4}
 
 
 def say(msg):
@@ -441,10 +484,12 @@ def _drive(torch, step, state, frames, device, per_frame=None, after=None):
     return outs, times
 
 
-def compare_to_reference(torch, lie, outs, ref, device, bounds=None):
+def compare_to_reference(torch, lie, outs, ref, device, bounds=None, settled_only=False):
     """Camera poses and object motions against a JAX reference file ->
     (pose trans, pose rot, motions compared, motion err) maxima, held to
-    `bounds` (trans m, rot rad, motion m; default the bench path's)."""
+    `bounds` (trans m, rot rad, motion m; default the bench path's). With
+    `settled_only`, a motion is compared only where its object's motion was
+    also valid at the frame before (on both sides)."""
     import numpy as np
 
     trans_b, rot_b, motion_b = bounds or (REF_TRANS_M, REF_ROT_RAD, REF_MOTION_TRANS_M)
@@ -457,6 +502,9 @@ def compare_to_reference(torch, lie, outs, ref, device, bounds=None):
     valid = torch.stack([o["object_motion_valid"] for o in outs]).cpu().numpy()
     H = torch.stack([o["object_motions"] for o in outs]).cpu().numpy()
     both = valid & ref["object_motion_valid"] & (ids == ref["object_ids"])
+    if settled_only:
+        both[1:] &= both[:-1]
+        both[0] = False
     n_motions = int(both.sum())
     if n_motions == 0:
         raise AssertionError("no object motion valid in both the port and the JAX reference")
@@ -926,6 +974,145 @@ def run_pipeline_path(torch, seed, ref_path, device="cuda", smi=""):
     return launches, fps
 
 
+def forms_bench_readings(torch, seed, name, ref_path, device="cuda"):
+    """The fused step at bench_config() with formulation `name` over the
+    bench frames -> (launches, readings against the ground truth and the
+    JAX reference, the phase's line)."""
+    import numpy as np
+
+    from dynosam_tpu_torch.backend import hybrid
+    from dynosam_tpu_torch.bench_config import bench_config, bench_scene
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.parallel.batched import init_pipeline_state, make_fused_step
+    from dynosam_tpu_torch.utils import lie
+
+    cfg, intr = bench_config()
+    cfg = cfg.with_overrides(FORM_BENCH[name])
+    scene = bench_scene(intr, BENCH_FRAMES, device=device)
+    frames = scene.frames()
+    step = make_fused_step(cfg, intr, torch.Generator(device=device).manual_seed(seed))
+    state = init_pipeline_state(cfg, device)
+    last = {}
+    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+    with SyncCounter(torch, device) as sync:
+        outs, times = _drive(torch, step, state, frames, device, after=lambda s: last.update(graph=s.graph))
+    launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
+    if device == "cuda" and (launches["K1"], launches["K1 map"]) != (BENCH_FRAMES, 0):
+        raise AssertionError(f"forms {name}: fused K1 launched {launches['K1']} times and the map entry "
+                             f"{launches['K1 map']} times over {BENCH_FRAMES} frames")
+    sites = {k: v for k, v in sync.sites.items() if not k.startswith("chip_smoke.py")}
+    syncs = None if sync.count is None else sum(sites.values())
+    ref = np.load(ref_path)
+    X = torch.stack([o["X_world_cam"] for o in outs])
+    rot, trans = rot_trans_err(torch, lie, X, scene.scn.X_gt)
+    rd = {"gt_m": float(trans.max()), "gt_rad": float(rot.max())}
+    # WCME and WCPE take no LM step at this width (see FORM_COV_REL), so a
+    # motion whose object was not valid the frame before is the frontend's
+    # RANSAC estimate under the port's own draws: compared settled motions
+    # only, the first one after a gap read alone
+    settled = name != "joint"
+    rd["ref_m"], rd["ref_rad"], rd["n_motions"], rd["motion_m"] = compare_to_reference(
+        torch, lie, outs, ref, device, bounds=(np.inf,) * 3, settled_only=settled)
+    extra = ""
+    if settled:
+        _, _, n_all, all_m = compare_to_reference(torch, lie, outs, ref, device, bounds=(np.inf,) * 3)
+        extra = (f" (settled: valid the frame before too); all {n_all} motions, first ones after a gap "
+                 f"included, max {all_m:.2e} m")
+    if name == "joint":
+        cfg_b = cfg.normalized().backend
+        cov_X, cov_H = hybrid.marginal_covariances(last["graph"], cfg_b)
+        rd["cov"] = 0.0
+        for got, r in ((cov_X, ref["cov_X"]), (cov_H, ref["cov_H"])):
+            got = got.cpu().numpy()
+            if not np.isfinite(got).all():
+                raise AssertionError("forms joint: non-finite marginal covariances")
+            scale = np.abs(r).max(axis=(-1, -2), keepdims=True)
+            rd["cov"] = max(rd["cov"], float((np.abs(got - r) / scale).max()))
+        extra += (f"; marginal covariances of the final window (cov_X {tuple(cov_X.shape)}, cov_H "
+                 f"{tuple(cov_H.shape)}) vs JAX ref within {rd['cov']:.2e} of each block's largest entry")
+    line = (f"forms {name}: {BENCH_FRAMES} frames of bench_config with {FORM_BENCH[name]} on "
+            f"{frames[0].depth.device} (window of 10 advanced {BENCH_FRAMES - 10} times), fused K1 launches "
+            f"{launches['K1']}, map entry {launches['K1 map']}; camera vs GT max {rd['gt_m']:.2e} m / "
+            f"{rd['gt_rad']:.2e} rad; vs JAX ref max {rd['ref_m']:.2e} m / {rd['ref_rad']:.2e} rad; "
+            f"{rd['n_motions']} object motions vs JAX ref max {rd['motion_m']:.2e} m{extra}; first frame "
+            f"{times[0] * 1e3:.1f} ms, median frames 2-10 {statistics.median(times[1:10]) * 1e3:.2f} ms, median "
+            f"frames 11-{BENCH_FRAMES} (advancing) {statistics.median(times[10:]) * 1e3:.2f} ms, host syncs "
+            f"{syncs if syncs is not None else 'n/a'} = {syncs / BENCH_FRAMES if syncs is not None else float('nan'):.1f}"
+            f"/frame (sites: {', '.join(f'{k} x{v}' for k, v in sorted(sites.items(), key=lambda kv: -kv[1])) or 'n/a'})")
+    return launches, rd, line
+
+
+def forms_kitti_readings(torch, seed, name, ref, out_dir, device="cuda"):
+    """The entry point's pipeline over the fixture in incremental mode with
+    formulation `name` -> (launches, readings against kitti_forms_ref_60f,
+    evaluator summary, the phase's line)."""
+    from dynosam_tpu_torch.bench_config import kitti_accuracy_config
+    from dynosam_tpu_torch.eval.evaluator import DatasetEvaluator, summarize
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+
+    cfg = kitti_accuracy_config("incremental", PIPE_FRAMES, FORM_KITTI[name])
+    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+    pipe, n, dt, sync = kitti_run(torch, cfg, out_dir, device, seed)
+    k1, k1_map = _k1_counts(st)
+    if torch.device(device).type == "cuda" and (k1, k1_map) != (n, 0):
+        raise AssertionError(f"forms kitti {name}: fused K1 launched {k1} times and the map entry {k1_map} "
+                             f"times over {n} frames")
+    summary = summarize(DatasetEvaluator(out_dir).run_analysis()["dynosam_tpu"])
+    err = kitti_errors(pipe, ref, name)
+    syncs = sync.count
+    line = (f"forms kitti {name}: {n} frames of the fixture, incremental, on {device} in {dt:.2f} s "
+            f"({n / dt:.2f} frames/s, {syncs if syncs is not None else 'n/a'} host syncs = "
+            f"{syncs / n if syncs is not None else float('nan'):.1f}/frame; sites: "
+            f"{sync.top() if syncs is not None else 'n/a'}), fused K1 launches {k1}, map entry {k1_map}; camera "
+            f"ATE {summary['ate_unaligned_m'] * 100:.4f} cm, ATE rot {summary['ate_rot_rad']:.5f} rad, AME rms "
+            f"{summary['ame_rms_m'] * 100:.4f} cm, median {summary['ame_median_m'] * 100:.4f} cm, "
+            f"{summary['n_motions']:.0f} motions; vs JAX ref over {err['n_motions']} matured motions (key "
+            f"overlap {err['overlap']:.4f}), reading / bound: "
+            + ", ".join(f"{k} {err[k]:.2e} / {b:.0e}" for k, b in FORM_KITTI_BOUNDS.items()))
+    return {"K1": k1, "K1 map": k1_map}, err, summary, line
+
+
+def run_forms_path(torch, seed, testdata, device="cuda"):
+    """Phase 10: the other formulations, each run held to its bounds ->
+    {path: launches}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    paths = {}
+    for name in FORM_BENCH:
+        launches, rd, line = forms_bench_readings(torch, seed, name,
+                                                  os.path.join(testdata, f"bench_{name}_ref_20f.npz"), device)
+        checks = {"gt_m": GT_TRANS_M, "gt_rad": GT_ROT_RAD, "ref_m": REF_TRANS_M, "ref_rad": REF_ROT_RAD,
+                  "motion_m": REF_MOTION_TRANS_M}
+        if name == "joint":
+            checks["cov"] = FORM_COV_REL
+        over = {k: (rd[k], v) for k, v in checks.items() if not rd[k] <= v}
+        if over:
+            raise AssertionError(f"forms {name}: readings over their bounds (reading, bound): {over}")
+        say(line)
+        paths[f"forms_{name}"] = launches
+    ref = np.load(os.path.join(testdata, "kitti_forms_ref_60f.npz"))
+    tmp = tempfile.mkdtemp(prefix="smoke_forms_")
+    try:
+        for name in FORM_KITTI:
+            launches, err, summary, line = forms_kitti_readings(torch, seed, name, ref, os.path.join(tmp, name),
+                                                                device)
+            if err["overlap"] < KITTI_MOTION_OVERLAP:
+                raise AssertionError(f"forms kitti {name}: matured motions share {err['overlap']:.4f} of their keys")
+            if not all(err[k] <= b for k, b in FORM_KITTI_BOUNDS.items()):
+                raise AssertionError(f"forms kitti {name}: vs JAX reference, readings {err} against bounds "
+                                     f"{FORM_KITTI_BOUNDS}")
+            ranges = check_kitti_summary(summary, ref, name)
+            say(line + "; evaluator inside the JAX seed ranges "
+                + ", ".join(f"{k} [{lo:.6g}, {hi:.6g}]" for k, (lo, hi) in ranges.items()))
+            paths[f"forms_kitti_{name}"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the RANSAC and test-input generators")
@@ -965,7 +1152,7 @@ def main():
     k1 = check_k1(torch, args.seed)
     k2 = check_k2(torch, args.seed)
 
-    # ---- 5-9. the main paths, counts zeroed just before each -----------------
+    # ---- 5-10. the main paths, counts zeroed just before each ----------------
     bench_launches = run_bench_path(torch, args.seed, os.path.join(testdata, "bench_ref_20f.npz"))
     klt_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "bench_klt_ref_20f.npz"))
     stereo_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "stereo_imu_ref_12f.npz"),
@@ -973,10 +1160,11 @@ def main():
     det_launches = run_detector_path(torch, args.seed, os.path.join(testdata, "det_ref_24f.npz"))
     pipe_launches, _ = run_pipeline_path(torch, args.seed, os.path.join(testdata, "kitti_ref_60f.npz"),
                                          smi=smi)
+    forms_launches = run_forms_path(torch, args.seed, testdata)
 
-    # ---- 10. results ------------------------------------------------------------
+    # ---- 11. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "klt": klt_launches, "stereo_imu": stereo_launches,
-             "detector": det_launches, "pipeline": pipe_launches}
+             "detector": det_launches, "pipeline": pipe_launches, **forms_launches}
 
     def row(name, kid, source, replaces, check, **extra):
         by_path = {p: launches.get(kid, 0) for p, launches in paths.items()}

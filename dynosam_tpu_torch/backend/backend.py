@@ -1,13 +1,15 @@
-"""Backend module: mode dispatch, the per-frame step and state accessors
-(port of dynosam_tpu/backend/backend.py, hybrid formulation).
+"""Backend module: formulation and mode dispatch, the per-frame step and
+state accessors (port of dynosam_tpu/backend/backend.py).
 
-`RegularBackend` runs the hybrid formulation (backend_updater_enum 2 or 3,
-the decoupled solve) in the three modes: full-batch (0: ingest every frame,
-a short warm-started LM per ingestion, one solve at `finish`),
-sliding-window (1) and incremental (2: warm-started LM with few
-iterations and accept/reject). It calls `graph.update_from_packet_hybrid`,
-`hybrid.optimize` and `window.advance_hybrid`. WCME (0) and WCPE (1) raise
-NotImplementedError.
+`RegularBackend` runs one of three formulations (backend_updater_enum):
+WCME (0, world-centric motions, the default: `graph.update_from_packet`,
+`solver.optimize`, `window.advance`), WCPE (1, world-centric object poses:
+`wcpe.update_from_packet_wcpe`, `wcpe.optimize`, `window.advance_wcpe`) or
+hybrid (2 or 3, object-centric keyframed: `graph.update_from_packet_hybrid`,
+`hybrid.optimize`, `window.advance_hybrid`), in three modes: full-batch (0:
+ingest every frame, a short warm-started LM per ingestion, one solve at
+`finish`), sliding-window (1) and incremental (2: warm-started LM with few
+iterations and accept/reject).
 
 Host discipline: the window fill is the host integer
 `GraphState.num_frames`, so a step reads nothing from the device but the
@@ -27,15 +29,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from dynosam_tpu_torch.backend import graph, hybrid, window
+from dynosam_tpu_torch.backend import graph, hybrid, solver, wcpe, window
 from dynosam_tpu_torch.config import BackendParams
 from dynosam_tpu_torch.cv import camera as cam
 from dynosam_tpu_torch.frontend.types import VisionPacket
 from dynosam_tpu_torch.utils import lie
 from dynosam_tpu_torch.utils.packing import build_packer, to_host
-
-_ITEM_15 = "ROADMAP.md queue 1, item 15: the other formulations"
-
 
 @dataclass
 class BackendOutput:
@@ -59,7 +58,8 @@ def _with_optimizer(cfg: BackendParams, **kw) -> BackendParams:
 
 
 class RegularBackend:
-    """Full-batch / sliding-window / incremental hybrid backend."""
+    """Full-batch / sliding-window / incremental backend of the WCME, WCPE
+    or hybrid formulation."""
 
     # landmark-table snapshot keys dropped from the deferred (lite) record:
     # they are most of its bytes, and the device-computed bbx and centroid
@@ -67,12 +67,8 @@ class RegularBackend:
     _HEAVY_SNAPSHOT_KEYS = ("md_world", "d_obj", "d_valid_f", "ms", "s_valid_any")
 
     def __init__(self, cfg: BackendParams, intr: cam.CameraIntrinsics, device="cuda"):
-        if cfg.backend_updater_enum not in (2, 3):
-            name = {0: "WCME", 1: "WCPE"}.get(cfg.backend_updater_enum, "unknown")
-            raise NotImplementedError(
-                f"backend_updater_enum={cfg.backend_updater_enum} ({name}) is not ported "
-                f"({_ITEM_15}); the hybrid formulation is 2 or 3"
-            )
+        if cfg.backend_updater_enum not in (0, 1, 2, 3):
+            raise ValueError(f"backend_updater_enum={cfg.backend_updater_enum}: 0, 1, 2 or 3")
         if cfg.optimization_mode not in (0, 1, 2):
             raise ValueError(f"optimization_mode={cfg.optimization_mode}: 0, 1 or 2")
         self.cfg = cfg
@@ -111,6 +107,19 @@ class RegularBackend:
                             accept_reject=True)
             if cfg.optimization_mode == 0 and cfg.batch_warm_start else None
         )
+        # formulation dispatch: 0 = WCME, 1 = WCPE, 2 and 3 = hybrid
+        self.hybrid = cfg.backend_updater_enum in (2, 3)
+        self.wcpe = cfg.backend_updater_enum == 1
+        self.wcme = cfg.backend_updater_enum == 0
+        if self.hybrid:
+            self._update, self._optimize, self._advance = (
+                graph.update_from_packet_hybrid, hybrid.optimize, window.advance_hybrid)
+        elif self.wcpe:
+            self._update, self._optimize, self._advance = (
+                wcpe.update_from_packet_wcpe, wcpe.optimize, window.advance_wcpe)
+        else:
+            self._update, self._optimize, self._advance = (
+                graph.update_from_packet, solver.optimize, window.advance)
 
     # ------------------------------------------------------------------
     def step(
@@ -145,17 +154,17 @@ class RegularBackend:
                 stride = max(1, cfg.max_frames - 1 - cfg.opt_window_overlap)
             for _ in range(stride):
                 self._stash_before_advance()
-                self.state = window.advance_hybrid(self.state, cfg)
+                self.state = self._advance(self.state, cfg)
 
-        self.state = graph.update_from_packet_hybrid(self.state, packet, self.intr, cfg)
+        self.state = self._update(self.state, packet, self.intr, cfg)
 
         if optimize is None:
             # full-batch defers the full optimization to `finish`
             optimize = cfg.optimization_mode != 0
         if optimize:
-            self.state = hybrid.optimize(self.state, self._opt_cfg)
+            self.state = self._optimize(self.state, self._opt_cfg)
         elif self._warm_cfg is not None:
-            self.state = hybrid.optimize(self.state, self._warm_cfg)
+            self.state = self._optimize(self.state, self._warm_cfg)
 
         if not extract:
             return None
@@ -163,26 +172,36 @@ class RegularBackend:
 
     def finish(self) -> None:
         """Full-batch final solve."""
-        self.state = hybrid.optimize(self.state, self._opt_cfg)
+        self.state = self._optimize(self.state, self._opt_cfg)
 
     # ------------------------------------------------------------------
     def _motion_slot_outputs(self, st, f):
-        """(F2F motion (J,4,4), valid (J,), object pose (J,4,4)) at slot f.
-        The motion of slot f needs slot f-1: a motion variable there, or the
-        object's keyframe (H_{e,e} = I)."""
+        """(motion (J,4,4), valid (J,), object pose (J,4,4)) at slot f, a
+        host int. Hybrid and WCPE form F2F motions, which need slot f-1: a
+        motion (pose) variable there, or for hybrid the object's keyframe
+        (H_{e,e} = I). WCME's motions are per-frame variables and it
+        carries no object pose (identity here; the host propagates one)."""
         fprev = max(f - 1, 0)
-        valid = st.H_valid[:, f] & (st.H_valid[:, fprev] | (st.kf_slot == fprev)) & (f > 0)
-        return hybrid.f2f_motion(st, f), valid, hybrid.object_pose(st, f)
+        if self.hybrid:
+            valid = st.H_valid[:, f] & (st.H_valid[:, fprev] | (st.kf_slot == fprev)) & (f > 0)
+            return hybrid.f2f_motion(st, f), valid, hybrid.object_pose(st, f)
+        if self.wcpe:
+            valid = st.H_valid[:, f] & st.H_valid[:, fprev] & (f > 0)
+            return wcpe.f2f_motion(st, f), valid, st.H[:, f]
+        eye = torch.eye(4, dtype=st.X.dtype, device=st.X.device).expand(st.J, 4, 4)
+        return st.H[:, f], st.H_valid[:, f], eye
 
     def _device_margin_outputs(self, st):
         """Mature estimates taken just before an advance drops slot 0: slot
-        0's pose (never re-optimized) and the object motions of slot 1, the
-        oldest slot still able to form an F2F motion."""
-        H_m, valid, L = self._motion_slot_outputs(st, 1)
+        0's pose (never re-optimized) and the object motions of the oldest
+        slot still able to form one: slot 1 for the F2F chains of hybrid and
+        WCPE, slot 0 for WCME's per-frame motion variables."""
+        f_m = 0 if self.wcme else 1
+        H_m, valid, L = self._motion_slot_outputs(st, f_m)
         return dict(
             pose_fid=st.frame_ids[0],
             X=st.X[0],
-            motion_fid=st.frame_ids[1],
+            motion_fid=st.frame_ids[f_m],
             H=H_m,
             H_valid=valid,
             obj_pose=L,
@@ -239,7 +258,8 @@ class RegularBackend:
         for f in range(n):
             if ids[f] >= 0:
                 self.matured_pose[int(ids[f])] = X[f]
-        for f in range(1, n):
+        f0 = 0 if self.wcme else 1
+        for f in range(f0, n):
             fid = int(ids[f])
             if fid < 0:
                 continue
@@ -257,26 +277,36 @@ class RegularBackend:
             F = st.F
             fs = torch.arange(F, device=st.X.device)
             fprev = torch.clamp(fs - 1, min=0)
-            H_prev = st.H[:, fprev]
-            slot_valid = (
-                st.H_valid
-                & (st.H_valid[:, fprev] | (st.kf_slot[:, None] == fprev[None, :]))
-                & (fs > 0)[None, :]
-            )
+            if self.wcme:
+                f2f, slot_valid = st.H, st.H_valid
+                obj_pose = torch.eye(4, dtype=st.X.dtype, device=st.X.device).expand(st.H.shape)
+            else:
+                f2f = lie.mm(st.H, lie.inverse(st.H[:, fprev]))
+                prev_ok = st.H_valid[:, fprev]
+                if self.hybrid:
+                    prev_ok = prev_ok | (st.kf_slot[:, None] == fprev[None, :])
+                    obj_pose = lie.mm(st.H, st.L_e[:, None])
+                else:
+                    obj_pose = st.H
+                slot_valid = st.H_valid & prev_ok & (fs > 0)[None, :]
             self._host_view = (st, to_host(dict(
-                frame_ids=st.frame_ids,
-                X=st.X,
-                obj_ids=st.obj_ids,
-                H_valid=st.H_valid,
-                kf_slot=st.kf_slot,
-                f2f=lie.mm(st.H, lie.inverse(H_prev)),
-                obj_pose=lie.mm(st.H, st.L_e[:, None]),
-                slot_valid=slot_valid,
+                frame_ids=st.frame_ids, X=st.X, obj_ids=st.obj_ids, H_valid=st.H_valid,
+                f2f=f2f, obj_pose=obj_pose, slot_valid=slot_valid,
             )))
         return self._host_view[1]
 
     def marginal_covariances(self):
-        raise NotImplementedError(f"marginal covariances are not ported ({_ITEM_15})")
+        """(cov_X (F, 6, 6), cov_H (J, F, 6, 6)) marginals at the current
+        estimate, from one dense inverse of the reduced system (the exact
+        joint marginals), as host arrays. Hybrid formulations only; computed
+        on demand, not part of the per-frame step."""
+        if not self.hybrid:
+            raise NotImplementedError(
+                "marginal covariances are exported for the hybrid formulations (backend_updater_enum 2/3)"
+            )
+        cov_X, cov_H = hybrid.marginal_covariances(self.state, self._opt_cfg)
+        h = to_host(dict(cov_X=cov_X, cov_H=cov_H))
+        return h["cov_X"], h["cov_H"]
 
     # ------------------------------------------------------------------
     def _device_outputs(self, st):
@@ -285,7 +315,10 @@ class RegularBackend:
         J = st.J
         H_out, H_valid, obj_pose = self._motion_slot_outputs(st, f)
         d_slot = torch.clamp(st.d_obj, 0, J - 1).long()
-        md_world = lie.transform_points(obj_pose[d_slot], st.m_hyb)
+        if self.hybrid:
+            md_world = lie.transform_points(obj_pose[d_slot], st.m_hyb)
+        else:
+            md_world = st.md[:, f]
         d_valid_f = st.d_valid[:, f]
         # per-object landmark bounding boxes in the OBJECT frame, and the
         # world-frame landmark centroid: the deferred record ships these
@@ -349,14 +382,30 @@ class RegularBackend:
         d_obj = dev["d_obj"] if not lite else np.full((Ld,), -1, np.int32)
         d_valid = dev["d_valid_f"] if not lite else np.zeros((Ld,), bool)
         md = dev["md_world"] if not lite else np.zeros((Ld, 3), np.float32)
-        # object poses are direct state; open slots win over closed epochs
-        # sharing the id (a closed epoch's pose stopped updating)
-        obj_poses = dev["obj_pose"]
-        open_np = dev["slot_open"]
-        for j, oid in enumerate(obj_ids):
-            oid = int(oid)
-            if oid > 0 and (open_np[j] or oid not in self.object_poses):
-                self.object_poses[oid] = obj_poses[j]
+        if not self.wcme:
+            # object poses are direct state; open slots win over closed
+            # epochs sharing the id (a closed epoch's pose stopped updating)
+            obj_poses = dev["obj_pose"]
+            open_np = dev["slot_open"]
+            for j, oid in enumerate(obj_ids):
+                oid = int(oid)
+                if oid > 0 and (open_np[j] or oid not in self.object_poses):
+                    self.object_poses[oid] = obj_poses[j]
+        else:
+            # WCME: propagate L_k = H_k L_{k-1} from the object's landmark
+            # centroid (computed on the device, so deferred snapshots carry it)
+            obj_poses = np.tile(np.eye(4, dtype=X.dtype), (len(obj_ids), 1, 1))
+            for j, oid in enumerate(obj_ids):
+                oid = int(oid)
+                if oid <= 0:
+                    continue
+                if oid in self.object_poses and H_valid[j]:
+                    self.object_poses[oid] = H[j] @ self.object_poses[oid]
+                elif oid not in self.object_poses:
+                    L0 = np.eye(4, dtype=X.dtype)
+                    L0[:3, 3] = dev["obj_centroid"][j]
+                    self.object_poses[oid] = L0
+                obj_poses[j] = self.object_poses[oid]
 
         s_valid = dev["s_valid_any"] if not lite else np.zeros((Ls,), bool)
         d_oid = np.full(d_obj.shape[0], -1, np.int32)

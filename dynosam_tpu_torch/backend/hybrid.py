@@ -1,5 +1,6 @@
-"""Object-centric keyframed ("Hybrid") backend: linearisation and the
-decoupled two-phase LM (port of dynosam_tpu/backend/hybrid.py).
+"""Object-centric keyframed ("Hybrid") backend: linearisation, the
+decoupled two-phase LM, the joint solve and the marginal covariances (port
+of dynosam_tpu/backend/hybrid.py).
 
 Each object j carries a constant embedded keyframe L_e and keyframed
 world-frame motions ^W_eH_k; each dynamic tracklet is one 3-dof point m_L
@@ -23,8 +24,10 @@ from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.backend.solver import (
     _EPS_REG,
     _block_diag_embed,
-    _chain_se3_blocks,
+    _clip_step,
     _eye_k,
+    _final_reg,
+    _fixed_terms,
     _huber_rho,
     _irls_w,
     _object_onehot,
@@ -33,7 +36,10 @@ from dynosam_tpu_torch.backend.solver import (
     _sigmas,
     _static_gate,
     _static_residuals,
+    _static_terms,
+    chol_solve,
     gate_dx_by_type,
+    gn_scan,
     lm_accept_reject,
 )
 from dynosam_tpu_torch.ops.block_tridiag import inv3
@@ -203,33 +209,14 @@ def linearize(state: GraphState, cfg: BackendParams, lam, dynamic_scale: float =
 
     S = torch.zeros((D, D), dtype=dtype, device=dev)
     rhs = torch.zeros((D,), dtype=dtype, device=dev)
-
     R = lie.rotation(state.X)
-    Rt = R.transpose(-1, -2)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
     # ================= static landmarks ==================================
-    r_s, y_s = _static_residuals(state)
-    gate = _static_gate(state, cfg)
-    e_s = torch.linalg.norm(r_s / state.s_sig, dim=-1)
-    iw_s = (state.s_valid & gate[None, :]).to(dtype)[..., None] * _irls_w(
-        e_s, k_rob, use_rob
-    )[..., None] / (state.s_sig ** 2)                          # (F, Ls, 3)
-
-    hat_y = lie.hat(y_s)
-    Jx_s = torch.cat([hat_y, -eye3.expand(hat_y.shape)], dim=-1)
-    Hpp_s = lie.einsum("fab,flb,fcb->lac", R, iw_s, R) + (_EPS_REG + lam) * eye3
-    Hpp_inv_s = inv3(Hpp_s)
-    g_s = lie.einsum("fab,flb->la", R, iw_s * r_s)
-    A_s = lie.einsum("flba,flb,fbc->flac", Jx_s, iw_s, Rt)
-    Hxx_s = lie.einsum("flab,fla,flac->fbc", Jx_s, iw_s, Jx_s)
-    gx_s = lie.einsum("flab,fla->fb", Jx_s, iw_s * r_s)
-    S_pp = lie.einsum("flab,lbc,gldc->fagd", A_s, Hpp_inv_s, A_s)
-    S[:n, :n] += _block_diag_embed(Hxx_s) - S_pp.reshape(n, n)
-    rhs[:n] += (-gx_s + lie.einsum("flab,lbc,lc->fa", A_s, Hpp_inv_s, g_s)).reshape(-1)
+    Hpp_inv_s, g_s, A_s = _static_terms(state, cfg, lam, S, rhs)
 
     if dynamic_scale == 0.0:
-        S, rhs = _fixed_terms(state, cfg, S, rhs, sig)
+        _fixed_terms(state, cfg, S, rhs, sig)
         S = _final_reg(S, lam)
         zeros3 = torch.zeros((Ld, 3), dtype=dtype, device=dev)
         zeros_blk = torch.zeros((Ld, F, 6, 3), dtype=dtype, device=dev)
@@ -340,45 +327,12 @@ def linearize(state: GraphState, cfg: BackendParams, lam, dynamic_scale: float =
     rhs[n:] += ((-gh - g_sm).reshape(J, n) + rh_c.reshape(J, n)).reshape(-1)
 
     # ================= odometry / gauge / marginal prior ==================
-    S, rhs = _fixed_terms(state, cfg, S, rhs, sig)
+    _fixed_terms(state, cfg, S, rhs, sig)
     S = _final_reg(S, lam)
     return _HybridLin(
         S=S, rhs=rhs, Hpp_inv_s=Hpp_inv_s, g_s=g_s, A_s=A_s,
         Hpp_inv_d=Hpp_inv_d, g_d=g_d, Ax_d=Ax_d, Ah_d=Ah_d, onehot=onehot,
     )
-
-
-def _final_reg(S, lam):
-    """Padded-variable floor + Marquardt damping relative to the diagonal."""
-    diag = torch.diagonal(S)
-    return S + torch.diag((_EPS_REG + lam) + (1e-5 + lam) * torch.abs(diag))
-
-
-def _fixed_terms(state: GraphState, cfg: BackendParams, S, rhs, sig):
-    """Non-landmark terms: odometry chain, gauge prior, marginal prior.
-    Adds into S and rhs in place."""
-    F = state.F
-    n = 6 * F
-    dtype = S.dtype
-    if cfg.use_vo_factor:
-        X_prev, r_o = _odom_terms(state)
-        J_Ao, J_Bo = factors.between_jacobians(X_prev, state.X, state.odom, r=r_o)
-        w_o = _odom_mask(state).to(dtype)[:, None] / (sig["odom"] ** 2)
-        od_block, od_g = _chain_se3_blocks(r_o, J_Ao, J_Bo, w_o)
-        S[:n, :n] += od_block.reshape(n, n)
-        rhs[:n] -= od_g.reshape(-1)
-
-    r_p = factors.prior_residual(state.X[0], state.X0_prior)
-    J_p = factors.prior_jacobian(state.X[0], state.X0_prior, r=r_p)
-    w_p = (~state.prior_valid).to(dtype) / sig["prior0"] ** 2
-    S[:6, :6] += w_p * lie.mm(J_p.T, J_p)
-    rhs[:6] -= w_p * (J_p.T @ r_p)
-
-    r_mp = state.prior_b + state.prior_L @ _prior_dx(state)
-    pv = state.prior_valid.to(dtype)
-    S += pv * lie.mm(state.prior_L.T, state.prior_L)
-    rhs -= pv * (state.prior_L.T @ r_mp)
-    return S, rhs
 
 
 def _sym2(B):
@@ -405,24 +359,6 @@ def _apply_update(state: GraphState, lin: _HybridLin, dx):
     corr = lie.einsum("lfab,fa->lb", lin.Ax_d, dX) + lie.einsum("lfab,lfa->lb", lin.Ah_d, dh_l)
     m_hyb_new = state.m_hyb + lie.einsum("lab,lb->la", lin.Hpp_inv_d, -lin.g_d - corr)
     return dataclasses.replace(state, X=X_new, H=H_new, ms=ms_new, m_hyb=m_hyb_new)
-
-
-def _clip_step(dx, max_step):
-    """Scale 6-dof tangent blocks so none exceeds max_step (trust region)."""
-    blocks = dx.reshape(-1, 6)
-    norms = torch.linalg.norm(blocks, dim=-1, keepdim=True)
-    scale = torch.clamp(max_step / torch.clamp(norms, min=1e-12), max=1.0)
-    return (blocks * scale).reshape(-1)
-
-
-def chol_solve(S, g):
-    """S x = g by Cholesky. Like jnp.linalg.cholesky, a factorisation that
-    fails gives NaN (which the LM accept/reject then rejects), without a
-    host round trip to check it."""
-    L, info = torch.linalg.cholesky_ex(S)
-    L = torch.where(info == 0, L, torch.nan)
-    z = torch.linalg.solve_triangular(L, g[:, None], upper=False)
-    return torch.linalg.solve_triangular(L.T, z, upper=True)[:, 0]
 
 
 def optimize_decoupled(state: GraphState, cfg: BackendParams) -> GraphState:
@@ -462,13 +398,42 @@ def optimize_decoupled(state: GraphState, cfg: BackendParams) -> GraphState:
     )
 
 
+def marginal_covariances(state: GraphState, cfg: BackendParams):
+    """Marginal covariance blocks at the current estimate: one dense inverse
+    of the undamped reduced (camera + motion) system gives the exact joint
+    marginals (the reference's decoupled per-graph marginals ignore the
+    camera-object cross terms). A singular system gives NaN, as
+    jnp.linalg.inv does, without a host read.
+
+    Returns (cov_X (F, 6, 6), cov_H (J, F, 6, 6))."""
+    F, J = state.F, state.J
+    n = 6 * F
+    lin = linearize(state, cfg, torch.zeros((), dtype=state.X.dtype, device=state.X.device))
+    Sigma, info = torch.linalg.inv_ex(lin.S)
+    Sigma = torch.where(info == 0, Sigma, torch.nan)
+    # diagonal blocks [f, :, f, :]: the reference's gathers put the indexed
+    # axes first, giving (F, 6, 6) and (J, F, 6, 6)
+    cov_X = torch.diagonal(Sigma[:n, :n].reshape(F, 6, F, 6), dim1=0, dim2=2).permute(2, 0, 1)
+    mot = Sigma[n:, n:].reshape(J * F, 6, J * F, 6)
+    cov_H = torch.diagonal(mot, dim1=0, dim2=2).permute(2, 0, 1).reshape(J, F, 6, 6)
+    return cov_X, cov_H
+
+
 def optimize(state: GraphState, cfg: BackendParams) -> GraphState:
-    """The hybrid optimizer; this port runs the decoupled route only."""
-    if not cfg.decoupled_object_solve:
-        raise NotImplementedError(
-            "joint hybrid solve (decoupled_object_solve=False) is not ported"
-        )
-    return optimize_decoupled(state, cfg)
+    """The hybrid optimizer: the decoupled two-phase LM by default; with
+    decoupled_object_solve off, one joint solve of camera and motions
+    (accept/reject LM, or the damped GN scan when accept_reject is off)."""
+    op = cfg.optimizer
+    if cfg.decoupled_object_solve:
+        return optimize_decoupled(state, cfg)
+    F = state.F
+
+    def solve_dx(lin):
+        return gate_dx_by_type(chol_solve(lin.S, lin.rhs), F, op)
+
+    if not op.accept_reject:
+        return gn_scan(state, cfg, linearize, _apply_update, solve_dx)
+    return lm_accept_reject(state, cfg, linearize, _apply_update, solve_dx, total_error)
 
 
 # ---------------------------------------------------------------------------

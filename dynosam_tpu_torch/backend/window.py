@@ -1,16 +1,25 @@
-"""Sliding-window advance of the hybrid formulation with a marginal prior
-(port of `advance_hybrid` and its helpers in dynosam_tpu/backend/window.py).
+"""Sliding-window advance with a marginal prior, for the three
+formulations (port of dynosam_tpu/backend/window.py).
 
-When the window is full, `advance_hybrid`:
-  1. linearises the departing factor set of {X_0, H_{:,0}}: the slot-0
-     observation factors (points held at their estimates, their noise
-     inflated by the first-order point uncertainty), the straddling
-     constant-motion ternary (H_0, H_1, H_2), odometry (0, 1), the gauge
-     prior and the previous marginal prior;
+When the window is full, an advance:
+  1. linearises the departing factor set of {X_0, H_{:,0}}:
+     - WCME (`advance`): the slot-0 point-to-point factors and the ternary
+       factors (0 -> 1), with the departing points m_{:,0} Schur-eliminated
+       and the coupled m_{:,1} held at their estimates, the smoothing
+       factors (H_{j,0}, H_{j,1});
+     - WCPE (`advance_wcpe`): the slot-(0, 1) motion-pose factors (points
+       held fixed), a coupled (L_0, L_1) block per object;
+     - hybrid (`advance_hybrid`): the slot-0 observation factors (points
+       held at their estimates, their noise inflated by the first-order
+       point uncertainty) and the straddling constant-motion ternary
+       (H_0, H_1, H_2);
+     and, for all three, odometry (0, 1), the gauge prior and the previous
+     marginal prior;
   2. eliminates the departing variables and keeps the marginal over the
      rest as a square-root prior (prior_L, prior_b);
-  3. rolls every frame-indexed table left by one slot and frees object slots
-     that nothing in the window references any more.
+  3. rolls every frame-indexed table left by one slot; the hybrid advance
+     also frees object slots that nothing in the window references any
+     more.
 
 The reference places blocks with constant one-hot matrices contracted on the
 MXU (a TPU layout choice, window.py:398-399); here they are index
@@ -28,6 +37,7 @@ from dynosam_tpu_torch.config import BackendParams
 from dynosam_tpu_torch.backend import factors
 from dynosam_tpu_torch.backend import hybrid as hyb
 from dynosam_tpu_torch.backend.graph import GraphState
+from dynosam_tpu_torch.backend import wcpe as wp
 from dynosam_tpu_torch.backend.solver import _EPS_REG, _object_onehot, _prior_dx, _sigmas
 from dynosam_tpu_torch.ops.block_tridiag import inv3
 from dynosam_tpu_torch.utils import lie
@@ -45,6 +55,156 @@ def _place_blocks(M, g, rows, cols, B, gb=None):
     M.index_put_((rows[:, :, None], cols[:, None, :]), B, accumulate=True)
     if gb is not None:
         g.index_put_((rows,), gb, accumulate=True)
+
+
+def _odometry_01(state: GraphState, cfg: BackendParams, M, g, sig, pass_r: bool):
+    """Odometry factor (0, 1) into M and g, in place. The WCME advance of
+    the reference linearises it without handing the residual to the
+    Jacobians (`pass_r=False`), the others with it; both give the same
+    values."""
+    r_o = factors.between_residual(state.X[0], state.X[1], state.odom[1])
+    if pass_r:
+        J_A, J_B = factors.between_jacobians(state.X[0], state.X[1], state.odom[1], r=r_o)
+    else:
+        J_A, J_B = factors.between_jacobians(state.X[0], state.X[1], state.odom[1])
+    active = (state.odom_valid[1] & (state.num_frames > 1)).to(M.dtype)
+    wv = active / sig["odom"] ** 2                     # (6,) per-dim information
+    JAw = J_A.T * wv
+    JBw = J_B.T * wv
+    M[:6, :6] += JAw @ J_A
+    M[6:12, 6:12] += JBw @ J_B
+    M[:6, 6:12] += JAw @ J_B
+    M[6:12, :6] += (JAw @ J_B).T
+    g[:6] += JAw @ r_o
+    g[6:12] += JBw @ r_o
+
+
+def _gauge_and_prior(state: GraphState, M, g, sig, pass_r: bool = True):
+    """Gauge prior on X_0 (before the first marginalisation) and the
+    previous marginal prior -> (M, g)."""
+    dtype = M.dtype
+    gauge_on = (~state.prior_valid).to(dtype)
+    r_p = factors.prior_residual(state.X[0], state.X0_prior)
+    J_p = (factors.prior_jacobian(state.X[0], state.X0_prior, r=r_p) if pass_r
+           else factors.prior_jacobian(state.X[0], state.X0_prior))
+    w_p = gauge_on / sig["prior0"] ** 2
+    M[:6, :6] += w_p * (J_p.T @ J_p)
+    g[:6] += w_p * (J_p.T @ r_p)
+    r_mp = state.prior_b + state.prior_L @ _prior_dx(state)
+    pv = state.prior_valid.to(dtype)
+    return M + pv * lie.mm(state.prior_L.T, state.prior_L), g + pv * (state.prior_L.T @ r_mp)
+
+
+def _departing_information(state: GraphState, cfg: BackendParams):
+    """WCME: dense (D, D) Hessian and (D,) gradient of the departing factor
+    set, with the departing dynamic points m_{:,0} Schur-eliminated and the
+    coupled m_{:,1} held fixed."""
+    F, J, Ld = state.F, state.J, state.Ld
+    D = state.D
+    dtype, dev = state.X.dtype, state.X.device
+    sig = _sigmas(cfg, dtype, dev)
+
+    M = torch.zeros((D, D), dtype=dtype, device=dev)
+    g = torch.zeros((D,), dtype=dtype, device=dev)
+
+    # ---- per tracklet: PTP(X_0, m_0) + ternary(m_0, m_1, H_{j,1}) --------
+    X0 = state.X[0]
+    R0 = lie.rotation(X0)
+    m0 = state.md[:, 0]                                  # (Ld, 3)
+    m1 = state.md[:, 1]
+    z0 = state.d_z[:, 0]
+    has_obj = state.d_obj >= 0
+    iw_ptp = (state.d_valid[:, 0] & has_obj).to(dtype)[:, None] / (state.d_sig[:, 0] ** 2)
+
+    j_idx = torch.clamp(state.d_obj, 0, J - 1).long()
+    H1 = state.H[j_idx, 1]                               # (Ld, 4, 4)
+    # the ternary (0, 1) mask, solver._ternary_mask at f = 1
+    Hv1 = state.H_valid[j_idx, 1]
+    w_ter = (state.d_valid[:, 0] & state.d_valid[:, 1] & Hv1 & has_obj).to(dtype) / (sig["ternary"] ** 2)
+
+    # PTP residual and Jacobians at slot 0
+    y0 = lie.transform_points(lie.inverse(X0), m0)
+    r_ptp = y0 - z0
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    hat_y0 = lie.hat(y0)
+    Jx0 = torch.cat([hat_y0, -eye3.expand(hat_y0.shape)], dim=-1)      # (Ld, 3, 6)
+    Jp_ptp = R0.T                                        # (3, 3), the same for all tracklets
+
+    # ternary residual and Jacobians with m1 fixed
+    r_ter = m1 - lie.transform_points(H1, m0)
+    RH = lie.rotation(H1)
+    Jm0_ter = -RH                                        # (Ld, 3, 3)
+    JH_ter = torch.cat([lie.mm(RH, lie.hat(m0)), -RH], dim=-1)        # (Ld, 3, 6)
+
+    # per-tracklet elimination of m_0: Hpp = R0 diag(iw) R0^T + w_ter I + eps
+    hpp = lie.einsum("ab,lb,cb->lac", R0, iw_ptp, R0) + (w_ter + _EPS_REG)[:, None, None] * eye3
+    inv_hpp = inv3(hpp)                                  # (Ld, 3, 3)
+    g_m0 = lie.einsum("ab,lb->la", R0, iw_ptp * r_ptp) + w_ter[:, None] * lie.einsum(
+        "lba,lb->la", Jm0_ter, r_ter
+    )
+    # cross blocks (variable row, m0 column): X0 from PTP, H1 from the ternary
+    C_x0 = lie.einsum("lba,lb,bc->lac", Jx0, iw_ptp, Jp_ptp)           # (Ld, 6, 3)
+    C_h1 = w_ter[:, None, None] * lie.einsum("lba,lbc->lac", JH_ter, Jm0_ter)
+
+    # direct blocks
+    H_x0x0 = lie.einsum("lba,lb,lbc->ac", Jx0, iw_ptp, Jx0)            # (6, 6)
+    g_x0 = lie.einsum("lba,lb->a", Jx0, iw_ptp * r_ptp)
+    H_h1h1 = lie.einsum("lba,l,lbc->lac", JH_ter, w_ter, JH_ter)       # (Ld, 6, 6)
+    g_h1 = lie.einsum("lba,l,lb->la", JH_ter, w_ter, r_ter)
+
+    # Schur corrections after eliminating m0
+    S_x0x0 = lie.einsum("lab,lbc,ldc->ad", C_x0, inv_hpp, C_x0)
+    S_x0h1 = lie.einsum("lab,lbc,ldc->lad", C_x0, inv_hpp, C_h1)       # (Ld, 6, 6)
+    S_h1h1 = lie.einsum("lab,lbc,ldc->lad", C_h1, inv_hpp, C_h1)
+    gs_x0 = lie.einsum("lab,lbc,lc->a", C_x0, inv_hpp, g_m0)
+    gs_h1 = lie.einsum("lab,lbc,lc->la", C_h1, inv_hpp, g_m0)
+
+    M[:6, :6] += H_x0x0 - S_x0x0
+    g[:6] += g_x0 - gs_x0
+
+    # per-object sums; row J collects the unassigned tracklets and is dropped
+    seg = torch.where(has_obj, state.d_obj, J).long()
+
+    def segment_sum(x):
+        return torch.zeros((J + 1,) + x.shape[1:], dtype=x.dtype, device=dev).index_add_(0, seg, x)[:J]
+
+    H_h1h1_obj = segment_sum(H_h1h1 - S_h1h1)            # (J, 6, 6)
+    g_h1_obj = segment_sum(g_h1 - gs_h1)
+    S_x0h1_obj = segment_sum(S_x0h1)
+
+    S0, S1 = (_slot_index(F, J, f, dev) for f in range(2))   # H_{:,0}, H_{:,1}
+    _place_blocks(M, g, S1, S1, H_h1h1_obj, g_h1_obj)
+    cross = torch.zeros((6, D), dtype=dtype, device=dev)
+    cross[:, S1.reshape(-1)] = (-S_x0h1_obj).permute(1, 0, 2).reshape(6, 6 * J)
+    M[:6, :] += cross
+    M[:, :6] += cross.T
+
+    # ---- odometry (0, 1) ---------------------------------------------------
+    if cfg.use_vo_factor:
+        _odometry_01(state, cfg, M, g, sig, pass_r=False)
+
+    # ---- smoothing (H_{j,0}, H_{j,1}) --------------------------------------
+    if cfg.use_smoothing_factor:
+        sm_mask = (state.H_valid[:, 0] & state.H_valid[:, 1]).to(dtype)
+        eye4 = torch.eye(4, dtype=dtype, device=dev).expand(J, 4, 4)
+        r_m = factors.between_residual(state.H[:, 0], state.H[:, 1], eye4)
+        J_Am, J_Bm = factors.between_jacobians(state.H[:, 0], state.H[:, 1], eye4)
+        w_sm = sm_mask[:, None] / sig["smooth"] ** 2     # (J, 6)
+        JAw = J_Am.transpose(-1, -2) * w_sm[:, None, :]
+        JBw = J_Bm.transpose(-1, -2) * w_sm[:, None, :]
+        _place_blocks(M, g, S0, S0, lie.mm(JAw, J_Am), lie.einsum("jab,jb->ja", JAw, r_m))
+        _place_blocks(M, g, S1, S1, lie.mm(JBw, J_Bm), lie.einsum("jab,jb->ja", JBw, r_m))
+        _place_blocks(M, g, S0, S1, lie.mm(JAw, J_Bm))
+        _place_blocks(M, g, S1, S0, lie.mm(JAw, J_Bm).transpose(-1, -2))
+
+    # ---- gauge prior on X_0 and the previous marginal prior ---------------
+    return _gauge_and_prior(state, M, g, sig, pass_r=False)
+
+
+def advance(state: GraphState, cfg: BackendParams) -> GraphState:
+    """WCME window advance: marginalise frame slot 0 and roll left by one."""
+    M, g = _departing_information(state, cfg)
+    return _eliminate_and_roll(state, cfg, M, g)
 
 
 def _departing_information_hybrid(state: GraphState, cfg: BackendParams):
@@ -125,35 +285,10 @@ def _departing_information_hybrid(state: GraphState, cfg: BackendParams):
                 if a != b:
                     _place_blocks(M, g, S_f[a], S_f[b], lie.mm(Jws[a], Js[b]))
 
-    # odometry(0, 1)
+    # odometry (0, 1), gauge prior, previous marginal prior
     if cfg.use_vo_factor:
-        r_o = factors.between_residual(state.X[0], state.X[1], state.odom[1])
-        J_A, J_B = factors.between_jacobians(state.X[0], state.X[1], state.odom[1], r=r_o)
-        active = (state.odom_valid[1] & (state.num_frames > 1)).to(dtype)
-        wv = active / sig["odom"] ** 2
-        JAw = J_A.T * wv
-        JBw = J_B.T * wv
-        M[:6, :6] += JAw @ J_A
-        M[6:12, 6:12] += JBw @ J_B
-        M[:6, 6:12] += JAw @ J_B
-        M[6:12, :6] += (JAw @ J_B).T
-        g[:6] += JAw @ r_o
-        g[6:12] += JBw @ r_o
-
-    # gauge prior
-    gauge_on = (~state.prior_valid).to(dtype)
-    r_p = factors.prior_residual(state.X[0], state.X0_prior)
-    J_p = factors.prior_jacobian(state.X[0], state.X0_prior, r=r_p)
-    w_p = gauge_on / sig["prior0"] ** 2
-    M[:6, :6] += w_p * (J_p.T @ J_p)
-    g[:6] += w_p * (J_p.T @ r_p)
-
-    # previous marginal prior
-    r_mp = state.prior_b + state.prior_L @ _prior_dx(state)
-    pv = state.prior_valid.to(dtype)
-    M = M + pv * lie.mm(state.prior_L.T, state.prior_L)
-    g = g + pv * (state.prior_L.T @ r_mp)
-    return M, g
+        _odometry_01(state, cfg, M, g, sig, pass_r=True)
+    return _gauge_and_prior(state, M, g, sig)
 
 
 _ADVANCE_INDICES = {}
@@ -335,3 +470,50 @@ def advance_hybrid(state: GraphState, cfg: BackendParams) -> GraphState:
         kf_slot=torch.where(free, -1, state.kf_slot).to(torch.int32),
         slot_open=state.slot_open | free,
     )
+
+
+# ---------------------------------------------------------------------------
+# WCPE-formulation advance
+# ---------------------------------------------------------------------------
+
+def _departing_information_wcpe(state: GraphState, cfg: BackendParams):
+    """Departing-factor information of the world-centric pose formulation:
+    the slot-(0, 1) motion-pose factors (points held fixed) give a coupled
+    (L_0, L_1) block per object; plus odometry (0, 1), the gauge prior and
+    the previous marginal prior."""
+    F, J = state.F, state.J
+    D = state.D
+    dtype, dev = state.X.dtype, state.X.device
+    sig = _sigmas(cfg, dtype, dev)
+
+    M = torch.zeros((D, D), dtype=dtype, device=dev)
+    g = torch.zeros((D,), dtype=dtype, device=dev)
+
+    onehot = _object_onehot(state, dtype)
+    r_t, _, J_L = wp._pose_chain_terms(state, onehot)
+    mask = wp._pose_chain_mask(state, onehot)
+    w = mask[:, 1].to(dtype) / (sig["ternary"] ** 2)          # the factor at f = 1
+
+    JL1 = J_L[:, 1]                                           # (Ld, 3, 6)
+    r1 = r_t[:, 1]
+    H11 = lie.einsum("lba,l,lbc->lac", JL1, w, JL1)           # (Ld, 6, 6)
+    g1 = lie.einsum("lba,l,lb->la", JL1, w, r1)
+    H11_obj = lie.einsum("lac,lj->jac", H11, onehot)
+    g1_obj = lie.einsum("la,lj->ja", g1, onehot)
+
+    # J_{L_0} = -J_{L_1}: blocks (0,0) = H, (1,1) = H, (0,1) = (1,0) = -H
+    S0, S1 = (_slot_index(F, J, f, dev) for f in range(2))
+    _place_blocks(M, g, S0, S0, H11_obj, -g1_obj)
+    _place_blocks(M, g, S1, S1, H11_obj, g1_obj)
+    _place_blocks(M, g, S0, S1, -H11_obj)
+    _place_blocks(M, g, S1, S0, -H11_obj)
+
+    if cfg.use_vo_factor:
+        _odometry_01(state, cfg, M, g, sig, pass_r=True)
+    return _gauge_and_prior(state, M, g, sig)
+
+
+def advance_wcpe(state: GraphState, cfg: BackendParams) -> GraphState:
+    """WCPE window advance (marginalise + roll)."""
+    M, g = _departing_information_wcpe(state, cfg)
+    return _eliminate_and_roll(state, cfg, M, g)

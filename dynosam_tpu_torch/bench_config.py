@@ -172,14 +172,17 @@ def detector_config():
 
 
 KITTI_MODES = {"full_batch": 0, "sliding_window": 1, "incremental": 2}
+# backend_updater_enum of each formulation of the accuracy matrices
+FORMULATIONS = {"wcme": 0, "wcpe": 1, "hybrid": 3}
 
 
-def kitti_accuracy_config(mode: str, num_frames: int = 60) -> DynoConfig:
+def kitti_accuracy_config(mode: str, num_frames: int = 60, formulation: int = 3) -> DynoConfig:
     """ACCURACY.md's on-disk configuration (scripts/accuracy_report.py
-    run_config_dataset) in hybrid mode `mode` ("incremental",
-    "sliding_window" or "full_batch"): 512 static + 768 dynamic track slots,
-    cell 8, 8 objects, an 8-frame window (the whole sequence for
-    full-batch), 10 LM iterations."""
+    run_config_dataset) in mode `mode` ("incremental", "sliding_window" or
+    "full_batch") and formulation `formulation` (backend_updater_enum: 0
+    WCME, 1 WCPE, 3 hybrid): 512 static + 768 dynamic track slots, cell 8,
+    8 objects, an 8-frame window (the whole sequence for full-batch), 10 LM
+    iterations."""
     opt_mode = KITTI_MODES[mode]
     return DynoConfig(
         frontend=FrontendParams(
@@ -194,8 +197,38 @@ def kitti_accuracy_config(mode: str, num_frames: int = 60) -> DynoConfig:
         ),
         backend=BackendParams(
             optimization_mode=opt_mode,
-            backend_updater_enum=3,
+            backend_updater_enum=formulation,
             max_frames=num_frames if opt_mode == 0 else 8,
+            optimizer=OptimizerParams(max_iterations=10),
+        ),
+    )
+
+
+def synthetic_accuracy_config(mode: str, num_frames: int = 12, formulation: int = 3) -> DynoConfig:
+    """ACCURACY.md's synthetic configuration (scripts/accuracy_report.py
+    run_config) on the dense test scene: 256 static + 256 dynamic track
+    slots, cell 8, 4 objects, an 8-frame window (the whole sequence for
+    full-batch), 10 LM iterations; mode and formulation as in
+    kitti_accuracy_config."""
+    opt_mode = KITTI_MODES[mode]
+    return DynoConfig(
+        frontend=FrontendParams(
+            max_objects=4,
+            tracker=TrackerParams(
+                max_features_per_frame=256,
+                min_features_per_frame=100,
+                max_dynamic_features_per_frame=256,
+                detection_cell_size=8,
+                min_corner_response=1e-6,
+            ),
+        ),
+        backend=BackendParams(
+            optimization_mode=opt_mode,
+            backend_updater_enum=formulation,
+            max_frames=num_frames if opt_mode == 0 else 8,
+            max_objects=4,
+            max_static_landmarks=256,
+            max_dynamic_landmarks=256,
             optimizer=OptimizerParams(max_iterations=10),
         ),
     )

@@ -45,3 +45,13 @@ def backproject(uv, depth, intr: CameraIntrinsics):
     x = (uv[..., 0] - intr.cx) / intr.fx * depth
     y = (uv[..., 1] - intr.cy) / intr.fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def in_image(uv, intr: CameraIntrinsics, border: float = 0.0):
+    """Containment mask of pixels (..., 2) in the image."""
+    return (
+        (uv[..., 0] >= border)
+        & (uv[..., 0] <= intr.width - 1 - border)
+        & (uv[..., 1] >= border)
+        & (uv[..., 1] <= intr.height - 1 - border)
+    )

@@ -1,12 +1,12 @@
 """The fused per-frame SLAM step (port of `init_pipeline_state` and the
-sequential hybrid route of `make_fused_step` in
-dynosam_tpu/parallel/batched.py).
+sequential route of `make_fused_step` in dynosam_tpu/parallel/batched.py).
 
 One call runs frontend(k) -> window advance when the window is full ->
-backend ingestion -> decoupled hybrid LM on the window through k, and
-returns the new state and the frame's outputs. The window fill is the host
-integer `GraphState.num_frames`, so the reference's `lax.cond` on it
-(batched.py:108-112) is a Python branch here.
+backend ingestion -> the formulation's optimizer on the window through k,
+and returns the new state and the frame's outputs. The formulation is
+backend_updater_enum: 0 WCME, 1 WCPE, 2 or 3 hybrid (decoupled or joint).
+The window fill is the host integer `GraphState.num_frames`, so the
+reference's `lax.cond` on it (batched.py:108-112) is a Python branch here.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import torch
 from dynosam_tpu_torch.config import DynoConfig
 from dynosam_tpu_torch.backend import graph as graph_mod
 from dynosam_tpu_torch.backend import hybrid as hybrid_mod
+from dynosam_tpu_torch.backend import solver
+from dynosam_tpu_torch.backend import wcpe as wcpe_mod
 from dynosam_tpu_torch.backend import window as window_mod
 from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.cv import camera as cam
@@ -50,15 +52,13 @@ def make_fused_step(
     intr: cam.CameraIntrinsics,
     generator: Optional[torch.Generator] = None,
 ):
-    """Returns step(state, inputs) -> (state, outputs) for the hybrid
-    backend (backend_updater_enum 2 or 3, decoupled solve). RANSAC draws
-    from `generator`, which must live on the frames' device."""
+    """Returns step(state, inputs) -> (state, outputs). RANSAC draws from
+    `generator`, which must live on the frames' device."""
     cfg = cfg.normalized()
     bcfg = cfg.backend
-    if bcfg.backend_updater_enum not in (2, 3):
-        raise NotImplementedError(
-            f"backend_updater_enum={bcfg.backend_updater_enum}: only the hybrid backend (2, 3) is ported"
-        )
+    enum = bcfg.backend_updater_enum
+    if enum not in (0, 1, 2, 3):
+        raise ValueError(f"backend_updater_enum={enum}: 0, 1, 2 or 3")
     if bcfg.optimization_mode == 2:
         # incremental mode: warm-started LM, few iterations, accept/reject
         bcfg = dataclasses.replace(
@@ -71,20 +71,37 @@ def make_fused_step(
         )
     cfg = dataclasses.replace(cfg, backend=bcfg)
     F = bcfg.max_frames
+    if enum in (2, 3):
+        advance_fn = window_mod.advance_hybrid
+        update_fn = graph_mod.update_from_packet_hybrid
+        optimize_fn = hybrid_mod.optimize
+    elif enum == 1:
+        advance_fn = window_mod.advance_wcpe
+        update_fn = wcpe_mod.update_from_packet_wcpe
+        optimize_fn = wcpe_mod.optimize
+    else:
+        advance_fn = window_mod.advance
+        update_fn = graph_mod.update_from_packet
+        optimize_fn = solver.optimize
 
     def _outputs(g: GraphState, packet):
         latest = min(max(g.num_frames - 1, 0), F - 1)
         prev = max(latest - 1, 0)
-        # F2F world motion; valid when both keyframed slots exist
-        H_ok = (
-            g.H_valid[:, latest]
-            & (g.H_valid[:, prev] | (g.kf_slot == prev))
-            & (latest > 0)
-        )
+        # the F2F world motion and its validity: hybrid needs a motion
+        # variable or the keyframe at the previous slot, WCPE both pose
+        # variables; WCME's motions are per-frame variables
+        if enum in (2, 3):
+            H_out = hybrid_mod.f2f_motion(g, latest)
+            H_ok = g.H_valid[:, latest] & (g.H_valid[:, prev] | (g.kf_slot == prev)) & (latest > 0)
+        elif enum == 1:
+            H_out = wcpe_mod.f2f_motion(g, latest)
+            H_ok = g.H_valid[:, latest] & g.H_valid[:, prev] & (latest > 0)
+        else:
+            H_out, H_ok = g.H[:, latest], g.H_valid[:, latest]
         return {
             "X_world_cam": g.X[latest],
             "object_ids": g.obj_ids,
-            "object_motions": hybrid_mod.f2f_motion(g, latest),
+            "object_motions": H_out,
             "object_motion_valid": H_ok,
             "frontend_pose": packet.X_world_cam,
         }
@@ -95,9 +112,9 @@ def make_fused_step(
         )
         g = state.graph
         if g.num_frames >= F:
-            g = window_mod.advance_hybrid(g, cfg.backend)
-        g = graph_mod.update_from_packet_hybrid(g, packet, intr, cfg.backend)
-        g = hybrid_mod.optimize(g, cfg.backend)
+            g = advance_fn(g, cfg.backend)
+        g = update_fn(g, packet, intr, cfg.backend)
+        g = optimize_fn(g, cfg.backend)
         return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet)
 
     return step

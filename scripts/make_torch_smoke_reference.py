@@ -36,11 +36,24 @@ dynosam_tpu_torch/testdata/:
     at +baseline along camera x, its provided depth corrupted by 1.15x and
     the 32-sample IMU window of the interval before it. The same keys as
     the KLT file.
+  * bench_{wcme,wcpe,joint}_ref_20f.npz (--only forms) — the fused step at
+    bench.bench_config() with the WCME (backend_updater_enum 0) and WCPE (1)
+    backends and the joint hybrid solve (3, decoupled_object_solve False)
+    over the 20 bench frames, keys as bench_ref_20f.npz; the joint file
+    also holds `cov_X` (F, 6, 6) and `cov_H` (J, F, 6, 6), the marginal
+    covariances of the final window.
+  * kitti_forms_ref_60f.npz (--only forms) — the host pipeline over the 60
+    fixture frames in incremental mode with the WCME and WCPE backends at
+    ACCURACY.md's on-disk configuration (scripts/accuracy_report.py
+    run_config_dataset), RANSAC seeds 0, 1 and 2, keys as kitti_ref_60f.npz
+    with the formulation ("wcme", "wcpe") in place of the mode. This part
+    builds its configurations from the JAX package alone.
 
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
-    [--only bench|detector|kitti|klt|stereo_imu]
+    [--only bench|detector|kitti|klt|stereo_imu|forms]
 (~80 s for the first two files; ~32 min for the third, most of it the
-full-batch runs at a 60-frame window; a few minutes for each of the last two)
+full-batch runs at a 60-frame window; a few minutes for each of the two
+after it; the forms files' CPU time is in CHANGES.md)
 """
 
 from __future__ import annotations
@@ -74,6 +87,10 @@ KITTI_SEEDS = (0, 1, 2)
 KITTI_SUMMARY_FIELDS = ("ate_unaligned_m", "ate_rot_rad", "ame_rms_m", "ame_median_m", "n_motions")
 KITTI_SPREAD_FIELDS = ("pose_m", "pose_rad", "motion_max_m", "motion_median_m")
 KEYS = ("X_world_cam", "object_ids", "object_motions", "object_motion_valid")
+FORMS_BENCH = {"wcme": {"backend.backend_updater_enum": 0}, "wcpe": {"backend.backend_updater_enum": 1},
+               "joint": {"backend.decoupled_object_solve": False}}
+FORMS_KITTI = {"wcme": 0, "wcpe": 1}
+KITTI_FORMS_OUT = os.path.join(TESTDATA, "kitti_forms_ref_60f.npz")
 
 
 def _save(path, arrays, t0):
@@ -262,37 +279,30 @@ def _rot_angle(R, R_ref):
     return np.arcsin(np.clip(np.linalg.norm(w, axis=-1), 0.0, 1.0))
 
 
-def kitti_reference():
-    """The host pipeline (DynoPipeline -> RegularBackend -> CSV logs ->
-    DatasetEvaluator) over the committed 60-frame dyno-KITTI fixture, in the
-    three hybrid modes at ACCURACY.md's on-disk configuration, under RANSAC
-    seeds 0, 1 and 2. Seed 0's mature camera poses and matured object
-    motions are kept; every seed's evaluator summary sets the ranges."""
+def _kitti_runs(runs, out_path, t0):
+    """The host pipeline over the fixture for each (name, JAX DynoConfig) of
+    `runs` under KITTI_SEEDS -> out_path, the keys of kitti_ref_60f.npz
+    with `name` in place of the mode."""
     import shutil
     import tempfile
 
     import jax
     import numpy as np
 
-    from dynosam_tpu.config import DynoConfig
     from dynosam_tpu.dataproviders.kitti import KittiDataProvider
     from dynosam_tpu.eval.evaluator import DatasetEvaluator
     from dynosam_tpu.pipeline.pipeline import DynoPipeline
-    from dynosam_tpu_torch.bench_config import kitti_accuracy_config
 
-    t0 = time.time()
     ds = KittiDataProvider(KITTI_FIXTURE)
     n = min(KITTI_FRAMES, len(ds))
     frames = [ds.frame(k) for k in range(n)]
     gts = [ds.ground_truth(k) for k in range(n)]
-    out = {"modes": np.array(KITTI_MODES), "seeds": np.array(KITTI_SEEDS),
+    names = [name for name, _ in runs]
+    out = {"modes": np.array(names), "seeds": np.array(KITTI_SEEDS),
            "summary_fields": np.array(KITTI_SUMMARY_FIELDS), "spread_fields": np.array(KITTI_SPREAD_FIELDS)}
-    summary = np.zeros((len(KITTI_MODES), len(KITTI_SEEDS), len(KITTI_SUMMARY_FIELDS)))
-    spread = np.zeros((len(KITTI_MODES), len(KITTI_SEEDS), len(KITTI_SPREAD_FIELDS)))
-    for i, mode in enumerate(KITTI_MODES):
-        cfg = kitti_accuracy_config(mode, n)
-        # the port's config of the same values, read by the JAX package
-        jcfg = DynoConfig.from_dict(dataclasses.asdict(cfg))
+    summary = np.zeros((len(runs), len(KITTI_SEEDS), len(KITTI_SUMMARY_FIELDS)))
+    spread = np.zeros((len(runs), len(KITTI_SEEDS), len(KITTI_SPREAD_FIELDS)))
+    for i, (name, jcfg) in enumerate(runs):
         for s, seed in enumerate(KITTI_SEEDS):
             tmp = tempfile.mkdtemp(prefix="kitti_ref_")
             try:
@@ -305,15 +315,14 @@ def kitti_reference():
             finally:
                 shutil.rmtree(tmp, ignore_errors=True)
             summary[i, s] = _summary(rep)
-            print(f"  mode {mode} seed {seed}: {summary[i, s].tolist()} "
-                  f"({time.time() - t0:.0f} s)", flush=True)
+            print(f"  {name} seed {seed}: {summary[i, s].tolist()} ({time.time() - t0:.0f} s)", flush=True)
             X = np.stack(pipe.trajectory).astype(np.float32)
             motions = {k: np.asarray(v, np.float32) for k, v in pipe.backend.matured_motion.items()}
             if seed == 0:
                 keys = sorted(motions)
-                out[f"{mode}_X"] = X
-                out[f"{mode}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
-                out[f"{mode}_motion_H"] = np.stack([motions[k] for k in keys])
+                out[f"{name}_X"] = X
+                out[f"{name}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
+                out[f"{name}_motion_H"] = np.stack([motions[k] for k in keys])
                 X0, motions0 = X, motions
             else:
                 # how far another seed lands from seed 0: poses (m, rad),
@@ -327,15 +336,78 @@ def kitti_reference():
                 ]
     out["summary"] = summary
     out["seed_spread"] = spread
-    _save(KITTI_OUT, out, t0)
+    _save(out_path, out, t0)
+
+
+def kitti_reference():
+    """The host pipeline (DynoPipeline -> RegularBackend -> CSV logs ->
+    DatasetEvaluator) over the committed 60-frame dyno-KITTI fixture, in the
+    three hybrid modes at ACCURACY.md's on-disk configuration, under RANSAC
+    seeds 0, 1 and 2. Seed 0's mature camera poses and matured object
+    motions are kept; every seed's evaluator summary sets the ranges."""
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu_torch.bench_config import kitti_accuracy_config
+
+    t0 = time.time()
+    # the port's config of the same values, read by the JAX package
+    runs = [(mode, DynoConfig.from_dict(dataclasses.asdict(kitti_accuracy_config(mode, KITTI_FRAMES))))
+            for mode in KITTI_MODES]
+    _kitti_runs(runs, KITTI_OUT, t0)
+
+
+def _jax_kitti_config(formulation: int):
+    """scripts/accuracy_report.py run_config_dataset's configuration,
+    incremental mode (backend window 8), from the JAX package."""
+    from dynosam_tpu.config import BackendParams, DynoConfig, FrontendParams, OptimizerParams, TrackerParams
+
+    return DynoConfig(
+        frontend=FrontendParams(max_objects=8, tracker=TrackerParams(
+            max_features_per_frame=512, min_features_per_frame=200, max_dynamic_features_per_frame=768,
+            detection_cell_size=8, min_corner_response=1e-6)),
+        backend=BackendParams(optimization_mode=2, backend_updater_enum=formulation, max_frames=8,
+                              optimizer=OptimizerParams(max_iterations=10)),
+    )
+
+
+def forms_reference():
+    """The other formulations: the fused step at the bench configuration
+    (WCME, WCPE, the joint hybrid solve with its final marginal
+    covariances) and the fixture pipeline in incremental mode (WCME,
+    WCPE)."""
+    import jax
+    import numpy as np
+
+    import bench
+    from dynosam_tpu.backend import hybrid as jhybrid
+    from dynosam_tpu.parallel.batched import init_pipeline_state, make_fused_step
+
+    cfg0, intr = bench.bench_config()
+    frames = bench.make_frames(intr, num_frames=BENCH_FRAMES)
+    for name, overrides in FORMS_BENCH.items():
+        t0 = time.time()
+        cfg = cfg0.with_overrides(overrides)
+        step = jax.jit(make_fused_step(cfg, intr))
+        state = init_pipeline_state(cfg)
+        outs = {k: [] for k in KEYS}
+        for fr in frames:
+            state, out = step(state, fr)
+            for key in KEYS:
+                outs[key].append(np.asarray(out[key]))
+        arrays = {k: np.stack(v) for k, v in outs.items()}
+        if name == "joint":
+            cov_X, cov_H = jax.jit(lambda g: jhybrid.marginal_covariances(g, cfg.backend))(state.graph)
+            arrays.update(cov_X=np.asarray(cov_X), cov_H=np.asarray(cov_H))
+        _save(os.path.join(TESTDATA, f"bench_{name}_ref_20f.npz"), arrays, t0)
+    t0 = time.time()
+    _kitti_runs([(name, _jax_kitti_config(f)) for name, f in FORMS_KITTI.items()], KITTI_FORMS_OUT, t0)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu"],
-                    action="append", help="write only these files (default: all five)")
+    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms"],
+                    action="append", help="write only these files (default: all)")
     args = ap.parse_args()
-    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu"]
+    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms"]
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -347,6 +419,8 @@ def main():
         klt_reference()
     if "stereo_imu" in todo:
         stereo_imu_reference()
+    if "forms" in todo:
+        forms_reference()
 
 
 if __name__ == "__main__":

@@ -11,7 +11,13 @@
     stereo matching (twice per frame) and IMU preintegration are layers too;
   * detector: detector_scene() at detector_config over 24 frames, each
     frame labelled by YOLOv8-seg before the fused step (ByteTrack relabels
-    the masks inside the tracker).
+    the masks inside the tracker);
+  * wcme, wcpe, joint: the bench path with the WCME (backend_updater_enum
+    0) or WCPE (1) backend, or the joint hybrid solve (decoupled_object_solve
+    off); their backend layers are the window advance, the graph update, the
+    optimizer, inside it the LM loop (lm_accept_reject) and each
+    linearisation, and for WCME and WCPE inside that the chain elimination's
+    block-Thomas factorisation and dense chain inverse.
 
 Each path runs twice on fresh states: the first pass warms up (kernel build,
 cuBLAS/cuSOLVER/cuDNN handles, allocator), the second is measured. Layers
@@ -24,7 +30,7 @@ image and ByteTrack. A third pass runs under torch.profiler for device busy
 time, device op count and the top kernels by device time.
 
 Usage: python scripts/profile_torch_step.py [--out PATH.json] [--seed N]
-    [--paths bench,klt,stereo_imu,detector]
+    [--paths bench,klt,stereo_imu,detector,wcme,wcpe,joint]
 """
 
 from __future__ import annotations
@@ -57,7 +63,10 @@ def main():
     from dynosam_tpu_torch import bench_config as bc
     from dynosam_tpu_torch.backend import graph as graph_mod
     from dynosam_tpu_torch.backend import hybrid as hybrid_mod
+    from dynosam_tpu_torch.backend import solver as solver_mod
+    from dynosam_tpu_torch.backend import wcpe as wcpe_mod
     from dynosam_tpu_torch.backend import window as window_mod
+    from dynosam_tpu_torch.ops import block_tridiag as bt_mod
     from dynosam_tpu_torch.cv import stereo as stereo_mod
     from dynosam_tpu_torch.frontend import frontend as fe_mod
     from dynosam_tpu_torch.frontend import imu as imu_mod
@@ -122,9 +131,26 @@ def main():
         (imu_mod, "preintegrate", "imu_preintegrate"),
     ]
 
+    chain_hooks = [(bt_mod, "factorize", "chain_factorize"), (bt_mod, "full_inverse", "chain_inverse")]
+    form_hooks = {
+        "wcme": [(window_mod, "advance", "window_advance"), (graph_mod, "update_from_packet", "graph_update"),
+                 (solver_mod, "optimize", "optimize"), (solver_mod, "lm_accept_reject", "lm"),
+                 (solver_mod, "linearize", "linearize")] + chain_hooks,
+        "wcpe": [(window_mod, "advance_wcpe", "window_advance"),
+                 (wcpe_mod, "update_from_packet_wcpe", "graph_update"), (wcpe_mod, "optimize", "optimize"),
+                 (wcpe_mod, "lm_accept_reject", "lm"), (wcpe_mod, "linearize", "linearize")] + chain_hooks,
+        "joint": [(hybrid_mod, "lm_accept_reject", "lm"), (hybrid_mod, "linearize", "linearize")],
+    }
+    form_overrides = {"wcme": {"backend.backend_updater_enum": 0}, "wcpe": {"backend.backend_updater_enum": 1},
+                      "joint": {"backend.decoupled_object_solve": False}}
+
     def make_path(name):
         engine = None
-        if name == "bench":
+        if name in form_overrides:
+            cfg, intr = bc.bench_config()
+            cfg = cfg.with_overrides(form_overrides[name])
+            frames = bc.bench_scene(intr, 20, device="cuda").frames()
+        elif name == "bench":
             cfg, intr = bc.bench_config()
             frames = bc.bench_scene(intr, 20, device="cuda").frames()
         elif name == "klt":
@@ -197,6 +223,11 @@ def main():
         run_pass(cfg, intr, frames, engine)                       # warm-up
         layers.clear()
         hooks = step_hooks
+        if name in ("wcme", "wcpe"):
+            hooks = [h for h in step_hooks if h[0] is not window_mod and h[0] is not graph_mod
+                     and h[0] is not hybrid_mod] + form_hooks[name]
+        elif name == "joint":
+            hooks = step_hooks + form_hooks[name]
         if engine is not None:
             # the network's own time: its forward, as the engine calls it
             hooks = hooks + det_hooks + [(engine.model, "forward", "network")]
@@ -232,7 +263,7 @@ def main():
         wall, kernels, by_name = profile_pass(cfg, intr, frames, engine)
         busy_us = sum(by_name.values())
         n_prof = len(frames) - 1
-        steady = step_times[10:] if name in ("bench", "klt") else step_times[1:]
+        steady = step_times[10:] if name in ("bench", "klt", "wcme", "wcpe", "joint") else step_times[1:]
         r = {
             "frames": len(frames),
             "step_ms": [t * 1e3 for t in step_times],

@@ -2,7 +2,8 @@
 decoder against OpenCV (every fixture PNG, and synthetic PNGs of every row
 filter), the .flo / txt-mask / disparity parsers against the reference's
 native library, the KITTI provider's frames and ground truth bit for bit,
-the simulator's ground truth, and the dataset factory."""
+the simulator's ground truth and its backend packets, and the dataset
+factory."""
 
 import os
 import struct
@@ -16,11 +17,14 @@ import torch
 from dynosam_tpu import native as jnative
 from dynosam_tpu.dataproviders.kitti import KittiDataProvider as JaxKitti
 from dynosam_tpu.dataproviders.simulator import Scenario as JaxScenario
+from dynosam_tpu.dataproviders.simulator import ScenarioSpec as JaxScenarioSpec
 from dynosam_tpu_torch import native
 from dynosam_tpu_torch.dataproviders.base import DatasetType, create_dataset
 from dynosam_tpu_torch.dataproviders.kitti import KittiDataProvider
+from dynosam_tpu_torch.dataproviders.simulator import Scenario, ScenarioSpec
 from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario
-from torch_port_util import jax_spec
+from dynosam_tpu_torch.convert import dataclass_to_numpy
+from torch_port_util import assert_tree_matches, jax_spec, np_tree, port_spec, scenario_uniforms
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -222,6 +226,35 @@ def test_simulator_ground_truth_matches_reference():
         np.testing.assert_array_equal(tg.object_valid, np.asarray(jg.object_valid))
         for name in ("X_world_cam", "object_poses", "object_motions"):
             np.testing.assert_allclose(getattr(tg, name), np.asarray(getattr(jg, name)), atol=1e-5)
+
+
+@pytest.mark.parametrize("max_objects", [4, 16])
+def test_simulator_packets_match_reference(max_objects):
+    """default_two_objects' VisionPackets (the backend harness), the port
+    drawing its landmark clouds from the reference's uniforms: ids, masks
+    and visibility equal, pixels within 2e-3 px and depths within 1e-5 m
+    (the pose chains are f32 products in another order)."""
+    jspec = JaxScenarioSpec.default_two_objects(num_frames=6)
+    spec = ScenarioSpec.default_two_objects(num_frames=6)
+    for a, b in ((port_spec(jspec), spec), (port_spec(jspec).objects[1], spec.objects[1])):
+        for name, v in vars(a).items():
+            if name != "objects":
+                np.testing.assert_array_equal(np.asarray(getattr(b, name)), np.asarray(v), err_msg=name)
+    jscn = JaxScenario(jspec)
+    scn = Scenario(spec, device="cpu", uniforms=scenario_uniforms(jspec))
+    assert scn.num_dynamic_points() == jscn.num_dynamic_points() == 96
+    packets = scn.packets(max_objects)
+    assert len(packets) == 6
+    for k, got in enumerate(packets):
+        ref = np_tree(jscn.measurements(k, max_objects))
+        got = dataclass_to_numpy(got)
+        for table in ("static_tracks", "dynamic_tracks"):
+            for name in ("uv", "depth"):
+                r, g = ref[table].pop(name), got[table].pop(name)
+                np.testing.assert_allclose(g, r, rtol=1e-6, atol=2e-3 if name == "uv" else 1e-5,
+                                           err_msg=f"{k} {table}.{name}")
+        assert_tree_matches(ref, got, atol=1e-5, rtol=1e-6)
+        assert int(got["dynamic_tracks"]["valid"].sum()) > 60
 
 
 def test_create_dataset():

@@ -277,22 +277,41 @@ def test_static_only_backend_drops_the_objects(providers):
 
 
 def test_unported_options_raise(tmp_path):
+    """What still raises: marginal covariances on WCME and WCPE (the
+    reference exports them for the hybrid formulations only), the dataset
+    types not ported (item 19), --viz and --detector_weights (item 18).
+    Every formulation builds a RegularBackend, and the entry point runs the
+    reference's default configuration (WCME) on 2 frames and writes its
+    logs."""
     cfg = port_cfg(small_cfg("incremental")).normalized()
     intr = KittiDataProvider(FIXTURE, device="cpu").intrinsics()
     for enum in (0, 1):
         bcfg = dataclasses.replace(cfg.backend, backend_updater_enum=enum)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            RegularBackend(bcfg, intr, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        RegularBackend(cfg.backend, intr, device="cpu").marginal_covariances()
-    # the reference's default configuration is WCME
+        with pytest.raises(NotImplementedError, match="hybrid formulations"):
+            RegularBackend(bcfg, intr, device="cpu").marginal_covariances()
+    cov_X, cov_H = RegularBackend(cfg.backend, intr, device="cpu").marginal_covariances()
+    assert cov_X.shape == (6, 6, 6) and cov_H.shape == (4, 6, 6, 6)
+    with pytest.raises(NotImplementedError, match="item 19"):
+        trun.open_dataset(2, FIXTURE, 2, 4, "cpu")
     base = ["--dataset_type", "0", "--dataset_path", FIXTURE, "--device", "cpu", "--frames", "2",
             "--output_path", str(tmp_path / "x")]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        trun.main(base)
     for extra in (["--viz"], ["--detector_weights", "w.pt"]):
         with pytest.raises(NotImplementedError, match="item 18"):
             trun.main(base + extra)
+
+
+def test_entry_point_runs_the_default_configuration(tmp_path):
+    """python -m dynosam_tpu_torch.run_dynosam with no --flags: the
+    reference's default configuration, the WCME backend, on 2 fixture
+    frames; it writes its logs."""
+    assert trun.build_config().backend.backend_updater_enum == 0
+    out = tmp_path / "default"
+    trun.main(["--dataset_type", "0", "--dataset_path", FIXTURE, "--device", "cpu", "--frames", "2",
+               "--output_path", str(out)])
+    _, rows = _read_csv(os.path.join(out, "dynosam_tpu_camera_pose_log.csv"))
+    assert len(rows) == 2
+    for kind in ("object_motion", "object_pose"):
+        assert os.path.exists(os.path.join(out, f"dynosam_tpu_{kind}_log.csv")), kind
 
 
 KLT_FRAMES = 6

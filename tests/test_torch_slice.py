@@ -114,13 +114,23 @@ def test_fused_step_advances_the_full_window(fused_runs):
 
 
 def test_unported_backend_and_frontend_options_raise():
-    """The WCME backend still raises; KLT, the IMU and mask propagation
-    build (KLT needs the image shape, as in the reference)."""
+    """Every formulation builds the fused step now (WCME, WCPE and the joint
+    hybrid, held to the reference in test_torch_wcme.py, test_torch_wcpe.py
+    and test_torch_backend.py); an unknown backend_updater_enum and the
+    dataset types still unported (ROADMAP item 19) raise. KLT, the IMU and
+    mask propagation build (KLT needs the image shape, as in the
+    reference)."""
+    from dynosam_tpu_torch.dataproviders.base import create_dataset
+
     cfg = port_cfg(small_cfg())
     intr = t_dense(num_frames=1, device="cpu").intr
-    wcme = dataclasses.replace(cfg, backend=dataclasses.replace(cfg.backend, backend_updater_enum=0))
-    with pytest.raises(NotImplementedError):
-        tbatched.make_fused_step(wcme, intr)
+    for enum in (0, 1, 2, 3):
+        tbatched.make_fused_step(cfg.with_overrides({"backend.backend_updater_enum": enum}), intr)
+    tbatched.make_fused_step(cfg.with_overrides({"backend.decoupled_object_solve": False}), intr)
+    with pytest.raises(ValueError, match="backend_updater_enum"):
+        tbatched.make_fused_step(cfg.with_overrides({"backend.backend_updater_enum": 4}), intr)
+    with pytest.raises(NotImplementedError, match="item 19"):
+        create_dataset(1, "unused", device="cpu")
     klt = cfg.with_overrides({"frontend.tracker.prefer_provided_optical_flow": False})
     with pytest.raises(ValueError, match="image_shape"):
         tbatched.init_pipeline_state(klt, "cpu")

@@ -23,7 +23,7 @@ from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.convert import dataclass_to_numpy
 from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario as t_dense
 from dynosam_tpu_torch.parallel import batched as tbatched
-from torch_port_util import assert_tree_matches, np_tree, port_cfg, small_cfg, to_port
+from torch_port_util import check_advanced, np_tree, port_cfg, small_cfg, to_port
 
 torch.set_num_threads(1)
 F = 4
@@ -75,32 +75,6 @@ def test_departing_information(full_windows, i):
     np.testing.assert_allclose(g.numpy(), gr, rtol=1e-4, atol=1e-5 * _scale(gr))
 
 
-def _check_advanced(ref_state, got_state, unique_sqrt=True):
-    ref = np_tree(ref_state)
-    got = dataclass_to_numpy(got_state)
-    assert bool(ref["prior_valid"])
-    # the square-root prior: Cholesky factors (unique) of matrices equal to
-    # ~1e-5 relative, so rows agree to ~1e-3 of the largest entry. The eigh
-    # path's rows are eigenvectors, fixed only up to sign and rotation within
-    # an eigenspace: there only the invariants below are compared.
-    for name in ("prior_L", "prior_b"):
-        r, v = ref.pop(name), got.pop(name)
-        if unique_sqrt:
-            np.testing.assert_allclose(v, r, rtol=1e-3, atol=1e-3 * _scale(r), err_msg=name)
-    # every other table is rolled, not recomputed: exact for integers and
-    # bools, the float tables within f32 rounding of the ingestion
-    assert_tree_matches(ref, got, atol=1e-5, rtol=1e-6)
-    # the prior's information, which the solver uses
-    info_r = ref_state.prior_L.T @ ref_state.prior_L
-    info = got_state.prior_L.T @ got_state.prior_L
-    np.testing.assert_allclose(info.numpy(), np.asarray(info_r), rtol=1e-3,
-                               atol=1e-4 * _scale(np.asarray(info_r)))
-    # its gradient at the linearisation point
-    grad_r = np.asarray(ref_state.prior_L.T @ ref_state.prior_b)
-    grad = (got_state.prior_L.T @ got_state.prior_b).numpy()
-    np.testing.assert_allclose(grad, grad_r, rtol=1e-3, atol=1e-4 * _scale(grad_r))
-
-
 @pytest.mark.parametrize("i", range(ADVANCES))
 def test_advance_hybrid(full_windows, i):
     bcfg, windows = full_windows
@@ -108,7 +82,7 @@ def test_advance_hybrid(full_windows, i):
     ref = jwindow.advance_hybrid(jg, bcfg)
     got = twindow.advance_hybrid(to_port(GraphState, jg), port_cfg(bcfg))
     assert got.num_frames == F - 1
-    _check_advanced(ref, got)
+    check_advanced(ref, got)
 
 
 def test_slot_recycling_frees_an_unreferenced_object(full_windows):
@@ -154,7 +128,7 @@ def test_eigh_branch_forced(full_windows, monkeypatch):
     got = twindow.advance_hybrid(to_port(GraphState, jg), port_cfg(bcfg))
     assert used == ["broken", "eigh"]
     assert np.isfinite(np.asarray(ref.prior_L)).all()
-    _check_advanced(ref, got, unique_sqrt=False)
+    check_advanced(ref, got, unique_sqrt=False)
 
 
 def test_fused_step_past_the_window():

@@ -155,3 +155,153 @@ def inject_draws(monkeypatch, draws):
 
     monkeypatch.setattr(ransac, "_sample_indices", sample)
     return queue
+
+
+def port_intr(intr):
+    """The port's CameraIntrinsics of JAX intrinsics."""
+    from dynosam_tpu_torch.cv import camera as tcam
+
+    return tcam.CameraIntrinsics.create(float(intr.fx), float(intr.fy), float(intr.cx), float(intr.cy),
+                                        width=intr.width, height=intr.height, baseline=intr.baseline)
+
+
+def port_spec(spec):
+    """The port's ScenarioSpec of a JAX ScenarioSpec, point clouds included."""
+    from dynosam_tpu_torch.dataproviders import simulator as tsim
+
+    objects = [tsim.ObjectSpec(**{f.name: getattr(o, f.name) for f in dataclasses.fields(tsim.ObjectSpec)})
+               for o in spec.objects]
+    kw = {f.name: getattr(spec, f.name) for f in dataclasses.fields(tsim.ScenarioSpec) if f.name != "objects"}
+    return tsim.ScenarioSpec(objects=objects, **kw)
+
+
+def scenario_uniforms(spec):
+    """The uniforms the JAX Scenario draws its static and object landmark
+    clouds from (its key split and fold_in), for the port's Scenario."""
+    import jax
+
+    _, k_obj, _ = keys = jax.random.split(jax.random.PRNGKey(spec.seed), 3)
+    return {"static": np.asarray(jax.random.uniform(keys[0], (spec.num_static, 3))),
+            "objects": [np.asarray(jax.random.uniform(jax.random.fold_in(k_obj, i), (o.num_points, 3)))
+                        for i, o in enumerate(spec.objects)]}
+
+
+def packet_backend_cfg(**kw):
+    """The reference backend tests' settings on default_two_objects
+    (tests/test_backend.py small_cfg): 256 static + 96 dynamic slots, 4
+    objects, range-independent noise, and `kw`."""
+    from dynosam_tpu.config import NoiseParams
+
+    base = dict(max_frames=5, max_objects=4, max_static_landmarks=256, max_dynamic_landmarks=96,
+                noise=NoiseParams(use_range_dependent_noise=False),
+                optimizer=OptimizerParams(max_iterations=3))
+    base.update(kw)
+    return BackendParams(**base)
+
+
+def reference_window_run(cfg, packets, intr, update_fn, optimize_fn, advance_fn):
+    """A reference run of one formulation over `packets`: per frame the
+    graph before and after ingestion, and the optimised full window before
+    each advance -> (records [(g_in, packet, g_out)], windows)."""
+    import jax
+
+    upd = jax.jit(lambda g, p: update_fn(g, p, intr, cfg))
+    opt = jax.jit(lambda g: optimize_fn(g, cfg))
+    adv = jax.jit(lambda g: advance_fn(g, cfg))
+    from dynosam_tpu.backend import graph as jgraph
+
+    g = jgraph.empty_graph(cfg)
+    records, windows = [], []
+    for p in packets:
+        if int(g.num_frames) >= cfg.max_frames:
+            windows.append(g)
+            g = adv(g)
+        g_out = upd(g, p)
+        records.append((g, p, g_out))
+        g = opt(g_out)
+    return records, windows
+
+
+def _scale(a):
+    return max(float(np.abs(a).max()), 1.0)
+
+
+def check_advanced(ref_state, got_state, unique_sqrt=True, **rel):
+    """A window advance of the port against the reference's: the rolled
+    tables, the square-root prior (prior_L, prior_b) and its invariants, the
+    information prior_L^T prior_L and the gradient prior_L^T prior_b. `rel`
+    overrides the bounds relative to each one's largest entry (prior_L and
+    prior_b 1e-3, info and grad 1e-4)."""
+    rel = {"prior_L": 1e-3, "prior_b": 1e-3, "info": 1e-4, "grad": 1e-4, **rel}
+    ref = np_tree(ref_state)
+    got = convert.dataclass_to_numpy(got_state)
+    assert bool(ref["prior_valid"])
+    # the square-root prior: Cholesky factors (unique) of matrices equal to
+    # ~1e-5 relative, so rows agree to ~1e-3 of the largest entry. The eigh
+    # path's rows are eigenvectors, fixed only up to sign and rotation within
+    # an eigenspace: there only the invariants below are compared.
+    for name in ("prior_L", "prior_b"):
+        r, v = ref.pop(name), got.pop(name)
+        if unique_sqrt:
+            np.testing.assert_allclose(v, r, rtol=1e-3, atol=rel[name] * _scale(r), err_msg=name)
+    # every other table is rolled, not recomputed: exact for integers and
+    # bools, the float tables within f32 rounding of the ingestion
+    assert_tree_matches(ref, got, atol=1e-5, rtol=1e-6)
+    # the prior's information, which the solver uses, and its gradient at
+    # the linearisation point
+    info_r = np.asarray(ref_state.prior_L.T @ ref_state.prior_L)
+    info = (got_state.prior_L.T @ got_state.prior_L).numpy()
+    np.testing.assert_allclose(info, info_r, rtol=1e-3, atol=rel["info"] * _scale(info_r), err_msg="info")
+    grad_r = np.asarray(ref_state.prior_L.T @ ref_state.prior_b)
+    grad = (got_state.prior_L.T @ got_state.prior_b).numpy()
+    np.testing.assert_allclose(grad, grad_r, rtol=1e-3, atol=rel["grad"] * _scale(grad_r), err_msg="grad")
+
+
+def xla_cholesky(monkeypatch):
+    """Make the port's torch.linalg.cholesky_ex factor with XLA's Cholesky
+    (through JAX on the CPU), so both sides pass or fail the same
+    factorisations: a system at the edge of f32 positive definiteness
+    passes one implementation and fails another."""
+    import jax.numpy as jnp
+
+    def cholesky_ex(a, *args, **kw):
+        L = np.asarray(jnp.linalg.cholesky(jnp.asarray(a.numpy())))
+        ok = bool(np.isfinite(L).all())
+        return torch.from_numpy(np.array(L)), torch.tensor(0 if ok else 1, dtype=torch.int32)
+
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", cholesky_ex)
+
+
+def fused_step_readings(cfg, n):
+    """The fused step of both packages over the first `n` frames of the
+    dense test scene -> (largest camera-pose entry difference, largest
+    object-motion entry difference over the motions valid on both sides,
+    motions compared, the port's final graph, the reference's). Object ids
+    and motion validity must be equal in every frame. The scene is
+    noise-free: RANSAC's outcome does not depend on the draws."""
+    import jax
+
+    from dynosam_tpu.dataproviders.synthetic_dense import default_dense_scenario as j_dense
+    from dynosam_tpu.parallel import batched as jbatched
+    from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario as t_dense
+    from dynosam_tpu_torch.parallel import batched as tbatched
+
+    jd, td = j_dense(num_frames=n), t_dense(num_frames=n, device="cpu")
+    jstep = jax.jit(jbatched.make_fused_step(cfg, jd.intr))
+    js = jbatched.init_pipeline_state(cfg)
+    tcfg = port_cfg(cfg)
+    tstep = tbatched.make_fused_step(tcfg, td.intr, torch.Generator().manual_seed(0))
+    ts = tbatched.init_pipeline_state(tcfg, "cpu")
+    pose_err, motion_err, n_motions = 0.0, 0.0, 0
+    for k in range(n):
+        js, jo = jstep(js, jd.frame(k))
+        ts, to = tstep(ts, td.frame(k))
+        assert ts.graph.num_frames == min(k + 1, cfg.backend.max_frames)
+        pose_err = max(pose_err, float(np.abs(to["X_world_cam"].numpy() - np.asarray(jo["X_world_cam"])).max()))
+        np.testing.assert_array_equal(to["object_ids"].numpy(), np.asarray(jo["object_ids"]))
+        v = np.asarray(jo["object_motion_valid"])
+        np.testing.assert_array_equal(to["object_motion_valid"].numpy(), v)
+        d = np.abs(to["object_motions"].numpy()[v] - np.asarray(jo["object_motions"])[v])
+        motion_err = max(motion_err, float(d.max(initial=0.0)))
+        n_motions += int(v.sum())
+    return pose_err, motion_err, n_motions, ts.graph, js.graph
