@@ -78,7 +78,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
      kitti_forms_ref_60f.npz as phase 9 holds hybrid. Every run: the fused
      K1 once per frame, the map entry never, host syncs counted with their
      sites;
-  11. print the kernel table (with each kernel's bound: the larger of its
+  11. batched path: make_batched_pipeline at bench_config() over B=1 and
+     B=8 sequences of one 27-frame bench scene, sequence b taking frames
+     b .. b+19 (20 frames, 10 window advances, each frame one program for
+     the whole batch); the fused K1 must launch once per frame at both B
+     (its blockIdx.z entry takes all B images) and the map entry never; each
+     sequence's camera poses held to the ground truth and poses + object
+     motions to dynosam_tpu_torch/testdata/bench_batched_ref_b8_20f.npz at
+     the bench path's bounds; the device operations per advancing frame
+     (torch.profiler over two frames) at B=8 at most 1.5x those at B=1;
+     aggregate and per-sequence frames/s and host syncs per frame; and on
+     the B=1 run's final window the landmark-chunked assembly
+     (parallel/sharded.py, P=4) held to hybrid.linearize;
+  12. print the kernel table (with each kernel's bound: the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates; launches per path under launches_by_path) and
      the contract line.
@@ -232,6 +244,20 @@ FORM_COV_REL = 0.1
 # pose 1.7e-5 / 1.6e-5 m, 1.3e-7 rad, motions max 5.5e-4 m, median 1.3e-5 /
 # 2.0e-5 m (wcme / wcpe). Bounds ~4x the largest reading, the poses' ~10x.
 FORM_KITTI_BOUNDS = {"pose_m": 2e-4, "pose_rad": 2e-6, "motion_max_m": 2e-3, "motion_median_m": 1e-4}
+# batched path: B=1 and B=8 sequences, 20 frames each, from one scene of
+# 20 + 8 - 1 frames; every sequence held at the bench path's bounds (GT_*,
+# REF_*) to the ground truth and to bench_batched_ref_b8_20f.npz (B=1 to
+# its sequence 0). One program per frame: device operations per advancing
+# frame at B=8 within BATCHED_OPS_RATIO of B=1's (a loop over sequences
+# would read ~8). The chunked assembly (P=CHUNK_P) against the unchunked
+# linearize: the largest entry difference of S and rhs within CHUNK_REL of
+# each one's largest entry, the port's linearize parity bound
+# (tests/test_torch_backend.py).
+BATCHED_FRAMES = 20
+BATCHED_SIZES = (1, 8)
+BATCHED_OPS_RATIO = 1.5
+CHUNK_P = 4
+CHUNK_REL = 1e-4
 
 
 def say(msg):
@@ -1113,6 +1139,143 @@ def run_forms_path(torch, seed, testdata, device="cuda"):
     return paths
 
 
+def _stack_inputs(torch, frames):
+    """One FrameInputs with a leading batch axis from per-sequence frames."""
+    import dataclasses
+
+    f0 = frames[0]
+    return dataclasses.replace(f0, **{k: torch.stack([getattr(f, k) for f in frames]).contiguous()
+                                      for k in f0.tensors()})
+
+
+def batched_readings(torch, seed, ref, B, device="cuda"):
+    """make_batched_pipeline at bench_config over B sequences -> (launches,
+    readings, final state, per-frame host seconds, host-sync sites, device
+    ops per advancing frame and the fused K1's device ms per launch on the
+    path, each None off the card)."""
+    from dynosam_tpu_torch.bench_config import bench_config, bench_scene
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.parallel.batched import make_batched_pipeline
+    from dynosam_tpu_torch.utils import lie
+
+    cfg, intr = bench_config()
+    scene = bench_scene(intr, BATCHED_FRAMES + max(BATCHED_SIZES) - 1, device=device)
+    frames = scene.frames()
+    stacked = [_stack_inputs(torch, frames[k:k + B]) for k in range(BATCHED_FRAMES)]
+    step, init = make_batched_pipeline(cfg, intr, torch.Generator(device=device).manual_seed(seed))
+    held = {"n": 0}
+
+    def after(state):
+        # the state before the last two frames, for their profiled replay
+        held["n"] += 1
+        if held["n"] == BATCHED_FRAMES - 2:
+            held["before_last2"] = state
+        held["last"] = state
+
+    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+    with SyncCounter(torch, device) as sync:
+        outs, times = _drive(torch, step, init(B, device), stacked, device, after=after)
+    launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
+    if device == "cuda" and (launches["K1"], launches["K1 map"]) != (BATCHED_FRAMES, 0):
+        raise AssertionError(f"batched B={B}: fused K1 launched {launches['K1']} times and the map "
+                             f"entry {launches['K1 map']} times over {BATCHED_FRAMES} frames")
+    # _drive's own per-frame synchronize() calls are not the program's
+    sites = {k: v for k, v in sync.sites.items() if not k.startswith("chip_smoke.py")}
+
+    rd = {"gt_m": 0.0, "gt_rad": 0.0, "ref_m": 0.0, "ref_rad": 0.0, "motion_m": 0.0, "n_motions": 0}
+    X_gt = scene.scn.X_gt
+    for b in range(B):
+        # sequence b starts at scene frame b: its world is that camera
+        gt = lie.mm(lie.inverse(X_gt[b]), X_gt[b:b + BATCHED_FRAMES])
+        seq = [{k: v[b] for k, v in o.items() if torch.is_tensor(v)} for o in outs]
+        rot, trans = rot_trans_err(torch, lie, torch.stack([o["X_world_cam"] for o in seq]), gt)
+        rd["gt_m"], rd["gt_rad"] = max(rd["gt_m"], float(trans.max())), max(rd["gt_rad"], float(rot.max()))
+        ref_b = {k: ref[k][:, b] for k in ("X_world_cam", "object_ids", "object_motions", "object_motion_valid")}
+        tr, rr, n_mot, mot = compare_to_reference(torch, lie, seq, ref_b, device, bounds=(float("inf"),) * 3)
+        rd["ref_m"], rd["ref_rad"] = max(rd["ref_m"], tr), max(rd["ref_rad"], rr)
+        rd["motion_m"], rd["n_motions"] = max(rd["motion_m"], mot), rd["n_motions"] + n_mot
+
+    # device operations per advancing frame: the last two frames again, from
+    # the state before them, under the profiler (not counted as launches)
+    ops = k1_ms = None
+    if device == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        state = held["before_last2"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for fr in stacked[-2:]:
+                state, _ = step(state, fr)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops = len(kernels) / 2
+        k1 = [e.time_range.elapsed_us() for e in kernels if "shi_tomasi_cell_kernel" in e.name]
+        k1_ms = statistics.mean(k1) / 1e3 if k1 else None
+    return launches, rd, held, times, sites, ops, k1_ms
+
+
+def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
+    """Phase 11: the batched step at B=1 and B=8, held to its bounds, and
+    the chunked assembly on the B=1 run's final window -> {path: launches}."""
+    import numpy as np
+
+    from dynosam_tpu_torch.backend import hybrid
+    from dynosam_tpu_torch.bench_config import bench_config
+    from dynosam_tpu_torch.parallel import sharded
+    from dynosam_tpu_torch.parallel.batched import _map_tensors
+
+    ref = np.load(ref_path)
+    paths, ops, lines, finals = {}, {}, [], {}
+    for B in BATCHED_SIZES:
+        launches, rd, held, times, sites, ops[B], k1_ms = batched_readings(torch, seed, ref, B, device)
+        checks = {"gt_m": GT_TRANS_M, "gt_rad": GT_ROT_RAD, "ref_m": REF_TRANS_M, "ref_rad": REF_ROT_RAD,
+                  "motion_m": REF_MOTION_TRANS_M}
+        over = {k: (rd[k], v) for k, v in checks.items() if not rd[k] <= v}
+        if over:
+            raise AssertionError(f"batched B={B}: readings over their bounds (reading, bound): {over}")
+        steady = statistics.median(times[10:])
+        n_sync = sum(sites.values())
+        lines.append(
+            f"B={B}: fused K1 launches {launches['K1']}, map entry {launches['K1 map']}; camera vs GT "
+            f"max {rd['gt_m']:.2e} m / {rd['gt_rad']:.2e} rad; vs JAX ref max {rd['ref_m']:.2e} m / "
+            f"{rd['ref_rad']:.2e} rad; {rd['n_motions']} object motions vs JAX ref max "
+            f"{rd['motion_m']:.2e} m; first frame {times[0] * 1e3:.1f} ms, median frames 2-10 "
+            f"{statistics.median(times[1:10]) * 1e3:.2f} ms, median advancing frames 11-"
+            f"{BATCHED_FRAMES} {steady * 1e3:.2f} ms = {B / steady:.2f} frames/s aggregate, "
+            f"{1 / steady:.2f} per sequence; device ops per advancing frame "
+            f"{ops[B] if ops[B] is not None else 'n/a'}, the fused K1 (blockIdx.z over {B}) "
+            f"{f'{k1_ms:.4f}' if k1_ms is not None else 'n/a'} ms of device time per launch there; "
+            f"host syncs {n_sync / BATCHED_FRAMES:.1f}/frame "
+            f"(sites: {', '.join(f'{k} x{v}' for k, v in sorted(sites.items(), key=lambda kv: -kv[1])) or 'none'})")
+        paths[f"batched_b{B}"] = launches
+        finals[B] = held["last"]
+    ratio = None
+    if ops[1] is not None:
+        ratio = ops[8] / ops[1]
+        if not ratio <= BATCHED_OPS_RATIO:
+            raise AssertionError(f"batched: {ops[8]} device ops per advancing frame at B=8 against "
+                                 f"{ops[1]} at B=1 (ratio {ratio:.3f} > {BATCHED_OPS_RATIO})")
+
+    # the chunked assembly on the B=1 run's final window
+    cfg, _ = bench_config()
+    g = _map_tensors(lambda x: x[0], finals[1].graph)
+    lam = torch.tensor(1e-4, device=device)
+    S_c, rhs_c = sharded.chunked_linearize(g, cfg.backend, lam, CHUNK_P)
+    whole = hybrid.linearize(g, cfg.backend, lam)
+    rel = {name: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for name, a, b in (("S", S_c, whole.S), ("rhs", rhs_c, whole.rhs))}
+    if not max(rel.values()) <= CHUNK_REL:
+        raise AssertionError(f"chunked_linearize (P={CHUNK_P}) vs linearize: relative {rel} > {CHUNK_REL}")
+    say(f"batched path: make_batched_pipeline at bench_config, {BATCHED_FRAMES} frames per sequence "
+        f"(window of 10 advanced {BATCHED_FRAMES - 10} times), sequence b on scene frames b..b+"
+        f"{BATCHED_FRAMES - 1}, on {device} ({smi}); " + "; ".join(lines)
+        + f"; device ops per advancing frame B=8 / B=1 = "
+        + (f"{ratio:.3f}" if ratio is not None else "n/a") + f" (bound {BATCHED_OPS_RATIO}); "
+        f"chunked_linearize P={CHUNK_P} vs linearize on the B=1 final window: S {rel['S']:.2e}, rhs "
+        f"{rel['rhs']:.2e} of the largest entry (bound {CHUNK_REL})")
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the RANSAC and test-input generators")
@@ -1152,7 +1315,7 @@ def main():
     k1 = check_k1(torch, args.seed)
     k2 = check_k2(torch, args.seed)
 
-    # ---- 5-10. the main paths, counts zeroed just before each ----------------
+    # ---- 5-11. the main paths, counts zeroed just before each ----------------
     bench_launches = run_bench_path(torch, args.seed, os.path.join(testdata, "bench_ref_20f.npz"))
     klt_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "bench_klt_ref_20f.npz"))
     stereo_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "stereo_imu_ref_12f.npz"),
@@ -1161,10 +1324,12 @@ def main():
     pipe_launches, _ = run_pipeline_path(torch, args.seed, os.path.join(testdata, "kitti_ref_60f.npz"),
                                          smi=smi)
     forms_launches = run_forms_path(torch, args.seed, testdata)
+    batched_launches = run_batched_path(torch, args.seed, os.path.join(testdata, "bench_batched_ref_b8_20f.npz"),
+                                        smi=smi)
 
-    # ---- 11. results ------------------------------------------------------------
+    # ---- 12. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "klt": klt_launches, "stereo_imu": stereo_launches,
-             "detector": det_launches, "pipeline": pipe_launches, **forms_launches}
+             "detector": det_launches, "pipeline": pipe_launches, **forms_launches, **batched_launches}
 
     def row(name, kid, source, replaces, check, **extra):
         by_path = {p: launches.get(kid, 0) for p, launches in paths.items()}
@@ -1181,7 +1346,9 @@ def main():
             "dynosam_tpu/ops/pallas/shi_tomasi.py:31", k1,
             map_launches_by_path={p: launches.get("K1 map", 0) for p, launches in paths.items()},
             map_route_ms=k1["map_route_ms"], call_ms=k1["call_ms"], best_bitwise=k1["best_bitwise"],
-            near_tie_cells=k1["near_tie_cells"], batched_b8=k1["b8"]),
+            near_tie_cells=k1["near_tie_cells"], batched_b8=k1["b8"],
+            # the batched paths launch the kernel's blockIdx.z entry, K1b's port
+            batched_entry_replaces="dynosam_tpu/ops/pallas/shi_tomasi.py:87"),
         row("mask_combine", "K2", "dynosam_tpu_torch/csrc/mask_combine.cu",
             "dynosam_tpu/ops/pallas/mask_combine.py:23", k2, call_ms=k2["call_ms"]),
     ]}), flush=True)

@@ -9,6 +9,11 @@ it on the host turns every per-slot update into a static slice.
 
 Scatters that the reference drops for out-of-range indices write into an
 extra dump row here, which is sliced off.
+
+Every table may carry a leading batch axis of sequences (the batched step,
+parallel/batched.py): X (B, F, 4, 4) and so on, with one host `num_frames`
+for the batch, whose sequences step in lockstep. The hybrid ingestion
+(`update_from_packet_hybrid` over `update_from_packet`) takes it.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 
 from dynosam_tpu_torch.config import BackendParams
 from dynosam_tpu_torch.cv import camera as cam
-from dynosam_tpu_torch.frontend.types import VisionPacket, first_true
+from dynosam_tpu_torch.frontend.types import VisionPacket, first_true, rows
 from dynosam_tpu_torch.utils import lie
 
 
@@ -63,19 +68,24 @@ class GraphState:
 
     @property
     def F(self):
-        return self.X.shape[0]
+        return self.X.shape[-3]
 
     @property
     def J(self):
-        return self.H.shape[0]
+        return self.H.shape[-4]
 
     @property
     def Ls(self):
-        return self.ms.shape[0]
+        return self.ms.shape[-2]
 
     @property
     def Ld(self):
-        return self.md.shape[0]
+        return self.md.shape[-3]
+
+    @property
+    def batch_shape(self):
+        """() for one sequence, (B,) for a batch of them."""
+        return self.X.shape[:-3]
 
     @property
     def D(self):
@@ -137,33 +147,36 @@ def _match_or_allocate_objects(obj_ids, packet_obj_ids, packet_obj_valid,
                                slot_open=None):
     """Map packet object ids onto graph object slots, allocating free slots
     in order. Returns (new_obj_ids (J,), packet_slot (Jp,) int32). Closed
-    slots (slot_open False) never match."""
-    J = obj_ids.shape[0]
+    slots (slot_open False) never match. Over the last axis: (B, J) slots
+    with (B, Jp) packets map each sequence on its own."""
+    J = obj_ids.shape[-1]
+    nb = obj_ids.ndim - 1
     dev = obj_ids.device
     present = packet_obj_valid & (packet_obj_ids > 0)
-    eq = obj_ids[:, None] == packet_obj_ids[None, :]          # (J, Jp)
+    eq = obj_ids[..., :, None] == packet_obj_ids[..., None, :]          # (J, Jp)
     if slot_open is not None:
-        eq = eq & slot_open[:, None]
-    has_match = torch.any(eq & present[None, :], dim=0)
-    match_slot = first_true(eq, 0)
+        eq = eq & slot_open[..., :, None]
+    has_match = torch.any(eq & present[..., None, :], dim=-2)
+    match_slot = first_true(eq, -2)
 
     free = obj_ids < 0
-    free_rank = torch.cumsum(free, 0) - 1
+    free_rank = torch.cumsum(free, -1) - 1
     need = present & ~has_match
-    need_rank = torch.cumsum(need, 0) - 1
+    need_rank = torch.cumsum(need, -1) - 1
     slot_idx = torch.arange(J, device=dev)
     # free_slot_by_rank[r] = index of the r-th free slot; row J is the dump
-    free_slot_by_rank = torch.full((J + 1,), -1, dtype=torch.int64, device=dev)
-    free_slot_by_rank[torch.where(free, free_rank, J)] = slot_idx
-    alloc_slot = free_slot_by_rank[:J][torch.clamp(need_rank, 0, J - 1)]
+    free_slot_by_rank = torch.full(obj_ids.shape[:-1] + (J + 1,), -1, dtype=torch.int64, device=dev)
+    free_slot_by_rank[rows(torch.where(free, free_rank, J), nb)] = slot_idx
+    need_rank = torch.clamp(need_rank, 0, J - 1)
+    alloc_slot = free_slot_by_rank[..., :J][rows(need_rank, nb)]
     alloc_ok = need & (alloc_slot >= 0)
 
     packet_slot = torch.where(has_match, match_slot, torch.where(alloc_ok, alloc_slot, -1))
     packet_slot = torch.where(present, packet_slot, -1)
 
-    new_obj_ids = torch.cat([obj_ids, obj_ids.new_zeros(1)])
-    new_obj_ids[torch.where(alloc_ok, alloc_slot, J)] = packet_obj_ids
-    return new_obj_ids[:J], packet_slot.to(torch.int32)
+    new_obj_ids = torch.cat([obj_ids, obj_ids.new_zeros(obj_ids.shape[:-1] + (1,))], dim=-1)
+    new_obj_ids[rows(torch.where(alloc_ok, alloc_slot, J), nb)] = packet_obj_ids
+    return new_obj_ids[..., :J], packet_slot.to(torch.int32)
 
 
 def _measurement_sigma(depth, base_sigma, pixel_sigma, intr, cfg):
@@ -180,10 +193,11 @@ def _measurement_sigma(depth, base_sigma, pixel_sigma, intr, cfg):
     return torch.stack([lat, lat, rng], dim=-1)
 
 
-def _set_row(t, index, value):
-    """Copy of `t` with t[index] = value (the reference's .at[].set)."""
+def _set_row(t, index, value, nb=0):
+    """Copy of `t` with t[index] = value (the reference's .at[].set), the
+    index taken after `nb` leading batch axes."""
     out = t.clone()
-    out[index] = value
+    out[(slice(None),) * nb + (index,)] = value
     return out
 
 
@@ -201,17 +215,18 @@ def update_from_packet(
     dtype = state.X.dtype
     dev = state.X.device
     J = state.J
+    nb = len(state.batch_shape)
 
     # ---- frame & pose initialisation -----------------------------------
     if f > 0:
-        X_init = lie.compose(state.X[f - 1], packet.odom_prev_curr)
+        X_init = lie.compose(state.X[..., f - 1, :, :], packet.odom_prev_curr)
     else:
         X_init = packet.X_world_cam
     X_init = X_init.to(dtype)
-    X = _set_row(state.X, f, X_init)
-    frame_ids = _set_row(state.frame_ids, f, packet.frame_id)
-    odom = _set_row(state.odom, f, packet.odom_prev_curr.to(dtype))
-    odom_valid = _set_row(state.odom_valid, f, packet.pose_valid & (f > 0))
+    X = _set_row(state.X, f, X_init, nb)
+    frame_ids = _set_row(state.frame_ids, f, packet.frame_id, nb)
+    odom = _set_row(state.odom, f, packet.odom_prev_curr.to(dtype), nb)
+    odom_valid = _set_row(state.odom_valid, f, packet.pose_valid & (f > 0), nb)
     X0_prior = packet.X_world_cam.to(dtype) if f == 0 else state.X0_prior
 
     # ---- static landmarks ------------------------------------------------
@@ -219,20 +234,21 @@ def update_from_packet(
     obs_valid = st.valid & (st.depth > 0)
     z_local = cam.backproject(st.uv, st.depth, intr).to(dtype)
     changed = st.tracklet_id != state.s_tid
-    s_valid = torch.where(changed[None, :], False, state.s_valid)
+    s_valid = torch.where(changed[..., None, :], False, state.s_valid)
     s_tid = torch.where(obs_valid, st.tracklet_id, state.s_tid)
-    s_valid[f] = obs_valid
-    s_z = _set_row(state.s_z, f, z_local)
+    s_valid[..., f, :] = obs_valid
+    s_z = _set_row(state.s_z, f, z_local, nb)
     s_sig = _set_row(
         state.s_sig, f,
         _measurement_sigma(
             st.depth, cfg.noise.static_point_noise_sigma,
             cfg.noise.static_pixel_noise_sigma, intr, cfg,
         ),
+        nb,
     )
-    z_world = lie.transform_points(X_init, z_local)
-    first_obs = obs_valid & (changed | ~torch.any(state.s_valid, dim=0))
-    ms = torch.where(first_obs[:, None], z_world, state.ms)
+    z_world = lie.transform_points(X_init[..., None, :, :], z_local)
+    first_obs = obs_valid & (changed | ~torch.any(state.s_valid, dim=-2))
+    ms = torch.where(first_obs[..., None], z_world, state.ms)
 
     # ---- objects ----------------------------------------------------------
     obj_ids, packet_slot = _match_or_allocate_objects(
@@ -244,47 +260,47 @@ def update_from_packet(
         H_pkt = eye4.expand(packet.object_motions.shape)
     else:
         H_pkt = packet.object_motions.to(dtype)
-    H_new_col = eye4.expand(J + 1, 4, 4).clone()
+    H_new_col = eye4.expand(state.batch_shape + (J + 1, 4, 4)).clone()
     ok = packet_slot >= 0
-    H_new_col[torch.where(ok, packet_slot.long(), J)] = H_pkt
+    H_new_col[rows(torch.where(ok, packet_slot.long(), J), nb)] = H_pkt
     H = state.H.clone()
-    H[:, f] = H_new_col[:J]
+    H[..., f, :, :] = H_new_col[..., :J, :, :]
 
     # ---- dynamic landmarks -----------------------------------------------
     dt = packet.dynamic_tracks
     d_obs_valid = dt.valid & (dt.depth > 0) & (dt.object_id > 0)
     zd_local = cam.backproject(dt.uv, dt.depth, intr).to(dtype)
     d_changed = dt.tracklet_id != state.d_tid
-    d_valid = torch.where(d_changed[:, None], False, state.d_valid)
+    d_valid = torch.where(d_changed[..., None], False, state.d_valid)
     d_tid = torch.where(d_obs_valid, dt.tracklet_id, state.d_tid)
-    d_valid[:, f] = d_obs_valid
+    d_valid[..., f] = d_obs_valid
     d_z = state.d_z.clone()
-    d_z[:, f] = zd_local
+    d_z[..., f, :] = zd_local
     d_sig = state.d_sig.clone()
-    d_sig[:, f] = _measurement_sigma(
+    d_sig[..., f, :] = _measurement_sigma(
         dt.depth, cfg.noise.dynamic_point_noise_sigma,
         cfg.noise.dynamic_pixel_noise_sigma, intr, cfg,
     )
     # object slot per tracklet, over open slots only
-    eq = (dt.object_id[:, None] == obj_ids[None, :]) & state.slot_open[None, :]
-    d_slot_new = torch.where(torch.any(eq, dim=1), first_true(eq, 1), -1)
+    eq = (dt.object_id[..., :, None] == obj_ids[..., None, :]) & state.slot_open[..., None, :]
+    d_slot_new = torch.where(torch.any(eq, dim=-1), first_true(eq, -1), -1)
     d_obj = torch.where(
         d_obs_valid, d_slot_new, torch.where(d_changed, -1, state.d_obj)
     ).to(torch.int32)
-    zd_world = lie.transform_points(X_init, zd_local)
+    zd_world = lie.transform_points(X_init[..., None, :, :], zd_local)
     md = state.md.clone()
-    md[:, f] = zd_world
+    md[..., f, :] = zd_world
 
     # H_{j,f} exists if object j has enough tracklets observed at f-1 and f
     H_valid = state.H_valid.clone()
     if f > 0:
-        obs_pair = d_valid[:, f - 1] & d_valid[:, f]
-        per_obj = (d_obj[:, None] == torch.arange(J, device=dev)[None, :]) & obs_pair[:, None]
-        pair_per_obj = torch.sum(per_obj, dim=0)
+        obs_pair = d_valid[..., f - 1] & d_valid[..., f]
+        per_obj = (d_obj[..., :, None] == torch.arange(J, device=dev)) & obs_pair[..., None]
+        pair_per_obj = torch.sum(per_obj, dim=-2)
         min_pairs = max(cfg.min_dynamic_observations, 1)
-        H_valid[:, f] = (pair_per_obj >= min_pairs) & (obj_ids >= 0)
+        H_valid[..., f] = (pair_per_obj >= min_pairs) & (obj_ids >= 0)
     else:
-        H_valid[:, f] = False
+        H_valid[..., f] = False
 
     return dataclasses.replace(
         state,
@@ -320,20 +336,21 @@ def update_from_packet_hybrid(
     f = state.num_frames
     fprev = max(f - 1, 0)
     dev = state.X.device
+    nb = len(state.batch_shape)
     pkt_present = packet.object_valid & (packet.object_ids > 0)
     neg2 = torch.full_like(packet.object_ids, -2)
     id_in_pkt = torch.any(
-        state.obj_ids[:, None] == torch.where(pkt_present, packet.object_ids, neg2)[None, :],
-        dim=1,
+        state.obj_ids[..., :, None] == torch.where(pkt_present, packet.object_ids, neg2)[..., None, :],
+        dim=-1,
     )
-    can_chain = state.H_valid[:, fprev] | (state.kf_slot == fprev)
+    can_chain = state.H_valid[..., fprev] | (state.kf_slot == fprev)
     live = (state.obj_ids > 0) & state.slot_open & state.kf_valid
     broken = live & ~can_chain & id_in_pkt
     if cfg.reanchor_on_resample:
         pkt_res = pkt_present & packet.object_resampled
         res_hit = torch.any(
-            state.obj_ids[:, None] == torch.where(pkt_res, packet.object_ids, neg2)[None, :],
-            dim=1,
+            state.obj_ids[..., :, None] == torch.where(pkt_res, packet.object_ids, neg2)[..., None, :],
+            dim=-1,
         )
         epoch_young = (state.kf_slot >= 0) & (f - state.kf_slot < cfg.reanchor_min_epoch_len)
         broken = broken | (live & res_hit & ~epoch_young)
@@ -351,62 +368,62 @@ def update_from_packet_hybrid(
 
     # ---- world points of this frame's dynamic observations ---------------
     dt = packet.dynamic_tracks
-    d_obs_valid = base.d_valid[:, f]
+    d_obs_valid = base.d_valid[..., f]
     zd_local = cam.backproject(dt.uv, dt.depth, intr).to(dtype)
-    zd_world = lie.transform_points(base.X[f], zd_local)
+    zd_world = lie.transform_points(base.X[..., f, None, :, :], zd_local)
 
     onehot = (
-        (base.d_obj[:, None] == torch.arange(J, device=dev)[None, :]) & d_obs_valid[:, None]
+        (base.d_obj[..., :, None] == torch.arange(J, device=dev)) & d_obs_valid[..., :, None]
     ).to(dtype)                                              # (Ld, J)
-    counts = torch.sum(onehot, dim=0)
-    centroid = lie.einsum("lj,lc->jc", onehot, zd_world) / torch.clamp(counts[:, None], min=1.0)
+    counts = torch.sum(onehot, dim=-2)
+    centroid = lie.einsum("...lj,...lc->...jc", onehot, zd_world) / torch.clamp(counts[..., None], min=1.0)
 
     # ---- anchor new objects ----------------------------------------------
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye4 = torch.eye(4, dtype=dtype, device=dev)
     L_e_new = lie.make_pose(eye3, centroid)
     anchor = newly & (counts > 0)
-    L_e = torch.where(anchor[:, None, None], L_e_new, state.L_e)
+    L_e = torch.where(anchor[..., None, None], L_e_new, state.L_e)
     kf_valid = state.kf_valid | anchor
     kf_slot = torch.where(anchor, f, state.kf_slot).to(torch.int32)
 
     # ---- keyframed motion init --------------------------------------------
     pkt_ok = packet.object_valid & (packet.object_ids > 0)
-    eq = (base.obj_ids[:, None] == packet.object_ids[None, :]) & pkt_ok[None, :]
-    hit = torch.any(eq, dim=1)
-    idx = first_true(eq, 1)
+    eq = (base.obj_ids[..., :, None] == packet.object_ids[..., None, :]) & pkt_ok[..., None, :]
+    hit = torch.any(eq, dim=-1)
+    idx = first_true(eq, -1)
     H_f2f = torch.where(
-        (hit & existed)[:, None, None], packet.object_motions[idx].to(dtype), eye4
+        (hit & existed)[..., None, None], packet.object_motions[rows(idx, nb)].to(dtype), eye4
     )
     if f > 0:
         H_init = torch.where(
-            existed[:, None, None], lie.compose(H_f2f, base.H[:, f - 1]), eye4
+            existed[..., None, None], lie.compose(H_f2f, base.H[..., f - 1, :, :]), eye4
         )
     else:
-        H_init = eye4.expand(J, 4, 4)
+        H_init = eye4.expand(state.batch_shape + (J, 4, 4))
     H = base.H.clone()
-    H[:, f] = H_init
+    H[..., f, :, :] = H_init
 
     # H variable exists where the object has enough obs this frame and this
     # frame is not its keyframe (H_{e,e} = I is a constant)
     min_obs = max(cfg.min_dynamic_observations, 1)
     H_valid = base.H_valid.clone()
-    H_valid[:, f] = (counts >= min_obs) & (base.obj_ids > 0) & kf_valid & (kf_slot != f)
+    H_valid[..., f] = (counts >= min_obs) & (base.obj_ids > 0) & kf_valid & (kf_slot != f)
 
     # ---- object-frame point init for first observations -------------------
     slot_switched = d_obs_valid & (base.d_obj != state.d_obj) & (state.d_obj >= 0)
     first_obs = slot_switched | (
         d_obs_valid
-        & ((dt.tracklet_id != state.d_tid) | ~torch.any(state.d_valid, dim=1))
+        & ((dt.tracklet_id != state.d_tid) | ~torch.any(state.d_valid, dim=-1))
     )
-    Hj = lie.einsum("lj,jab->lab", onehot, H_init)
-    Lj = lie.einsum("lj,jab->lab", onehot, L_e)
-    assigned = torch.sum(onehot, dim=1) > 0.5
-    Hj = torch.where(assigned[:, None, None], Hj, eye4)
-    Lj = torch.where(assigned[:, None, None], Lj, eye4)
+    Hj = lie.einsum("...lj,...jab->...lab", onehot, H_init)
+    Lj = lie.einsum("...lj,...jab->...lab", onehot, L_e)
+    assigned = torch.sum(onehot, dim=-1) > 0.5
+    Hj = torch.where(assigned[..., None, None], Hj, eye4)
+    Lj = torch.where(assigned[..., None, None], Lj, eye4)
     m_e_world = lie.transform_points(lie.inverse(Hj), zd_world)
     m_L_init = lie.transform_points(lie.inverse(Lj), m_e_world)
-    m_hyb = torch.where((first_obs & assigned)[:, None], m_L_init, state.m_hyb)
+    m_hyb = torch.where((first_obs & assigned)[..., None], m_L_init, state.m_hyb)
 
     return dataclasses.replace(
         base,

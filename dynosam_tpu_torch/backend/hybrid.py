@@ -9,6 +9,11 @@ Points are eliminated by per-tracklet 3x3 Schur complements, leaving a dense
 (camera + motion) system of size D = 6F + 6JF solved by Cholesky.
 
 F2F motions for output: H_f2f(k) = H_{e,k} H_{e,k-1}^{-1}.
+
+`linearize`, `total_error` and `optimize_decoupled` also take a GraphState
+with a leading batch axis of sequences (the batched step): every operation
+runs once for the batch, and the LM's damping, errors and accept/reject are
+per sequence.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from dynosam_tpu_torch.backend import factors
 from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.backend.solver import (
     _EPS_REG,
+    _per_seq,
+    _sum_per_seq,
     _block_diag_embed,
     _clip_step,
     _eye_k,
@@ -64,7 +71,7 @@ class _HybridLin(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def _assigned(onehot):
-    return torch.sum(onehot, dim=1) > 0.5
+    return torch.sum(onehot, dim=-1) > 0.5
 
 
 def _hybrid_obs_terms(state: GraphState, onehot):
@@ -72,37 +79,37 @@ def _hybrid_obs_terms(state: GraphState, onehot):
     q (Ld,3) world point at the keyframe, RH (Ld,F,3,3))."""
     eye4 = torch.eye(4, dtype=state.X.dtype, device=state.X.device)
     assigned = _assigned(onehot)
-    Lj = lie.einsum("lj,jab->lab", onehot, state.L_e)
-    Lj = torch.where(assigned[:, None, None], Lj, eye4)
+    Lj = lie.einsum("...lj,...jab->...lab", onehot, state.L_e)
+    Lj = torch.where(assigned[..., None, None], Lj, eye4)
     q = lie.transform_points(Lj, state.m_hyb)
-    Hj = lie.einsum("lj,jfab->lfab", onehot, state.H)
-    Hj = torch.where(assigned[:, None, None, None], Hj, eye4)
-    m_w = lie.transform_points(Hj, q[:, None, :])
+    Hj = lie.einsum("...lj,...jfab->...lfab", onehot, state.H)
+    Hj = torch.where(assigned[..., None, None, None], Hj, eye4)
+    m_w = lie.transform_points(Hj, q[..., :, None, :])
     Xinv = lie.inverse(state.X)
-    y = lie.transform_points(Xinv[None], m_w)
+    y = lie.transform_points(Xinv[..., None, :, :, :], m_w)
     r = y - state.d_z
     return r, y, q, lie.rotation(Hj)
 
 
 def _kf_match(state: GraphState, onehot):
     """(Ld, F) — frame f is the keyframe slot of the tracklet's object."""
-    kf = lie.einsum("lj,j->l", onehot, state.kf_slot.to(onehot.dtype))
+    kf = lie.einsum("...lj,...j->...l", onehot, state.kf_slot.to(onehot.dtype))
     f = torch.arange(state.F, device=onehot.device)
-    return f[None, :] == kf.to(torch.int32)[:, None]
+    return f == kf.to(torch.int32)[..., :, None]
 
 
 def _h_is_variable(state: GraphState, onehot):
     """(Ld, F) — the motion at (tracklet's object, f) is a free variable."""
-    Hv = lie.einsum("lj,jf->lf", onehot, state.H_valid.to(onehot.dtype)) > 0.5
+    Hv = lie.einsum("...lj,...jf->...lf", onehot, state.H_valid.to(onehot.dtype)) > 0.5
     return Hv & ~_kf_match(state, onehot)
 
 
 def _obs_mask(state: GraphState, onehot):
-    kf_ok = lie.einsum("lj,j->l", onehot, state.kf_valid.to(onehot.dtype)) > 0.5
-    in_window = torch.arange(state.F, device=onehot.device)[None, :] < state.num_frames
+    kf_ok = lie.einsum("...lj,...j->...l", onehot, state.kf_valid.to(onehot.dtype)) > 0.5
+    in_window = torch.arange(state.F, device=onehot.device) < state.num_frames
     # the motion at (j, f) must be a free variable or the keyframe identity
     h_ok = _h_is_variable(state, onehot) | _kf_match(state, onehot)
-    return state.d_valid & _assigned(onehot)[:, None] & kf_ok[:, None] & in_window & h_ok
+    return state.d_valid & _assigned(onehot)[..., :, None] & kf_ok[..., :, None] & in_window & h_ok
 
 
 def _smooth_triple_mask(state: GraphState, cfg: BackendParams):
@@ -110,16 +117,16 @@ def _smooth_triple_mask(state: GraphState, cfg: BackendParams):
     Hv = state.H_valid
     if not cfg.use_smoothing_factor:
         return torch.zeros_like(Hv)
-    f = torch.arange(state.F, device=Hv.device)[None, :]
-    kf = state.kf_slot[:, None]
+    f = torch.arange(state.F, device=Hv.device)
+    kf = state.kf_slot[..., :, None]
     # the keyframe-slot equality must exclude departed keyframes (-1)
     exists_prev2 = (
-        torch.cat([torch.zeros_like(Hv[:, :2]), Hv[:, :-2]], dim=1)
+        torch.cat([torch.zeros_like(Hv[..., :2]), Hv[..., :-2]], dim=-1)
         | ((kf == f - 2) & (kf >= 0))
         | ((kf < 0) & (f >= 2))
     )
-    valid_prev = torch.cat([torch.zeros_like(Hv[:, :1]), Hv[:, :-1]], dim=1)
-    return Hv & valid_prev & exists_prev2 & state.kf_valid[:, None]
+    valid_prev = torch.cat([torch.zeros_like(Hv[..., :1]), Hv[..., :-1]], dim=-1)
+    return Hv & valid_prev & exists_prev2 & state.kf_valid[..., :, None]
 
 
 def _smooth_triple_terms(state: GraphState):
@@ -127,8 +134,8 @@ def _smooth_triple_terms(state: GraphState):
     its right-perturbation Jacobians J_A = Jl^{-1}(r) Ad(A),
     J_C = Jr^{-1}(r) Ad(B), J_B = -(J_A + J_C)."""
     H = state.H
-    A = torch.roll(H, 2, dims=1)
-    B = torch.roll(H, 1, dims=1)
+    A = torch.roll(H, 2, dims=-3)
+    B = torch.roll(H, 1, dims=-3)
     Binv = lie.inverse(B)
     M = lie.mm(lie.mm(lie.mm(A, Binv), H), Binv)
     r = lie.se3_log(M)
@@ -140,7 +147,7 @@ def _smooth_triple_terms(state: GraphState):
 
 
 def _odom_terms(state: GraphState):
-    X_prev = torch.cat([state.X[:1], state.X[:-1]], dim=0)
+    X_prev = torch.cat([state.X[..., :1, :, :], state.X[..., :-1, :, :]], dim=-3)
     r_o = factors.between_residual(X_prev, state.X, state.odom)
     return X_prev, r_o
 
@@ -149,6 +156,7 @@ def total_error(state: GraphState, cfg: BackendParams, dynamic_scale: float = 1.
     """Graph error. dynamic_scale=0.0 gives the static-only objective of the
     decoupled camera phase."""
     dtype, dev = state.X.dtype, state.X.device
+    nb = len(state.batch_shape)
     sig = _sigmas(cfg, dtype, dev)
     k = cfg.noise.robust_k_huber
     use_rob = cfg.noise.use_robust_kernel
@@ -160,31 +168,31 @@ def total_error(state: GraphState, cfg: BackendParams, dynamic_scale: float = 1.
     r_s, _ = _static_residuals(state)
     gate = _static_gate(state, cfg)
     e = torch.linalg.norm(r_s, dim=-1) / sig["static_pt"]
-    err = torch.sum(torch.where(state.s_valid & gate[None, :], rho(e), 0.0))
+    err = _sum_per_seq(torch.where(state.s_valid & gate[..., None, :], rho(e), 0.0), nb)
 
     if dynamic_scale:
         r_h, _, _, _ = _hybrid_obs_terms(state, onehot)
         mask = _obs_mask(state, onehot)
         e = torch.linalg.norm(r_h / state.d_sig, dim=-1)
-        err = err + dynamic_scale * torch.sum(torch.where(mask, rho(e), 0.0))
+        err = err + dynamic_scale * _sum_per_seq(torch.where(mask, rho(e), 0.0), nb)
 
         r_sm, _, _, _ = _smooth_triple_terms(state)
         sm_mask = _smooth_triple_mask(state, cfg)
-        err = err + dynamic_scale * torch.sum(
-            torch.where(sm_mask[..., None], 0.5 * (r_sm / sig["smooth"]) ** 2, 0.0)
+        err = err + dynamic_scale * _sum_per_seq(
+            torch.where(sm_mask[..., None], 0.5 * (r_sm / sig["smooth"]) ** 2, 0.0), nb
         )
 
     if cfg.use_vo_factor:
         _, r_o = _odom_terms(state)
         r_o = r_o / sig["odom"]
-        err = err + torch.sum(torch.where(_odom_mask(state)[:, None], 0.5 * r_o * r_o, 0.0))
+        err = err + _sum_per_seq(torch.where(_odom_mask(state)[..., None], 0.5 * r_o * r_o, 0.0), nb)
 
     gauge_on = (~state.prior_valid).to(dtype)
-    r_p = factors.prior_residual(state.X[0], state.X0_prior) / sig["prior0"]
-    err = err + gauge_on * torch.sum(0.5 * r_p * r_p)
+    r_p = factors.prior_residual(state.X[..., 0, :, :], state.X0_prior) / sig["prior0"]
+    err = err + gauge_on * _sum_per_seq(0.5 * r_p * r_p, nb)
 
-    r_mp = state.prior_b + state.prior_L @ _prior_dx(state)
-    err = err + torch.where(state.prior_valid, torch.sum(0.5 * r_mp * r_mp), 0.0)
+    r_mp = state.prior_b + lie.mv(state.prior_L, _prior_dx(state))
+    err = err + torch.where(state.prior_valid, _sum_per_seq(0.5 * r_mp * r_mp, nb), 0.0)
     return err
 
 
@@ -192,23 +200,30 @@ def total_error(state: GraphState, cfg: BackendParams, dynamic_scale: float = 1.
 # Linearisation
 # ---------------------------------------------------------------------------
 
-def linearize(state: GraphState, cfg: BackendParams, lam, dynamic_scale: float = 1.0):
-    """Reduced (camera + motion) normal equations, damped by `lam`.
+def linearize(state: GraphState, cfg: BackendParams, lam, dynamic_scale: float = 1.0,
+              fixed_scale: float = 1.0, final_reg: bool = True):
+    """Reduced (camera + motion) normal equations, damped by `lam` (a float,
+    a 0-dim tensor or, over a batch of sequences, a (B,) tensor).
 
     `dynamic_scale` (a Python float) scales every dynamic-observation and
     smoothing weight; 0.0 gives the static-only system of the decoupled
-    camera phase and skips the dynamic terms entirely."""
+    camera phase and skips the dynamic terms entirely. `fixed_scale` scales
+    the non-landmark terms (smoothing, odometry, gauge, marginal prior) and
+    `final_reg=False` leaves out the diagonal regularisation, which is not
+    linear in a sum: the landmark-chunked assembly (parallel/sharded.py)
+    adds 1/P of the former per chunk and applies the latter to the sum."""
     F, J, Ld = state.F, state.J, state.Ld
     D = state.D
     n = 6 * F
+    lead = state.batch_shape
     dtype, dev = state.X.dtype, state.X.device
     sig = _sigmas(cfg, dtype, dev)
     k_rob = cfg.noise.robust_k_huber
     use_rob = cfg.noise.use_robust_kernel
     onehot = _object_onehot(state, dtype)
 
-    S = torch.zeros((D, D), dtype=dtype, device=dev)
-    rhs = torch.zeros((D,), dtype=dtype, device=dev)
+    S = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    rhs = torch.zeros(lead + (D,), dtype=dtype, device=dev)
     R = lie.rotation(state.X)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
@@ -216,13 +231,14 @@ def linearize(state: GraphState, cfg: BackendParams, lam, dynamic_scale: float =
     Hpp_inv_s, g_s, A_s = _static_terms(state, cfg, lam, S, rhs)
 
     if dynamic_scale == 0.0:
-        _fixed_terms(state, cfg, S, rhs, sig)
-        S = _final_reg(S, lam)
-        zeros3 = torch.zeros((Ld, 3), dtype=dtype, device=dev)
-        zeros_blk = torch.zeros((Ld, F, 6, 3), dtype=dtype, device=dev)
+        _fixed_terms(state, cfg, S, rhs, sig, fixed_scale)
+        if final_reg:
+            S = _final_reg(S, lam)
+        zeros3 = torch.zeros(lead + (Ld, 3), dtype=dtype, device=dev)
+        zeros_blk = torch.zeros(lead + (Ld, F, 6, 3), dtype=dtype, device=dev)
         return _HybridLin(
             S=S, rhs=rhs, Hpp_inv_s=Hpp_inv_s, g_s=g_s, A_s=A_s,
-            Hpp_inv_d=torch.zeros((Ld, 3, 3), dtype=dtype, device=dev),
+            Hpp_inv_d=torch.zeros(lead + (Ld, 3, 3), dtype=dtype, device=dev),
             g_d=zeros3, Ax_d=zeros_blk, Ah_d=zeros_blk, onehot=onehot,
         )
 
@@ -238,59 +254,61 @@ def linearize(state: GraphState, cfg: BackendParams, lam, dynamic_scale: float =
     hat_yh = lie.hat(y_h)
     Jx = torch.cat([hat_yh, -eye3.expand(hat_yh.shape)], dim=-1)   # (Ld,F,3,6)
     # J_h = R_X^T R_H [-hat(q) | I]; zero where the motion is not a variable
-    RtRH = lie.einsum("fba,lfbc->lfac", R, RH)
+    RtRH = lie.einsum("...fba,...lfbc->...lfac", R, RH)
     hvar = _h_is_variable(state, onehot).to(dtype)
     Jh = torch.cat(
-        [-lie.mm(RtRH, lie.hat(q)[:, None]), RtRH], dim=-1
+        [-lie.mm(RtRH, lie.hat(q)[..., :, None, :, :]), RtRH], dim=-1
     ) * hvar[..., None, None]
     # J_m = R_X^T R_H R_L
     assigned = _assigned(onehot)
-    Lj_R = lie.einsum("lj,jab->lab", onehot, lie.rotation(state.L_e))
-    Lj_R = torch.where(assigned[:, None, None], Lj_R, eye3)
-    Jm = lie.einsum("lfab,lbc->lfac", RtRH, Lj_R)
+    Lj_R = lie.einsum("...lj,...jab->...lab", onehot, lie.rotation(state.L_e))
+    Lj_R = torch.where(assigned[..., None, None], Lj_R, eye3)
+    Jm = lie.einsum("...lfab,...lbc->...lfac", RtRH, Lj_R)
 
-    Hpp_d = lie.einsum("lfba,lfb,lfbc->lac", Jm, iw_h, Jm) + (_EPS_REG + lam) * eye3
+    Hpp_d = lie.einsum("...lfba,...lfb,...lfbc->...lac", Jm, iw_h, Jm) + _per_seq(_EPS_REG + lam, 3) * eye3
     Hpp_inv_d = inv3(Hpp_d)
-    g_d = lie.einsum("lfba,lfb->la", Jm, iw_h * r_h)
-    Ax_d = lie.einsum("lfba,lfb,lfbc->lfac", Jx, iw_h, Jm)
-    Ah_d = lie.einsum("lfba,lfb,lfbc->lfac", Jh, iw_h, Jm)
+    g_d = lie.einsum("...lfba,...lfb->...la", Jm, iw_h * r_h)
+    Ax_d = lie.einsum("...lfba,...lfb,...lfbc->...lfac", Jx, iw_h, Jm)
+    Ah_d = lie.einsum("...lfba,...lfb,...lfbc->...lfac", Jh, iw_h, Jm)
 
     # direct blocks
-    Hxx_d = lie.einsum("lfab,lfa,lfac->fbc", Jx, iw_h, Jx)
-    gx_d = lie.einsum("lfab,lfa->fb", Jx, iw_h * r_h)
-    S[:n, :n] += _block_diag_embed(Hxx_d)
-    rhs[:n] -= gx_d.reshape(-1)
+    Hxx_d = lie.einsum("...lfab,...lfa,...lfac->...fbc", Jx, iw_h, Jx)
+    gx_d = lie.einsum("...lfab,...lfa->...fb", Jx, iw_h * r_h)
+    S[..., :n, :n] += _block_diag_embed(Hxx_d)
+    rhs[..., :n] -= gx_d.reshape(lead + (-1,))
 
-    Hhh_blk = lie.einsum("lfab,lfa,lfac->lfbc", Jh, iw_h, Jh)
-    gh_blk = lie.einsum("lfab,lfa->lfb", Jh, iw_h * r_h)
-    Hxh_blk = lie.einsum("lfab,lfa,lfac->lfbc", Jx, iw_h, Jh)
-    Hhh = lie.einsum("lfbc,lj->jfbc", Hhh_blk, onehot)
-    gh = lie.einsum("lfb,lj->jfb", gh_blk, onehot)
-    Hxh = lie.einsum("lfbc,lj->jfbc", Hxh_blk, onehot)
+    Hhh_blk = lie.einsum("...lfab,...lfa,...lfac->...lfbc", Jh, iw_h, Jh)
+    gh_blk = lie.einsum("...lfab,...lfa->...lfb", Jh, iw_h * r_h)
+    Hxh_blk = lie.einsum("...lfab,...lfa,...lfac->...lfbc", Jx, iw_h, Jh)
+    Hhh = lie.einsum("...lfbc,...lj->...jfbc", Hhh_blk, onehot)
+    gh = lie.einsum("...lfb,...lj->...jfb", gh_blk, onehot)
+    Hxh = lie.einsum("...lfbc,...lj->...jfbc", Hxh_blk, onehot)
 
     # Schur corrections over points (Hpp per tracklet)
-    Sxx_c = lie.einsum("lfab,lbc,lgdc->fagd", Ax_d, Hpp_inv_d, Ax_d)
-    rx_c = lie.einsum("lfab,lbc,lc->fa", Ax_d, Hpp_inv_d, g_d)
+    Sxx_c = lie.einsum("...lfab,...lbc,...lgdc->...fagd", Ax_d, Hpp_inv_d, Ax_d)
+    rx_c = lie.einsum("...lfab,...lbc,...lc->...fa", Ax_d, Hpp_inv_d, g_d)
     # per-object Schur blocks: per-tracklet (6F, 6F) outer products grouped
     # by object with one (J, Ld) x (Ld, 36F^2) matmul
-    Ax2 = Ax_d.reshape(Ld, n, 3)
-    Ah2 = Ah_d.reshape(Ld, n, 3)
-    AhPinv = lie.einsum("lab,lbc->lac", Ah2, Hpp_inv_d)
-    t_xh = lie.einsum("lab,lcb->lac", Ax2, AhPinv)
-    t_hh = lie.einsum("lab,lcb->lac", Ah2, AhPinv)
-    onehot_T = onehot.T
-    Sxh_c = (onehot_T @ t_xh.reshape(Ld, n * n)).reshape(J, F, 6, F, 6)
-    Shh_c = (onehot_T @ t_hh.reshape(Ld, n * n)).reshape(J, F, 6, F, 6)
-    rh_c = lie.einsum("lab,lb,lj->ja", AhPinv, g_d, onehot).reshape(J, F, 6)
+    Ax2 = Ax_d.reshape(lead + (Ld, n, 3))
+    Ah2 = Ah_d.reshape(lead + (Ld, n, 3))
+    AhPinv = lie.einsum("...lab,...lbc->...lac", Ah2, Hpp_inv_d)
+    t_xh = lie.einsum("...lab,...lcb->...lac", Ax2, AhPinv)
+    t_hh = lie.einsum("...lab,...lcb->...lac", Ah2, AhPinv)
+    onehot_T = onehot.mT
+    Sxh_c = (onehot_T @ t_xh.reshape(lead + (Ld, n * n))).reshape(lead + (J, F, 6, F, 6))
+    Shh_c = (onehot_T @ t_hh.reshape(lead + (Ld, n * n))).reshape(lead + (J, F, 6, F, 6))
+    rh_c = lie.einsum("...lab,...lb,...lj->...ja", AhPinv, g_d, onehot).reshape(lead + (J, F, 6))
 
-    S[:n, :n] -= Sxx_c.reshape(n, n)
-    rhs[:n] += rx_c.reshape(-1)
+    S[..., :n, :n] -= Sxx_c.reshape(lead + (n, n))
+    rhs[..., :n] += rx_c.reshape(lead + (-1,))
 
     # ================= smoothing ternary (per object, batched) ============
     r_sm, J_A, J_B, J_C = _smooth_triple_terms(state)
     w_sm = dynamic_scale * _smooth_triple_mask(state, cfg).to(dtype)[..., None] / (
         sig["smooth"] ** 2
     )
+    if fixed_scale != 1.0:
+        w_sm = fixed_scale * w_sm
     JAw = J_A.transpose(-1, -2) * w_sm[..., None, :]
     JBw = J_B.transpose(-1, -2) * w_sm[..., None, :]
     JCw = J_C.transpose(-1, -2) * w_sm[..., None, :]
@@ -299,7 +317,7 @@ def linearize(state: GraphState, cfg: BackendParams, lam, dynamic_scale: float =
     E2 = _eye_k(F, 2, dtype, dev)    # E2[g, f] = 1 iff g = f-2
 
     def place(blk, Eg, Eh):
-        return lie.einsum("jfab,gf,hf->jgahb", blk, Eg, Eh)
+        return lie.einsum("...jfab,gf,hf->...jgahb", blk, Eg, Eh)
 
     blocks = (
         place(lie.mm(JAw, J_A), E2, E2)
@@ -310,25 +328,27 @@ def linearize(state: GraphState, cfg: BackendParams, lam, dynamic_scale: float =
         + _sym2(place(lie.mm(JBw, J_C), E1, eyeF))
     )
     g_sm = (
-        lie.einsum("jfab,jfb,gf->jga", JAw, r_sm, E2)
-        + lie.einsum("jfab,jfb,gf->jga", JBw, r_sm, E1)
-        + lie.einsum("jfab,jfb->jfa", JCw, r_sm)
+        lie.einsum("...jfab,...jfb,gf->...jga", JAw, r_sm, E2)
+        + lie.einsum("...jfab,...jfb,gf->...jga", JBw, r_sm, E1)
+        + lie.einsum("...jfab,...jfb->...jfa", JCw, r_sm)
     )
 
     # ================= assemble motion region ==============================
-    motion_diag = _block_diag_embed(Hhh) - Shh_c.reshape(J, n, n) + blocks.reshape(J, n, n)
+    motion_diag = (_block_diag_embed(Hhh) - Shh_c.reshape(lead + (J, n, n))
+                   + blocks.reshape(lead + (J, n, n)))
     eyeJ = torch.eye(J, dtype=dtype, device=dev)
-    motion_block = lie.einsum("jab,jk->jakb", motion_diag, eyeJ)
-    S[n:, n:] += motion_block.reshape(J * n, J * n)
-    cross = _block_diag_embed(Hxh) - Sxh_c.reshape(J, n, n)
-    cross_flat = cross.transpose(0, 1).reshape(n, J * n)
-    S[:n, n:] += cross_flat
-    S[n:, :n] += cross_flat.T
-    rhs[n:] += ((-gh - g_sm).reshape(J, n) + rh_c.reshape(J, n)).reshape(-1)
+    motion_block = lie.einsum("...jab,jk->...jakb", motion_diag, eyeJ)
+    S[..., n:, n:] += motion_block.reshape(lead + (J * n, J * n))
+    cross = _block_diag_embed(Hxh) - Sxh_c.reshape(lead + (J, n, n))
+    cross_flat = cross.transpose(-3, -2).reshape(lead + (n, J * n))
+    S[..., :n, n:] += cross_flat
+    S[..., n:, :n] += cross_flat.mT
+    rhs[..., n:] += ((-gh - g_sm).reshape(lead + (J, n)) + rh_c.reshape(lead + (J, n))).reshape(lead + (-1,))
 
     # ================= odometry / gauge / marginal prior ==================
-    _fixed_terms(state, cfg, S, rhs, sig)
-    S = _final_reg(S, lam)
+    _fixed_terms(state, cfg, S, rhs, sig, fixed_scale)
+    if final_reg:
+        S = _final_reg(S, lam)
     return _HybridLin(
         S=S, rhs=rhs, Hpp_inv_s=Hpp_inv_s, g_s=g_s, A_s=A_s,
         Hpp_inv_d=Hpp_inv_d, g_d=g_d, Ax_d=Ax_d, Ah_d=Ah_d, onehot=onehot,
@@ -336,8 +356,8 @@ def linearize(state: GraphState, cfg: BackendParams, lam, dynamic_scale: float =
 
 
 def _sym2(B):
-    """B (J, F, 6, F, 6): B + its block transpose."""
-    return B + B.permute(0, 3, 4, 1, 2)
+    """B (..., J, F, 6, F, 6): B + its block transpose."""
+    return B + B.transpose(-4, -2).transpose(-3, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -346,18 +366,20 @@ def _sym2(B):
 
 def _apply_update(state: GraphState, lin: _HybridLin, dx):
     F, J = state.F, state.J
-    dX = dx[: 6 * F].reshape(F, 6)
-    dH = dx[6 * F:].reshape(J, F, 6)
+    lead = state.batch_shape
+    dX = dx[..., : 6 * F].reshape(lead + (F, 6))
+    dH = dx[..., 6 * F:].reshape(lead + (J, F, 6))
 
     X_new = lie.retract(state.X, dX)
     H_new = lie.retract(state.H, dH)
 
-    At_dx = lie.einsum("flab,fa->lb", lin.A_s, dX)
-    ms_new = state.ms + lie.einsum("lab,lb->la", lin.Hpp_inv_s, -lin.g_s - At_dx)
+    At_dx = lie.einsum("...flab,...fa->...lb", lin.A_s, dX)
+    ms_new = state.ms + lie.einsum("...lab,...lb->...la", lin.Hpp_inv_s, -lin.g_s - At_dx)
 
-    dh_l = lie.einsum("lj,jfc->lfc", lin.onehot, dH)
-    corr = lie.einsum("lfab,fa->lb", lin.Ax_d, dX) + lie.einsum("lfab,lfa->lb", lin.Ah_d, dh_l)
-    m_hyb_new = state.m_hyb + lie.einsum("lab,lb->la", lin.Hpp_inv_d, -lin.g_d - corr)
+    dh_l = lie.einsum("...lj,...jfc->...lfc", lin.onehot, dH)
+    corr = (lie.einsum("...lfab,...fa->...lb", lin.Ax_d, dX)
+            + lie.einsum("...lfab,...lfa->...lb", lin.Ah_d, dh_l))
+    m_hyb_new = state.m_hyb + lie.einsum("...lab,...lb->...la", lin.Hpp_inv_d, -lin.g_d - corr)
     return dataclasses.replace(state, X=X_new, H=H_new, ms=ms_new, m_hyb=m_hyb_new)
 
 
@@ -377,8 +399,8 @@ def optimize_decoupled(state: GraphState, cfg: BackendParams) -> GraphState:
         return linearize(st, cfg_, lam, dynamic_scale=0.0)
 
     def solve_cam(lin):
-        dx_x = chol_solve(lin.S[:n, :n], lin.rhs[:n])
-        dx = torch.cat([_clip_step(dx_x, op.gn_max_step), dx_x.new_zeros(D - n)])
+        dx_x = chol_solve(lin.S[..., :n, :n], lin.rhs[..., :n])
+        dx = torch.cat([_clip_step(dx_x, op.gn_max_step), dx_x.new_zeros(dx_x.shape[:-1] + (D - n,))], dim=-1)
         return gate_dx_by_type(dx, F, op)
 
     def err_cam(st, cfg_):
@@ -388,8 +410,8 @@ def optimize_decoupled(state: GraphState, cfg: BackendParams) -> GraphState:
 
     # Phase 2 — every object with the camera frozen, full objective
     def solve_obj(lin):
-        dh = chol_solve(lin.S[n:, n:], lin.rhs[n:])
-        dx = torch.cat([dh.new_zeros(n), _clip_step(dh, op.gn_max_step)])
+        dh = chol_solve(lin.S[..., n:, n:], lin.rhs[..., n:])
+        dx = torch.cat([dh.new_zeros(dh.shape[:-1] + (n,)), _clip_step(dh, op.gn_max_step)], dim=-1)
         return gate_dx_by_type(dx, F, op)
 
     return lm_accept_reject(
@@ -453,11 +475,11 @@ def f2f_motion(state: GraphState, f):
     """F2F world motions at frame slot f (an int or a 0-dim tensor):
     H_{e,f} H_{e,f-1}^{-1}. (J,4,4)."""
     f, fprev = _slot_pair(f)
-    return lie.mm(state.H[:, f], lie.inverse(state.H[:, fprev]))
+    return lie.mm(state.H[..., f, :, :], lie.inverse(state.H[..., fprev, :, :]))
 
 
 def object_pose(state: GraphState, f):
     """Object poses L_f = H_{e,f} L_e at frame slot f (an int or a 0-dim
     tensor). (J, 4, 4)."""
     f, _ = _slot_pair(f)
-    return lie.mm(state.H[:, f], state.L_e)
+    return lie.mm(state.H[..., f, :, :], state.L_e)

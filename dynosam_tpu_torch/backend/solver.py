@@ -12,6 +12,11 @@ IRLS weights; accept/reject LM on the true robust cost, or plain damped GN.
 Tangent layout of the reduced system (D = 6F + 6JF):
   pose f      -> dx[6f : 6f+6]
   motion j,f  -> dx[6F + 6(jF + f) : +6]
+
+The helpers the hybrid formulation uses, and the accept/reject loop, also
+take a GraphState with a leading batch axis of sequences (the batched step):
+the reduced systems are then (B, D, D), and the damping, the errors and the
+accept/reject decisions are per sequence, as under the reference's vmap.
 """
 
 from __future__ import annotations
@@ -39,6 +44,17 @@ def _irls_w(e, k, use_robust):
         return torch.ones_like(e)
     safe = torch.clamp(e, min=1e-12)
     return torch.where(e <= k, torch.ones_like(safe), k / safe)
+
+
+def _per_seq(x, k):
+    """A per-sequence scalar (a Python float, a 0-dim or a (B,) tensor) with
+    k unit axes appended, to broadcast against (B, ...) terms; a view."""
+    return x.reshape(x.shape + (1,) * k) if torch.is_tensor(x) else x
+
+
+def _sum_per_seq(x, nb):
+    """Sum over everything but the `nb` leading batch axes."""
+    return torch.sum(x) if nb == 0 else x.flatten(nb).sum(-1)
 
 
 def _sigmas(cfg: BackendParams, dtype, device):
@@ -69,18 +85,18 @@ def _object_onehot(state: GraphState, dtype):
     """(Ld, J) float one-hot of each tracklet's object slot (0 rows if none)."""
     J = state.J
     slots = torch.arange(J, device=state.d_obj.device)
-    oh = (state.d_obj[:, None] == slots[None, :]) & (state.d_obj >= 0)[:, None]
+    oh = (state.d_obj[..., :, None] == slots) & (state.d_obj >= 0)[..., :, None]
     return oh.to(dtype)
 
 
 def _static_residuals(state: GraphState):
     Xinv = lie.inverse(state.X)
-    y = lie.transform_points(Xinv[:, None], state.ms[None, :, :])
+    y = lie.transform_points(Xinv[..., :, None, :, :], state.ms[..., None, :, :])
     return y - state.s_z, y  # (F, Ls, 3)
 
 
 def _static_gate(state: GraphState, cfg: BackendParams):
-    return torch.sum(state.s_valid, dim=0) >= cfg.min_static_observations
+    return torch.sum(state.s_valid, dim=-2) >= cfg.min_static_observations
 
 
 def _odom_mask(state: GraphState):
@@ -89,9 +105,10 @@ def _odom_mask(state: GraphState):
 
 
 def _prior_dx(state: GraphState):
-    dX = lie.local_coordinates(state.prior_lin_X, state.X).reshape(-1)
-    dH = lie.local_coordinates(state.prior_lin_H, state.H).reshape(-1)
-    return torch.cat([dX, dH])
+    lead = state.batch_shape
+    dX = lie.local_coordinates(state.prior_lin_X, state.X).reshape(lead + (-1,))
+    dH = lie.local_coordinates(state.prior_lin_H, state.H).reshape(lead + (-1,))
+    return torch.cat([dX, dH], dim=-1)
 
 
 def _eye_k(n, k, dtype, device):
@@ -144,20 +161,21 @@ def gate_dx_by_type(dx, F, op):
     if not (x_on or h_on):
         return dx
     n = 6 * F
+    lead = dx.shape[:-1]
 
     def gate(blocks, thr_rot, thr_trans):
-        rn = torch.linalg.norm(blocks[:, :3], dim=-1)
-        tn = torch.linalg.norm(blocks[:, 3:], dim=-1)
+        rn = torch.linalg.norm(blocks[..., :3], dim=-1)
+        tn = torch.linalg.norm(blocks[..., 3:], dim=-1)
         small = (rn < thr_rot) & (tn < thr_trans)
-        return torch.where(small[:, None], torch.zeros_like(blocks), blocks)
+        return torch.where(small[..., None], torch.zeros_like(blocks), blocks)
 
-    dX = dx[:n].reshape(-1, 6)
-    dH = dx[n:].reshape(-1, 6)
+    dX = dx[..., :n].reshape(lead + (-1, 6))
+    dH = dx[..., n:].reshape(lead + (-1, 6))
     if x_on:
         dX = gate(dX, op.x_update_threshold_rot, op.x_update_threshold_trans)
     if h_on:
         dH = gate(dH, op.h_update_threshold_rot, op.h_update_threshold_trans)
-    return torch.cat([dX.reshape(-1), dH.reshape(-1)])
+    return torch.cat([dX.reshape(lead + (-1,)), dH.reshape(lead + (-1,))], dim=-1)
 
 
 def damping_update(ok, lam, op, lam0):
@@ -172,11 +190,13 @@ def damping_update(ok, lam, op, lam0):
 
 def _select(accept, cand: GraphState, st: GraphState) -> GraphState:
     """Field-wise torch.where(accept, cand, st); fields the update did not
-    replace are shared and kept as they are."""
+    replace are shared and kept as they are. A (B,) `accept` selects per
+    sequence."""
     out = {}
     for fld in dataclasses.fields(st):
         a, b = getattr(cand, fld.name), getattr(st, fld.name)
-        out[fld.name] = a if a is b or not torch.is_tensor(a) else torch.where(accept, a, b)
+        out[fld.name] = (a if a is b or not torch.is_tensor(a)
+                         else torch.where(_per_seq(accept, a.ndim - accept.ndim), a, b))
     return dataclasses.replace(st, **out)
 
 
@@ -186,11 +206,13 @@ def lm_accept_reject(
     """Fixed-length accept/reject LM with GTSAM-style convergence: once the
     error decrease falls below absolute_error_tol or relative_error_tol * err,
     the remaining iterations are masked no-ops. `accept`, `done` and the
-    damping stay tensors, so the loop never waits on the device."""
+    damping stay tensors, so the loop never waits on the device; over a
+    batch of sequences each is per sequence."""
     op = cfg.optimizer
     err = error_fn(state, cfg)
-    lam = torch.full((), op.lm_initial_lambda, dtype=state.X.dtype, device=state.X.device)
-    done = torch.zeros((), dtype=torch.bool, device=state.X.device)
+    lead = state.batch_shape
+    lam = torch.full(lead, op.lm_initial_lambda, dtype=state.X.dtype, device=state.X.device)
+    done = torch.zeros(lead, dtype=torch.bool, device=state.X.device)
     for _ in range(op.max_iterations if iterations is None else iterations):
         lin = linearize_fn(state, cfg, lam)
         cand = apply_fn(state, lin, solve_fn(lin))
@@ -337,6 +359,7 @@ def _static_terms(state: GraphState, cfg: BackendParams, lam, S, rhs):
     (anisotropic camera-frame weights); adds into S and rhs in place ->
     (Hpp_inv_s, g_s, A_s) for the back-substitution."""
     n = 6 * state.F
+    lead = state.batch_shape
     dtype, dev = state.X.dtype, state.X.device
     R = lie.rotation(state.X)
     Rt = R.transpose(-1, -2)
@@ -344,48 +367,55 @@ def _static_terms(state: GraphState, cfg: BackendParams, lam, S, rhs):
     r_s, y_s = _static_residuals(state)
     gate = _static_gate(state, cfg)
     e_s = torch.linalg.norm(r_s / state.s_sig, dim=-1)
-    iw_s = (state.s_valid & gate[None, :]).to(dtype)[..., None] * _irls_w(
+    iw_s = (state.s_valid & gate[..., None, :]).to(dtype)[..., None] * _irls_w(
         e_s, cfg.noise.robust_k_huber, cfg.noise.use_robust_kernel
     )[..., None] / (state.s_sig ** 2)                          # (F, Ls, 3)
     hat_y = lie.hat(y_s)
     Jx_s = torch.cat([hat_y, -eye3.expand(hat_y.shape)], dim=-1)   # (F, Ls, 3, 6)
     # Hpp = sum_f R diag(iw) R^T (Jp = R^T, W diagonal in the camera frame)
-    Hpp_s = lie.einsum("fab,flb,fcb->lac", R, iw_s, R) + (_EPS_REG + lam) * eye3
+    Hpp_s = lie.einsum("...fab,...flb,...fcb->...lac", R, iw_s, R) + _per_seq(_EPS_REG + lam, 3) * eye3
     Hpp_inv_s = bt.inv3(Hpp_s)
-    g_s = lie.einsum("fab,flb->la", R, iw_s * r_s)
-    A_s = lie.einsum("flba,flb,fbc->flac", Jx_s, iw_s, Rt)
-    Hxx_s = lie.einsum("flab,fla,flac->fbc", Jx_s, iw_s, Jx_s)
-    gx_s = lie.einsum("flab,fla->fb", Jx_s, iw_s * r_s)
-    S_pp = lie.einsum("flab,lbc,gldc->fagd", A_s, Hpp_inv_s, A_s)
-    S[:n, :n] += _block_diag_embed(Hxx_s) - S_pp.reshape(n, n)
-    rhs[:n] += (-gx_s + lie.einsum("flab,lbc,lc->fa", A_s, Hpp_inv_s, g_s)).reshape(-1)
+    g_s = lie.einsum("...fab,...flb->...la", R, iw_s * r_s)
+    A_s = lie.einsum("...flba,...flb,...fbc->...flac", Jx_s, iw_s, Rt)
+    Hxx_s = lie.einsum("...flab,...fla,...flac->...fbc", Jx_s, iw_s, Jx_s)
+    gx_s = lie.einsum("...flab,...fla->...fb", Jx_s, iw_s * r_s)
+    S_pp = lie.einsum("...flab,...lbc,...gldc->...fagd", A_s, Hpp_inv_s, A_s)
+    S[..., :n, :n] += _block_diag_embed(Hxx_s) - S_pp.reshape(lead + (n, n))
+    rhs[..., :n] += (-gx_s + lie.einsum("...flab,...lbc,...lc->...fa", A_s, Hpp_inv_s, g_s)).reshape(lead + (-1,))
     return Hpp_inv_s, g_s, A_s
 
 
-def _fixed_terms(state: GraphState, cfg: BackendParams, S, rhs, sig):
+def _fixed_terms(state: GraphState, cfg: BackendParams, S, rhs, sig, fixed_scale: float = 1.0):
     """Odometry chain, gauge prior and linear marginal prior; adds into S
-    and rhs in place."""
+    and rhs in place. `fixed_scale` scales all three (the landmark-chunked
+    assembly of parallel/sharded.py adds 1/P of them per chunk)."""
     n = 6 * state.F
+    lead = state.batch_shape
     dtype = S.dtype
+
+    def scaled(w):
+        return w if fixed_scale == 1.0 else fixed_scale * w
+
     if cfg.use_vo_factor:
-        X_prev = torch.cat([state.X[:1], state.X[:-1]], dim=0)
+        X_prev = torch.cat([state.X[..., :1, :, :], state.X[..., :-1, :, :]], dim=-3)
         r_o = factors.between_residual(X_prev, state.X, state.odom)
         J_A, J_B = factors.between_jacobians(X_prev, state.X, state.odom, r=r_o)
-        w_o = _odom_mask(state).to(dtype)[:, None] / sig["odom"] ** 2
+        w_o = scaled(_odom_mask(state).to(dtype)[..., None] / sig["odom"] ** 2)
         od_block, od_g = _chain_se3_blocks(r_o, J_A, J_B, w_o)
-        S[:n, :n] += od_block.reshape(n, n)
-        rhs[:n] -= od_g.reshape(-1)
+        S[..., :n, :n] += od_block.reshape(lead + (n, n))
+        rhs[..., :n] -= od_g.reshape(lead + (-1,))
 
-    r_p = factors.prior_residual(state.X[0], state.X0_prior)
-    J_p = factors.prior_jacobian(state.X[0], state.X0_prior, r=r_p)
-    w_p = (~state.prior_valid).to(dtype) / sig["prior0"] ** 2
-    S[:6, :6] += w_p * lie.mm(J_p.T, J_p)
-    rhs[:6] -= w_p * (J_p.T @ r_p)
+    X0 = state.X[..., 0, :, :]
+    r_p = factors.prior_residual(X0, state.X0_prior)
+    J_p = factors.prior_jacobian(X0, state.X0_prior, r=r_p)
+    w_p = scaled((~state.prior_valid).to(dtype) / sig["prior0"] ** 2)
+    S[..., :6, :6] += _per_seq(w_p, 2) * lie.mm(J_p.mT, J_p)
+    rhs[..., :6] -= _per_seq(w_p, 1) * lie.mv(J_p.mT, r_p)
 
-    r_mp = state.prior_b + state.prior_L @ _prior_dx(state)
-    pv = state.prior_valid.to(dtype)
-    S += pv * lie.mm(state.prior_L.T, state.prior_L)
-    rhs -= pv * (state.prior_L.T @ r_mp)
+    r_mp = state.prior_b + lie.mv(state.prior_L, _prior_dx(state))
+    pv = scaled(state.prior_valid.to(dtype))
+    S += _per_seq(pv, 2) * lie.mm(state.prior_L.mT, state.prior_L)
+    rhs -= _per_seq(pv, 1) * lie.mv(state.prior_L.mT, r_mp)
 
 
 def _final_reg(S, lam):
@@ -393,8 +423,9 @@ def _final_reg(S, lam):
     Information weights reach 1/sigma^2 ~ 1e6, so f32 cancellation in the
     Schur subtractions perturbs eigenvalues by ~|S| * 1e-7; the relative
     term keeps S positive definite."""
-    diag = torch.diagonal(S)
-    return S + torch.diag((_EPS_REG + lam) + (1e-5 + lam) * torch.abs(diag))
+    diag = torch.diagonal(S, dim1=-2, dim2=-1)
+    lam = _per_seq(lam, 1)
+    return S + torch.diag_embed((_EPS_REG + lam) + (1e-5 + lam) * torch.abs(diag))
 
 
 def linearize(state: GraphState, cfg: BackendParams, lam) -> _Linearization:
@@ -553,20 +584,21 @@ def _apply_update(state: GraphState, lin: _Linearization, dx):
 
 def _clip_step(dx, max_step):
     """Scale 6-dof tangent blocks so none exceeds max_step (trust region)."""
-    blocks = dx.reshape(-1, 6)
+    blocks = dx.reshape(dx.shape[:-1] + (-1, 6))
     norms = torch.linalg.norm(blocks, dim=-1, keepdim=True)
     scale = torch.clamp(max_step / torch.clamp(norms, min=1e-12), max=1.0)
-    return (blocks * scale).reshape(-1)
+    return (blocks * scale).reshape(dx.shape)
 
 
 def chol_solve(S, g):
-    """S x = g by Cholesky. Like jnp.linalg.cholesky, a factorisation that
-    fails gives NaN (which the LM accept/reject or the GN finiteness check
-    then rejects), without a host round trip to check it."""
+    """S x = g by Cholesky, over leading batch dims. Like jnp.linalg.cholesky,
+    a factorisation that fails gives NaN (which the LM accept/reject or the
+    GN finiteness check then rejects), without a host round trip to check
+    it."""
     L, info = torch.linalg.cholesky_ex(S)
-    L = torch.where(info == 0, L, torch.nan)
-    z = torch.linalg.solve_triangular(L, g[:, None], upper=False)
-    return torch.linalg.solve_triangular(L.T, z, upper=True)[:, 0]
+    L = torch.where(_per_seq(info == 0, 2), L, torch.nan)
+    z = torch.linalg.solve_triangular(L, g[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
 
 
 def gn_scan(state, cfg, linearize_fn, apply_fn, solve_fn):

@@ -24,6 +24,11 @@ When the window is full, an advance:
 The reference places blocks with constant one-hot matrices contracted on the
 MXU (a TPU layout choice, window.py:398-399); here they are index
 operations, which add the same values in the same places.
+
+`advance_hybrid` also takes a GraphState with a leading batch axis of
+sequences (the batched step). Its one host read then covers the batch: the
+sequences whose factorisation broke down take the eigh path, the others the
+Cholesky path, merged per sequence.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from dynosam_tpu_torch.backend import factors
 from dynosam_tpu_torch.backend import hybrid as hyb
 from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.backend import wcpe as wp
-from dynosam_tpu_torch.backend.solver import _EPS_REG, _object_onehot, _prior_dx, _sigmas
+from dynosam_tpu_torch.backend.solver import _EPS_REG, _object_onehot, _per_seq, _prior_dx, _sigmas
 from dynosam_tpu_torch.ops.block_tridiag import inv3
 from dynosam_tpu_torch.utils import lie
 
@@ -51,10 +56,14 @@ def _slot_index(F: int, J: int, f: int, device):
 
 def _place_blocks(M, g, rows, cols, B, gb=None):
     """M[rows[j], cols[j]] += B[j]; g[rows[j]] += gb[j], in place. rows and
-    cols are (J, 6) index tables whose rows never repeat across j."""
-    M.index_put_((rows[:, :, None], cols[:, None, :]), B, accumulate=True)
+    cols are (J, 6) index tables whose rows never repeat across j; M, g and
+    the blocks may carry a leading batch axis of sequences."""
+    lead = ()
+    if M.ndim == 3:
+        lead = (torch.arange(M.shape[0], device=M.device)[:, None, None, None],)
+    M.index_put_(lead + (rows[:, :, None], cols[:, None, :]), B, accumulate=True)
     if gb is not None:
-        g.index_put_((rows,), gb, accumulate=True)
+        g.index_put_(tuple(b[..., 0] for b in lead) + (rows,), gb, accumulate=True)
 
 
 def _odometry_01(state: GraphState, cfg: BackendParams, M, g, sig, pass_r: bool):
@@ -62,37 +71,40 @@ def _odometry_01(state: GraphState, cfg: BackendParams, M, g, sig, pass_r: bool)
     the reference linearises it without handing the residual to the
     Jacobians (`pass_r=False`), the others with it; both give the same
     values."""
-    r_o = factors.between_residual(state.X[0], state.X[1], state.odom[1])
+    X0, X1, Z1 = state.X[..., 0, :, :], state.X[..., 1, :, :], state.odom[..., 1, :, :]
+    r_o = factors.between_residual(X0, X1, Z1)
     if pass_r:
-        J_A, J_B = factors.between_jacobians(state.X[0], state.X[1], state.odom[1], r=r_o)
+        J_A, J_B = factors.between_jacobians(X0, X1, Z1, r=r_o)
     else:
-        J_A, J_B = factors.between_jacobians(state.X[0], state.X[1], state.odom[1])
-    active = (state.odom_valid[1] & (state.num_frames > 1)).to(M.dtype)
-    wv = active / sig["odom"] ** 2                     # (6,) per-dim information
-    JAw = J_A.T * wv
-    JBw = J_B.T * wv
-    M[:6, :6] += JAw @ J_A
-    M[6:12, 6:12] += JBw @ J_B
-    M[:6, 6:12] += JAw @ J_B
-    M[6:12, :6] += (JAw @ J_B).T
-    g[:6] += JAw @ r_o
-    g[6:12] += JBw @ r_o
+        J_A, J_B = factors.between_jacobians(X0, X1, Z1)
+    active = (state.odom_valid[..., 1] & (state.num_frames > 1)).to(M.dtype)
+    wv = _per_seq(active, 1) / sig["odom"] ** 2       # (6,) per-dim information
+    JAw = J_A.mT * wv[..., None, :]
+    JBw = J_B.mT * wv[..., None, :]
+    M[..., :6, :6] += JAw @ J_A
+    M[..., 6:12, 6:12] += JBw @ J_B
+    M[..., :6, 6:12] += JAw @ J_B
+    M[..., 6:12, :6] += (JAw @ J_B).mT
+    g[..., :6] += lie.mv(JAw, r_o)
+    g[..., 6:12] += lie.mv(JBw, r_o)
 
 
 def _gauge_and_prior(state: GraphState, M, g, sig, pass_r: bool = True):
     """Gauge prior on X_0 (before the first marginalisation) and the
     previous marginal prior -> (M, g)."""
     dtype = M.dtype
+    X0 = state.X[..., 0, :, :]
     gauge_on = (~state.prior_valid).to(dtype)
-    r_p = factors.prior_residual(state.X[0], state.X0_prior)
-    J_p = (factors.prior_jacobian(state.X[0], state.X0_prior, r=r_p) if pass_r
-           else factors.prior_jacobian(state.X[0], state.X0_prior))
+    r_p = factors.prior_residual(X0, state.X0_prior)
+    J_p = (factors.prior_jacobian(X0, state.X0_prior, r=r_p) if pass_r
+           else factors.prior_jacobian(X0, state.X0_prior))
     w_p = gauge_on / sig["prior0"] ** 2
-    M[:6, :6] += w_p * (J_p.T @ J_p)
-    g[:6] += w_p * (J_p.T @ r_p)
-    r_mp = state.prior_b + state.prior_L @ _prior_dx(state)
+    M[..., :6, :6] += _per_seq(w_p, 2) * (J_p.mT @ J_p)
+    g[..., :6] += _per_seq(w_p, 1) * lie.mv(J_p.mT, r_p)
+    r_mp = state.prior_b + lie.mv(state.prior_L, _prior_dx(state))
     pv = state.prior_valid.to(dtype)
-    return M + pv * lie.mm(state.prior_L.T, state.prior_L), g + pv * (state.prior_L.T @ r_mp)
+    return (M + _per_seq(pv, 2) * lie.mm(state.prior_L.mT, state.prior_L),
+            g + _per_seq(pv, 1) * lie.mv(state.prior_L.mT, r_mp))
 
 
 def _departing_information(state: GraphState, cfg: BackendParams):
@@ -212,75 +224,76 @@ def _departing_information_hybrid(state: GraphState, cfg: BackendParams):
     window with {X_0, H_{:,0}} (see the module docstring)."""
     F = state.F
     D = state.D
+    lead = state.batch_shape
     dtype, dev = state.X.dtype, state.X.device
     sig = _sigmas(cfg, dtype, dev)
     J = state.J
 
-    M = torch.zeros((D, D), dtype=dtype, device=dev)
-    g = torch.zeros((D,), dtype=dtype, device=dev)
+    M = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    g = torch.zeros(lead + (D,), dtype=dtype, device=dev)
 
     onehot = _object_onehot(state, dtype)
     r_h, y_h, q, RH = hyb._hybrid_obs_terms(state, onehot)
     mask = hyb._obs_mask(state, onehot)
 
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    y0 = y_h[:, 0]
+    y0 = y_h[..., 0, :]
     hat_y0 = lie.hat(y0)
     Jx = torch.cat([hat_y0, -eye3.expand(hat_y0.shape)], dim=-1)      # (Ld,3,6)
-    R0 = lie.rotation(state.X[0])
-    RtRH = lie.einsum("ba,lbc->lac", R0, RH[:, 0])
-    hvar = hyb._h_is_variable(state, onehot)[:, 0].to(dtype)
-    Jh = torch.cat([-lie.mm(RtRH, lie.hat(q)), RtRH], dim=-1) * hvar[:, None, None]
+    R0 = lie.rotation(state.X[..., 0, :, :])
+    RtRH = lie.einsum("...ba,...lbc->...lac", R0, RH[..., 0, :, :])
+    hvar = hyb._h_is_variable(state, onehot)[..., 0].to(dtype)
+    Jh = torch.cat([-lie.mm(RtRH, lie.hat(q)), RtRH], dim=-1) * hvar[..., None, None]
 
     # observation weights with first-order point uncertainty:
     # C_l = diag(sigma_l^2) + J_m Sigma_m J_m^T, W_l = C_l^{-1}
     if cfg.marginal_point_uncertainty:
         iw_full = mask.to(dtype)[..., None] / (state.d_sig ** 2)
-        RtRH_all = lie.einsum("fba,lfbc->lfac", lie.rotation(state.X), RH)
-        Lj_R = lie.einsum("lj,jab->lab", onehot, lie.rotation(state.L_e))
-        assigned = torch.sum(onehot, dim=1) > 0.5
-        Lj_R = torch.where(assigned[:, None, None], Lj_R, eye3)
-        Jm_all = lie.einsum("lfab,lbc->lfac", RtRH_all, Lj_R)
-        Hpp = lie.einsum("lfba,lfb,lfbc->lac", Jm_all, iw_full, Jm_all) + _EPS_REG * eye3
+        RtRH_all = lie.einsum("...fba,...lfbc->...lfac", lie.rotation(state.X), RH)
+        Lj_R = lie.einsum("...lj,...jab->...lab", onehot, lie.rotation(state.L_e))
+        assigned = torch.sum(onehot, dim=-1) > 0.5
+        Lj_R = torch.where(assigned[..., None, None], Lj_R, eye3)
+        Jm_all = lie.einsum("...lfab,...lbc->...lfac", RtRH_all, Lj_R)
+        Hpp = lie.einsum("...lfba,...lfb,...lfbc->...lac", Jm_all, iw_full, Jm_all) + _EPS_REG * eye3
         Sigma_m = inv3(Hpp)                                              # (Ld,3,3)
-        Jm0 = Jm_all[:, 0]
-        C = (state.d_sig[:, 0] ** 2)[:, :, None] * eye3 + lie.mm(
+        Jm0 = Jm_all[..., 0, :, :]
+        C = (state.d_sig[..., 0, :] ** 2)[..., :, None] * eye3 + lie.mm(
             lie.mm(Jm0, Sigma_m), Jm0.transpose(-1, -2)
         )
-        W = inv3(C) * mask[:, 0].to(dtype)[:, None, None]
+        W = inv3(C) * mask[..., 0].to(dtype)[..., None, None]
     else:
-        W = (mask[:, 0].to(dtype)[:, None] / (state.d_sig[:, 0] ** 2))[..., None] * eye3
+        W = (mask[..., 0].to(dtype)[..., None] / (state.d_sig[..., 0, :] ** 2))[..., None] * eye3
 
-    r0 = r_h[:, 0]
-    H_xx = lie.einsum("lba,lbc,lcd->ad", Jx, W, Jx)
-    g_x = lie.einsum("lba,lbc,lc->a", Jx, W, r0)
-    H_hh = lie.einsum("lba,lbc,lcd->lad", Jh, W, Jh)
-    g_h = lie.einsum("lba,lbc,lc->la", Jh, W, r0)
-    H_xh = lie.einsum("lba,lbc,lcd->lad", Jx, W, Jh)
-    H_hh_obj = lie.einsum("lac,lj->jac", H_hh, onehot)
-    g_h_obj = lie.einsum("la,lj->ja", g_h, onehot)
-    H_xh_obj = lie.einsum("lac,lj->jac", H_xh, onehot)
+    r0 = r_h[..., 0, :]
+    H_xx = lie.einsum("...lba,...lbc,...lcd->...ad", Jx, W, Jx)
+    g_x = lie.einsum("...lba,...lbc,...lc->...a", Jx, W, r0)
+    H_hh = lie.einsum("...lba,...lbc,...lcd->...lad", Jh, W, Jh)
+    g_h = lie.einsum("...lba,...lbc,...lc->...la", Jh, W, r0)
+    H_xh = lie.einsum("...lba,...lbc,...lcd->...lad", Jx, W, Jh)
+    H_hh_obj = lie.einsum("...lac,...lj->...jac", H_hh, onehot)
+    g_h_obj = lie.einsum("...la,...lj->...ja", g_h, onehot)
+    H_xh_obj = lie.einsum("...lac,...lj->...jac", H_xh, onehot)
 
-    M[:6, :6] += H_xx
-    g[:6] += g_x
+    M[..., :6, :6] += H_xx
+    g[..., :6] += g_x
     S_f = [_slot_index(F, J, f, dev) for f in range(3)]      # H_{:,0/1/2}
     _place_blocks(M, g, S_f[0], S_f[0], H_hh_obj, g_h_obj)
-    cross = torch.zeros((6, D), dtype=dtype, device=dev)
-    cross[:, S_f[0].reshape(-1)] = H_xh_obj.permute(1, 0, 2).reshape(6, 6 * J)
-    M[:6, :] += cross
-    M[:, :6] += cross.T
+    cross = torch.zeros(lead + (6, D), dtype=dtype, device=dev)
+    cross[..., S_f[0].reshape(-1)] = H_xh_obj.transpose(-3, -2).reshape(lead + (6, 6 * J))
+    M[..., :6, :] += cross
+    M[..., :, :6] += cross.mT
 
     # straddling constant-motion ternary: the factor at f=2 couples
     # (H_0, H_1, H_2)
     if cfg.use_smoothing_factor:
         r_sm, J_A, J_B, J_C = hyb._smooth_triple_terms(state)
-        sm_w = hyb._smooth_triple_mask(state, cfg)[:, 2].to(dtype)[:, None] / (sig["smooth"] ** 2)
-        rA = r_sm[:, 2]
-        Js = (J_A[:, 2], J_B[:, 2], J_C[:, 2])
-        Jws = tuple(Jk.transpose(-1, -2) * sm_w[:, None, :] for Jk in Js)
+        sm_w = hyb._smooth_triple_mask(state, cfg)[..., 2].to(dtype)[..., None] / (sig["smooth"] ** 2)
+        rA = r_sm[..., 2, :]
+        Js = (J_A[..., 2, :, :], J_B[..., 2, :, :], J_C[..., 2, :, :])
+        Jws = tuple(Jk.transpose(-1, -2) * sm_w[..., None, :] for Jk in Js)
         for a in range(3):
             _place_blocks(M, g, S_f[a], S_f[a], lie.mm(Jws[a], Js[a]),
-                          lie.einsum("jab,jb->ja", Jws[a], rA))
+                          lie.einsum("...jab,...jb->...ja", Jws[a], rA))
             for b in range(3):
                 if a != b:
                     _place_blocks(M, g, S_f[a], S_f[b], lie.mm(Jws[a], Js[b]))
@@ -343,28 +356,29 @@ def _remaining_old_for_new(F: int, J: int):
 
 def _chol_sqrt(L_full, g_perm, nd):
     """Marginal square root from the full factor: Schur(M_dd) = L22 L22^T."""
-    L11, L21, L22 = L_full[:nd, :nd], L_full[nd:, :nd], L_full[nd:, nd:]
-    b1 = torch.linalg.solve_triangular(L11, g_perm[:nd, None], upper=False)
-    b0 = torch.linalg.solve_triangular(L22, g_perm[nd:, None] - L21 @ b1, upper=False)
-    return L22.T, b0[:, 0]
+    L11, L21, L22 = L_full[..., :nd, :nd], L_full[..., nd:, :nd], L_full[..., nd:, nd:]
+    b1 = torch.linalg.solve_triangular(L11, g_perm[..., :nd, None], upper=False)
+    b0 = torch.linalg.solve_triangular(L22, g_perm[..., nd:, None] - L21 @ b1, upper=False)
+    return L22.mT, b0[..., 0]
 
 
 def _eigh_sqrt(M_perm, g_perm, nd):
     """Rare path: PSD-projected eigendecomposition of the explicit Schur
     complement, for a window whose full factorisation broke down."""
-    L_dd, info = torch.linalg.cholesky_ex(M_perm[:nd, :nd])     # _EPS_REG already added
-    L_dd = torch.where(info == 0, L_dd, torch.nan)
-    rhs = torch.cat([M_perm[:nd, nd:], g_perm[:nd, None]], dim=1)
+    L_dd, info = torch.linalg.cholesky_ex(M_perm[..., :nd, :nd])     # _EPS_REG already added
+    L_dd = torch.where(_per_seq(info == 0, 2), L_dd, torch.nan)
+    M_dk = M_perm[..., :nd, nd:]
+    rhs = torch.cat([M_dk, g_perm[..., :nd, None]], dim=-1)
     sol = torch.cholesky_solve(rhs, L_dd, upper=False)
-    H_keep = M_perm[nd:, nd:] - M_perm[:nd, nd:].T @ sol[:, :-1]
-    g_mk = g_perm[nd:] - M_perm[:nd, nd:].T @ sol[:, -1]
-    H_keep = 0.5 * (H_keep + H_keep.T)
+    H_keep = M_perm[..., nd:, nd:] - M_dk.mT @ sol[..., :, :-1]
+    g_mk = g_perm[..., nd:] - lie.mv(M_dk.mT, sol[..., :, -1])
+    H_keep = 0.5 * (H_keep + H_keep.mT)
     w_eig, V = torch.linalg.eigh(H_keep)
-    floor = 1e-8 * torch.clamp(torch.max(w_eig), min=1.0)
+    floor = 1e-8 * torch.clamp(torch.amax(w_eig, dim=-1, keepdim=True), min=1.0)
     informative = w_eig > floor
     w_cl = torch.where(informative, w_eig, floor)
-    Lp = torch.sqrt(w_cl)[:, None] * V.T                      # Lp^T Lp = H_psd
-    bp = torch.where(informative, (V.T @ g_mk) / torch.sqrt(w_cl), 0.0)
+    Lp = torch.sqrt(w_cl)[..., :, None] * V.mT                # Lp^T Lp = H_psd
+    bp = torch.where(informative, lie.mv(V.mT, g_mk) / torch.sqrt(w_cl), 0.0)
     return Lp, bp
 
 
@@ -373,79 +387,98 @@ def _eliminate_and_roll(state: GraphState, cfg: BackendParams, M, g) -> GraphSta
     roll every frame-indexed table."""
     F, J = state.F, state.J
     D = state.D
+    lead = state.batch_shape
     dtype, dev = state.X.dtype, state.X.device
 
     # f32 hygiene: the assembly rounds differently above and below the
     # diagonal; symmetrise before factorising
-    M = 0.5 * (M + M.T)
+    M = 0.5 * (M + M.mT)
 
     perm, new_cols, keep_cols, nd = _advance_indices(F, J, dev)
-    M_perm = M[perm][:, perm]                                  # [departing; keep]
-    g_perm = g[perm]
+    M_perm = M[..., perm, :][..., perm]                        # [departing; keep]
+    g_perm = g[..., perm]
 
     # elimination jitter on the departing block; a tiny relative floor on
     # dead (structurally unused) directions only
-    diag0 = torch.diagonal(M_perm)
-    max_d = torch.clamp(torch.max(diag0), min=1.0)
+    diag0 = torch.diagonal(M_perm, dim1=-2, dim2=-1)
+    max_d = torch.clamp(torch.amax(diag0, dim=-1, keepdim=True), min=1.0)
     dead = diag0 <= 1e-10 * max_d
     reg = torch.where(dead, 1e-6 * max_d, 0.0) + torch.where(
         torch.arange(D, device=dev) < nd, _EPS_REG, 0.0
     )
-    M_perm = M_perm + torch.diag(reg)
+    M_perm = M_perm + torch.diag_embed(reg)
 
     # f32-safe marginalisation without an explicit Schur complement: factor
     # the whole equilibrated matrix once; Schur(M_dd) == L22 L22^T (the
     # explicit subtraction cancels into indefiniteness in f32,
     # window.py:452-479). A breakdown takes the eigh path, decided by one
-    # host read of the factorisation's status.
-    s_eq = torch.sqrt(torch.diagonal(M_perm))
-    Mn = M_perm / (s_eq[:, None] * s_eq[None, :])
+    # host read of every sequence's factorisation status (one sequence
+    # goes as a batch of one).
+    s_eq = torch.sqrt(torch.diagonal(M_perm, dim1=-2, dim2=-1))
+    Mn = M_perm / (s_eq[..., :, None] * s_eq[..., None, :])
     Mn = Mn + 1e-5 * torch.eye(D, dtype=dtype, device=dev)
     Ln, info = torch.linalg.cholesky_ex(Mn)
-    chol_ok = bool((info == 0) & torch.isfinite(Ln).all())
-    if chol_ok:
-        L_red, b_red = _chol_sqrt(s_eq[:, None] * Ln, g_perm, nd)
-    else:
-        L_red, b_red = _eigh_sqrt(M_perm, g_perm, nd)
+    args = (M_perm, g_perm, s_eq, Ln, info)
+    L_red, b_red = _marginal_sqrt(*(args if lead else (x[None] for x in args)), nd)
+    if not lead:
+        L_red, b_red = L_red[0], b_red[0]
 
     # rows stay in keep-space (padded with nd zero rows to (D, D)); columns
     # map keep -> new layout
-    prior_L = torch.zeros((D, D), dtype=dtype, device=dev)
-    prior_L[: D - nd, new_cols] = L_red[:, keep_cols]
-    prior_b = torch.cat([b_red, b_red.new_zeros(nd)])
+    prior_L = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    prior_L[..., : D - nd, new_cols] = L_red[..., :, keep_cols]
+    prior_b = torch.cat([b_red, b_red.new_zeros(lead + (nd,))], dim=-1)
 
-    def roll0(x):
-        return torch.cat([x[1:], torch.zeros_like(x[:1])], dim=0)
+    def roll(x, axis, last=None):
+        # drop slot 0 along `axis`; the freed last slot takes zeros or `last`
+        n = x.shape[axis]
+        tail = torch.zeros_like(x.narrow(axis, 0, 1)) if last is None else last
+        return torch.cat([x.narrow(axis, 1, n - 1), tail], dim=axis)
 
-    def roll1(x):
-        return torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
-
-    X = torch.cat([state.X[1:], state.X[-1:]], dim=0)
-    H = torch.cat([state.H[:, 1:], state.H[:, -1:]], dim=1)
-    md = torch.cat([state.md[:, 1:], state.md[:, -1:] * 0], dim=1)
+    X = roll(state.X, -3, state.X[..., -1:, :, :])
+    H = roll(state.H, -3, state.H[..., -1:, :, :])
+    md = roll(state.md, -2, state.md[..., -1:, :] * 0)
     return dataclasses.replace(
         state,
         X=X,
         H=H,
         md=md,
-        frame_ids=torch.cat([state.frame_ids[1:], state.frame_ids.new_full((1,), -1)]),
+        frame_ids=roll(state.frame_ids, -1, state.frame_ids.new_full(lead + (1,), -1)),
         num_frames=state.num_frames - 1,
-        H_valid=roll1(state.H_valid),
-        s_z=roll0(state.s_z),
-        s_valid=roll0(state.s_valid),
-        d_z=roll1(state.d_z),
-        d_valid=roll1(state.d_valid),
-        s_sig=roll0(state.s_sig),
-        d_sig=roll1(state.d_sig),
-        odom=torch.cat([state.odom[1:], state.odom[-1:]], dim=0),
-        odom_valid=roll0(state.odom_valid),
+        H_valid=roll(state.H_valid, -1),
+        s_z=roll(state.s_z, -3),
+        s_valid=roll(state.s_valid, -2),
+        d_z=roll(state.d_z, -2),
+        d_valid=roll(state.d_valid, -1),
+        s_sig=roll(state.s_sig, -3),
+        d_sig=roll(state.d_sig, -2),
+        odom=roll(state.odom, -3, state.odom[..., -1:, :, :]),
+        odom_valid=roll(state.odom_valid, -1),
         kf_slot=torch.clamp(state.kf_slot - 1, min=-1),
         prior_L=prior_L,
         prior_b=prior_b,
         prior_lin_X=X,
         prior_lin_H=H,
-        prior_valid=torch.ones((), dtype=torch.bool, device=dev),
+        prior_valid=torch.ones_like(state.prior_valid),
     )
+
+
+def _marginal_sqrt(M_perm, g_perm, s_eq, Ln, info, nd):
+    """The marginal square root of a batch of windows: one host read of
+    every sequence's factorisation status; the Cholesky route for all, and
+    the eigh route for the sequences whose factorisation broke down only,
+    gathered without a further read and merged back per sequence."""
+    ok = (info == 0) & torch.isfinite(Ln).flatten(-2).all(-1)
+    ok_host = ok.tolist()
+    L_red, b_red = _chol_sqrt(s_eq[..., :, None] * Ln, g_perm, nd)
+    n_bad = ok_host.count(False)
+    if n_bad:
+        # the failed sequences first (a stable sort keeps their order)
+        bad = torch.argsort(ok.to(torch.int8), stable=True)[:n_bad]
+        L_eig, b_eig = _eigh_sqrt(M_perm[bad], g_perm[bad], nd)
+        L_red = L_red.index_copy(0, bad, L_eig)
+        b_red = b_red.index_copy(0, bad, b_eig)
+    return L_red, b_red
 
 
 def advance_hybrid(state: GraphState, cfg: BackendParams) -> GraphState:
@@ -457,11 +490,11 @@ def advance_hybrid(state: GraphState, cfg: BackendParams) -> GraphState:
     M, g = _departing_information_hybrid(state, cfg)
     state = _eliminate_and_roll(state, cfg, M, g)
     J = state.J
-    obs_any = torch.any(state.d_valid, dim=1).to(torch.int32)
+    obs_any = torch.any(state.d_valid, dim=-1).to(torch.int32)
     seg = torch.where(state.d_obj >= 0, state.d_obj, J).long()  # J: dump slot
-    ref = torch.zeros((J + 1,), dtype=torch.int32, device=obs_any.device)
-    ref = ref.index_add_(0, seg, obs_any)[:J] > 0
-    live = torch.any(state.H_valid, dim=1) | (state.kf_valid & (state.kf_slot >= 0)) | ref
+    ref = torch.zeros(state.batch_shape + (J + 1,), dtype=torch.int32, device=obs_any.device)
+    ref = ref.scatter_add_(-1, seg, obs_any)[..., :J] > 0
+    live = torch.any(state.H_valid, dim=-1) | (state.kf_valid & (state.kf_slot >= 0)) | ref
     free = (state.obj_ids > 0) & ~live
     return dataclasses.replace(
         state,

@@ -14,6 +14,11 @@ state carries the previous frame, CLAHE-equalized when use_clahe is on
 (each frame is equalized once; detection stays on the raw gray). Stereo runs
 when the frames carry a right image and use_stereo_track is on; the IMU when
 they carry an IMU window and use_imu is on.
+
+`frontend_step` also steps B sequences at once: a FrontendState of (B, ...)
+tensors (a (B,) frame_idx) with (B, ...) FrameInputs, in the provided-flow
+mode without stereo, IMU or mask propagation (the batched step's,
+parallel/batched.py). Every operation then runs once for the batch.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from dynosam_tpu_torch.frontend.types import (
     TrackTable,
     VisionPacket,
     first_true,
+    rows,
 )
 from dynosam_tpu_torch.ops import interp
 from dynosam_tpu_torch.utils import lie
@@ -135,12 +141,20 @@ def frontend_step(
 ):
     """Process one frame -> (new FrontendState, VisionPacket). RANSAC
     samples come from `generator` (on the frame's device)."""
+    nb = state.frame_idx.ndim
     first = state.frame_idx == 0
     not_first = ~first
     old = state.tracker
     tp = params.tracker
     gray = _to_gray(inputs.rgb).contiguous()
     klt_mode = not tp.prefer_provided_optical_flow
+    if nb and (klt_mode or state.prev_mask.numel() > 0
+               or (params.use_stereo_track and inputs.right is not None)
+               or (params.use_imu and inputs.imu_samples is not None)):
+        raise NotImplementedError(
+            "frontend_step with a batch axis (ROADMAP item 17) runs the provided flow only: KLT, "
+            "mask propagation, stereo and the IMU are not batched yet"
+        )
     # KLT mode: equalize the new frame once and carry it as prev_gray; the
     # LK pair is equalized, detection stays on the raw gray
     if klt_mode and tp.use_clahe:
@@ -182,9 +196,9 @@ def frontend_step(
 
     # ---- camera ego-motion ------------------------------------------------
     # correspondence: same slot, same tracklet, valid at both frames
-    s_match = old.s_valid & tracker.s_valid & (old.s_tid == tracker.s_tid) & not_first
+    s_match = old.s_valid & tracker.s_valid & (old.s_tid == tracker.s_tid) & not_first[..., None]
     pts_cam_prev = cam.backproject(old.s_uv, old.s_depth, intr)
-    pts_world_prev = lie.transform_points(state.X_prev, pts_cam_prev)
+    pts_world_prev = lie.transform_points(state.X_prev[..., None, :, :], pts_cam_prev)
     pts_cam_k = cam.backproject(tracker.s_uv, tracker.s_depth, intr)
 
     # constant-velocity prior (and fallback)
@@ -215,7 +229,7 @@ def frontend_step(
         generator, pts_world_prev, tracker.s_uv, pts_cam_k, s_match,
         intr, params.motion_solver, X_prior, R_known=R_known,
     )
-    X_k = torch.where(first, eye4, cam_res.pose)
+    X_k = torch.where(first[..., None, None], eye4, cam_res.pose)
 
     ms = params.motion_solver
     H_img, W_img = gray.shape[-2], gray.shape[-1]
@@ -230,18 +244,18 @@ def frontend_step(
 
     # ---- joint optical-flow + camera-pose refinement ----------------------
     if ms.refine_camera_pose_with_joint_of:
-        ref_mask = s_match & cam_res.valid
+        ref_mask = s_match & cam_res.valid[..., None]
         T_ref, f_s, _ = motion.joint_flow_pose_refine(
             lie.inverse(X_k), pts_world_prev, old.s_uv,
             tracker.s_uv - old.s_uv, ref_mask, intr, ms,
         )
-        X_k = torch.where(cam_res.valid & not_first, lie.inverse(T_ref), X_k)
+        X_k = torch.where((cam_res.valid & not_first)[..., None, None], lie.inverse(T_ref), X_k)
         uv_ref = old.s_uv + f_s
-        depth_ref = interp.sample_depth(inputs.depth, uv_ref).to(dtype)
+        depth_ref = interp.sample_depth(inputs.depth, uv_ref, nb).to(dtype)
         upd = ref_mask & (depth_ref > 0) & _uv_in_bounds(uv_ref)
         tracker = dataclasses.replace(
             tracker,
-            s_uv=torch.where(upd[:, None], uv_ref, tracker.s_uv),
+            s_uv=torch.where(upd[..., None], uv_ref, tracker.s_uv),
             s_depth=torch.where(upd, depth_ref, tracker.s_depth),
         )
         # stereoTrack #2: the refinement moved the keypoints, so match them
@@ -250,19 +264,19 @@ def frontend_step(
             tracker = _stereo_refresh(tracker)
 
     # ---- object motions -----------------------------------------------------
-    d_match = old.d_valid & tracker.d_valid & (old.d_tid == tracker.d_tid) & not_first
-    in_slot = tracker.d_oid[None, :] == tracker.obj_ids[:, None]       # (J, Nd)
-    obj_match_count = torch.sum(d_match[None, :] & in_slot, dim=1)
+    d_match = old.d_valid & tracker.d_valid & (old.d_tid == tracker.d_tid) & not_first[..., None]
+    in_slot = tracker.d_oid[..., None, :] == tracker.obj_ids[..., :, None]       # (J, Nd)
+    obj_match_count = torch.sum(d_match[..., None, :] & in_slot, dim=-1)
     pts_cam_prev_d = cam.backproject(old.d_uv, old.d_depth, intr)
-    pts_world_prev_d = lie.transform_points(state.X_prev, pts_cam_prev_d)
+    pts_world_prev_d = lie.transform_points(state.X_prev[..., None, :, :], pts_cam_prev_d)
     pts_cam_k_d = cam.backproject(tracker.d_uv, tracker.d_depth, intr)
-    pts_world_k_d = lie.transform_points(X_k, pts_cam_k_d)
+    pts_world_k_d = lie.transform_points(X_k[..., None, :, :], pts_cam_k_d)
 
     # scene-flow stationarity test: an object where most matched points
     # barely move in the world this frame is not moving
     sf_mag = torch.linalg.norm(pts_world_k_d - pts_world_prev_d, dim=-1)
     low_sf = d_match & (sf_mag < params.scene_flow_magnitude)
-    obj_low_count = torch.sum(low_sf[None, :] & in_slot, dim=1)
+    obj_low_count = torch.sum(low_sf[..., None, :] & in_slot, dim=-1)
     obj_stationary = (obj_match_count > 0) & (
         obj_low_count > params.scene_flow_percentage * obj_match_count
     )
@@ -279,38 +293,40 @@ def frontend_step(
         flow_d = tracker.d_uv - old.d_uv
         oid = tracker.obj_ids
         mask_j = (
-            d_match[None, :] & in_slot & (oid > 0)[:, None] & obj_res.valid[:, None]
+            d_match[..., None, :] & in_slot & (oid > 0)[..., :, None] & obj_res.valid[..., :, None]
         )                                                               # (J, Nd)
-        T0 = lie.compose(T_cw_k, obj_res.pose)                          # (J, 4, 4)
+        T0 = lie.compose(T_cw_k[..., None, :, :], obj_res.pose)        # (J, 4, 4)
+        # a batch's per-sequence tracks broadcast over its object slots
+        lift = (lambda x: x[:, None]) if nb else (lambda x: x)
         T_r, f_d_all, _ = motion.joint_flow_pose_refine(
-            T0, pts_world_prev_d, old.d_uv, flow_d, mask_j, intr, ms
+            T0, lift(pts_world_prev_d), lift(old.d_uv), lift(flow_d), mask_j, intr, ms
         )
         # trust-region acceptance: a large departure from the RANSAC+GN
         # answer signals an ill-conditioned solve
         depart = torch.linalg.norm(
             lie.se3_log(lie.compose(lie.inverse(T0), T_r)), dim=-1
         )
-        H_ref = lie.compose(X_k, T_r)
-        n_support = torch.sum(mask_j, dim=1)
+        H_ref = lie.compose(X_k[..., None, :, :], T_r)
+        n_support = torch.sum(mask_j, dim=-1)
         ref_ok = (
             obj_res.valid
             & (oid > 0)
             & (n_support >= ms.object.min_inliers)
             & (depart <= ms.joint_of_max_step)
         )
-        obj_motions = torch.where(ref_ok[:, None, None], H_ref, obj_res.pose)
+        obj_motions = torch.where(ref_ok[..., None, None], H_ref, obj_res.pose)
         # each dynamic feature takes the flow of its own object's slot
-        slot_hit = in_slot & ref_ok[:, None]                            # (J, Nd)
-        slot_idx = first_true(slot_hit, 0)
-        has_slot = torch.any(slot_hit, dim=0)
-        nd = slot_idx.shape[0]
-        f_d = f_d_all[slot_idx, torch.arange(nd, device=slot_idx.device)]
+        slot_hit = in_slot & ref_ok[..., :, None]                       # (J, Nd)
+        slot_idx = first_true(slot_hit, -2)
+        has_slot = torch.any(slot_hit, dim=-2)
+        nd = slot_idx.shape[-1]
+        f_d = f_d_all[rows(slot_idx, nb) + (torch.arange(nd, device=slot_idx.device),)]
         uv_ref_d = old.d_uv + f_d
-        depth_ref_d = interp.sample_depth(inputs.depth, uv_ref_d).to(dtype)
+        depth_ref_d = interp.sample_depth(inputs.depth, uv_ref_d, nb).to(dtype)
         upd_d = d_match & has_slot & (depth_ref_d > 0) & _uv_in_bounds(uv_ref_d)
         tracker = dataclasses.replace(
             tracker,
-            d_uv=torch.where(upd_d[:, None], uv_ref_d, tracker.d_uv),
+            d_uv=torch.where(upd_d[..., None], uv_ref_d, tracker.d_uv),
             d_depth=torch.where(upd_d, depth_ref_d, tracker.d_depth),
         )
 
@@ -319,13 +335,13 @@ def frontend_step(
     # have their dynamic observations withheld
     if params.tracker.min_observable_mask_area > 0:
         a = params.tracker.min_observable_mask_area
-        Hm, Wm = inputs.mask.shape
+        Hm, Wm = inputs.mask.shape[-2:]
         floor = a if a >= 1.0 else a * float(Hm * Wm)
         obj_unobs = (tracker.obj_ids > 0) & (tracker.obj_det_area < floor)
         neg2 = torch.full_like(tracker.obj_ids, -2)
         d_emit = tracker.d_valid & ~torch.any(
-            tracker.d_oid[:, None] == torch.where(obj_unobs, tracker.obj_ids, neg2)[None, :],
-            dim=1,
+            tracker.d_oid[..., :, None] == torch.where(obj_unobs, tracker.obj_ids, neg2)[..., None, :],
+            dim=-1,
         )
         obj_emit = ~obj_unobs
     else:
@@ -375,7 +391,7 @@ def frontend_step(
     new_state = FrontendState(
         tracker=tracker,
         X_prev=X_k,
-        X_prev_prev=torch.where(first, X_k, state.X_prev),
+        X_prev_prev=torch.where(first[..., None, None], X_k, state.X_prev),
         frame_idx=state.frame_idx + 1,
         prev_gray=gray_t.to(state.prev_gray.dtype) if klt_mode else state.prev_gray,
         prev_mask=mask_k.to(torch.int32) if pm_on else state.prev_mask,

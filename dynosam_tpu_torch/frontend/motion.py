@@ -6,6 +6,10 @@ reference vmaps), and `joint_flow_pose_refine` takes any leading batch of
 transforms and masks. RANSAC samples from an explicit `torch.Generator`; an
 optional `uniforms` tensor replaces the draw (the tests inject the
 reference's draws).
+
+The solvers also take a leading batch axis of sequences (the batched step):
+poses (B, 4, 4), correspondences (B, N, ...) and masks (B, [J,] N); each
+operation runs once for the batch.
 """
 
 from __future__ import annotations
@@ -52,6 +56,17 @@ def _pose_at_points(T):
     return T[..., None, :, :]
 
 
+def _align(T, like):
+    """(*nb, 4, 4) -> (*nb, 1, ..., 4, 4) with as many unit axes as `like`
+    (*nb, *S, 4, 4) has slot axes, so T composes with it; a view."""
+    return T.reshape(T.shape[:-2] + (1,) * (like.ndim - T.ndim) + T.shape[-2:])
+
+
+def _lift(x, nb, k):
+    """(*nb, N, ...) -> (*nb, 1 x k, N, ...); a view."""
+    return x.reshape(x.shape[:nb] + (1,) * k + x.shape[nb:])
+
+
 # ---------------------------------------------------------------------------
 # Ego-motion
 # ---------------------------------------------------------------------------
@@ -69,13 +84,18 @@ def solve_camera_pose(
     R_known: Optional[torch.Tensor] = None,    # (3, 3) camera rotation R_cam_world at k
 ) -> MotionSolveResult:
     """Estimate X_world_cam at frame k; falls back to X_prior on failure.
+    A (B, 4, 4) X_prior with (B, N, ...) correspondences solves B sequences.
 
     With R_known (the known-rotation mode, an IMU rotation prior), each
     hypothesis pins the rotation and takes the mean of its sample points'
     translations t = p_c - R p_w; the refit and GN stages still refine the
     full pose."""
     rp = params.camera
+    nb = X_prior.ndim - 2
     data = {"p_w": pts_world, "uv": uv_k, "p_c": pts_cam_k}
+    if nb and R_known is not None:
+        raise NotImplementedError("the known-rotation camera solve (IMU prior) is not batched yet "
+                                  "(ROADMAP item 17)")
 
     if R_known is None:
         def solve_fn(s):
@@ -109,6 +129,7 @@ def solve_camera_pose(
         refit_fn=refit_fn,
         refit_rounds=params.refit_rounds if rp.optimize_pose_from_inliers else 0,
         uniforms=uniforms,
+        nb=nb,
     )
 
     if use_pnp:
@@ -127,7 +148,7 @@ def solve_camera_pose(
         iterations=params.refinement_iterations if rp.optimize_pose_from_inliers else 0,
         k_huber=k_huber,
     )
-    X = torch.where(res.valid, lie.inverse(T_cw), X_prior)
+    X = torch.where(res.valid[..., None, None], lie.inverse(T_cw), X_prior)
     return MotionSolveResult(
         pose=X, inliers=res.inliers, num_inliers=res.num_inliers, valid=res.valid
     )
@@ -148,17 +169,21 @@ def solve_object_motion(
     params: MotionSolverParams,
     uniforms: Optional[torch.Tensor] = None,   # (*B, M, N)
 ) -> MotionSolveResult:
-    """World-frame motion H with m_k^w = H m_{k-1}^w, for each leading slot."""
+    """World-frame motion H with m_k^w = H m_{k-1}^w, for each leading slot.
+    With a (B, 4, 4) X_k the correspondences are (B, N, ...) and `valid`
+    (B, *S, N): B sequences' slots at once."""
     rp = params.object
+    nb = X_k.ndim - 2
+    k_slots = valid.ndim - 1 - nb
     T_cam_world = lie.inverse(X_k)
     data = {"p_prev": pts_world_prev, "uv": uv_k, "p_k": pts_world_k}
-    z_k = lie.transform_points(T_cam_world, pts_world_k)[..., 2]
+    z_k = lie.transform_points(T_cam_world[..., None, :, :], pts_world_k)[..., 2]
 
     def solve_fn(s):
         return kabsch.solve_rigid_3pt(s["p_prev"], s["p_k"])
 
     def _uv_z_residual(H, p_prev, uv_obs, z_obs):
-        m_c = lie.transform_points(_pose_at_points(lie.compose(T_cam_world, H)), p_prev)
+        m_c = lie.transform_points(_pose_at_points(lie.compose(_align(T_cam_world, H), H)), p_prev)
         uv_pred = cam.project(m_c, intr)
         z_pred = m_c[..., 2]
         dz = (z_pred - z_obs) * intr.fx / torch.clamp(z_obs, min=1e-3)
@@ -166,7 +191,7 @@ def solve_object_motion(
 
     if params.use_object_motion_pnp:
         def residual_fn(H, d):
-            T = lie.compose(T_cam_world, H)
+            T = lie.compose(_align(T_cam_world, H), H)
             sq, mz = _project_sq_err(T, d["p_prev"], d["uv"], intr)
             zk = d["z_k"]
             dz = (mz - zk) * intr.fx / torch.clamp(zk, min=1e-3)
@@ -191,9 +216,14 @@ def solve_object_motion(
         refit_fn=refit_fn,
         refit_rounds=params.refit_rounds if rp.optimize_pose_from_inliers else 0,
         uniforms=uniforms,
+        nb=nb,
     )
 
     inlier_w = res.inliers.to(pts_world_prev.dtype)
+    if nb:
+        # per-sequence correspondences against (B, *S) motions
+        pts_world_prev, uv_k, pts_world_k, z_k = (
+            _lift(x, nb, k_slots) for x in (pts_world_prev, uv_k, pts_world_k, z_k))
     if params.use_object_motion_pnp:
         def gn_residual(Hx):
             return _uv_z_residual(Hx, pts_world_prev, uv_k, z_k)
@@ -240,11 +270,12 @@ def solve_all_object_motions(
     uniforms: Optional[torch.Tensor] = None,   # (J, M, N)
 ) -> MotionSolveResult:
     """Every object slot solved in one batch over J; each slot sees the full
-    correspondence table masked to its own object id."""
+    correspondence table masked to its own object id. A (B, 4, 4) X_k with
+    (B, J) slots and (B, N, ...) tracks solves B sequences."""
     valid = (
-        track_valid[None, :]
-        & (track_object_ids[None, :] == object_ids[:, None])
-        & (object_ids > 0)[:, None]
+        track_valid[..., None, :]
+        & (track_object_ids[..., None, :] == object_ids[..., :, None])
+        & (object_ids > 0)[..., :, None]
     )
     return solve_object_motion(
         generator, pts_world_prev, uv_k, pts_world_k, valid, X_k, intr, params,

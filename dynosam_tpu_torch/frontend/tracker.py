@@ -16,6 +16,12 @@ Detection goes through `ops/cuda/shi_tomasi.py::shi_tomasi_cell_max` when
 `tracker.use_pallas_kernels` is set (the fused response + per-cell argmax
 kernel for a CUDA tensor, its plain version for a CPU tensor), else through
 the plain response and `_cell_reduce`. It always runs on the raw `gray`.
+
+`track_frame` also takes a leading batch axis of sequences: a (B, H, W)
+frame with a TrackerState of (B, ...) tables, in the provided-flow mode
+with provided object ids (the batched step's, parallel/batched.py). Each
+operation then runs once for the batch; detection launches the kernel's
+batched entry once for all B frames.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from dynosam_tpu_torch.config import FrontendParams
-from dynosam_tpu_torch.frontend.types import first_true
+from dynosam_tpu_torch.frontend.types import first_true, rows
 from dynosam_tpu_torch.nn import bytetrack as bt
 from dynosam_tpu_torch.ops import interp, lk
 from dynosam_tpu_torch.ops.clahe import clahe
@@ -97,30 +103,31 @@ def empty_tracker_state(params: FrontendParams, device, dtype=torch.float32) -> 
 # ---------------------------------------------------------------------------
 
 def _occupancy(uv, valid, cell, gh, gw):
-    """Grid cells holding a valid feature -> (gh*gw,) bool. Invalid rows
+    """Grid cells holding a valid feature -> (..., gh*gw) bool. Invalid rows
     scatter into a dump slot that is sliced off (the reference drops them)."""
-    ui = torch.clamp(torch.div(uv[:, 0], cell, rounding_mode="floor").long(), 0, gw - 1)
-    vi = torch.clamp(torch.div(uv[:, 1], cell, rounding_mode="floor").long(), 0, gh - 1)
+    ui = torch.clamp(torch.div(uv[..., 0], cell, rounding_mode="floor").long(), 0, gw - 1)
+    vi = torch.clamp(torch.div(uv[..., 1], cell, rounding_mode="floor").long(), 0, gh - 1)
     flat = torch.where(valid, vi * gw + ui, gh * gw)
-    occ = torch.zeros((gh * gw + 1,), dtype=torch.bool, device=uv.device)
-    occ.index_fill_(0, flat, True)      # a scalar fill: no host value to copy
-    return occ[: gh * gw]
+    occ = torch.zeros(flat.shape[:-1] + (gh * gw + 1,), dtype=torch.bool, device=uv.device)
+    occ.scatter_(-1, flat, True)        # a scalar fill: no host value to copy
+    return occ[..., : gh * gw]
 
 
 def _fill_free_slots(slot_tid, slot_valid, cand_score, cand_ok, max_new):
     """Candidate index per slot (or -1): free slots take the candidates
-    ranked by score (stable order, as jnp.argsort)."""
+    ranked by score (stable order, as jnp.argsort). Over the last axis;
+    `max_new` is an int or a tensor of the leading shape."""
     score = torch.where(cand_ok, cand_score, -torch.inf)
-    order = torch.argsort(-score, stable=True)
-    n_cand = order.shape[0]
+    order = torch.argsort(-score, dim=-1, stable=True)
+    n_cand = order.shape[-1]
     cand_rank_ok = torch.arange(n_cand, device=order.device) < torch.clamp(
-        torch.sum(cand_ok), max=max_new
-    )
+        torch.sum(cand_ok, dim=-1), max=max_new
+    )[..., None]
     free = ~slot_valid
-    free_rank = torch.cumsum(free, 0) - 1
+    free_rank = torch.cumsum(free, -1) - 1
     take = torch.where(free, free_rank, n_cand)
-    take_ok = free & (free_rank < torch.sum(cand_rank_ok))
-    cand_idx = order[torch.clamp(take, 0, n_cand - 1)]
+    take_ok = free & (free_rank < torch.sum(cand_rank_ok, dim=-1)[..., None])
+    cand_idx = torch.gather(order, -1, torch.clamp(take, 0, n_cand - 1))
     return torch.where(take_ok, cand_idx, -1)
 
 
@@ -152,20 +159,29 @@ def track_frame(
     """One tracking step. See the reference docstring for the slot
     correspondence contract. In KLT mode (prefer_provided_optical_flow
     False) the LK pair is (prev_gray, gray_lk), both equalized when
-    use_clahe is on; gray_lk defaults to `gray` with CLAHE off."""
+    use_clahe is on; gray_lk defaults to `gray` with CLAHE off.
+
+    A (B, H, W) `gray` with (B, ...) state, images and `first_frame` steps
+    B sequences at once (provided flow and object ids only)."""
     tp = params.tracker
-    H, W = gray.shape
+    nb = gray.ndim - 2
+    H, W = gray.shape[-2:]
     dtype = gray.dtype
     dev = gray.device
     border_u, border_v = tp.shrink_col, tp.shrink_row
-    not_first = ~first_frame
+    not_first = ~first_frame[..., None]
+    if nb and not (tp.prefer_provided_optical_flow and tp.prefer_provided_object_detection):
+        raise NotImplementedError(
+            "track_frame with a batch axis (ROADMAP item 17) runs the provided flow and object "
+            "ids only: KLT and the ByteTrack relabelling are not batched yet"
+        )
 
     def in_bounds(uv):
         return (
-            (uv[:, 0] >= border_u)
-            & (uv[:, 0] <= W - 1 - border_u)
-            & (uv[:, 1] >= border_v)
-            & (uv[:, 1] <= H - 1 - border_v)
+            (uv[..., 0] >= border_u)
+            & (uv[..., 0] <= W - 1 - border_u)
+            & (uv[..., 1] >= border_v)
+            & (uv[..., 1] <= H - 1 - border_v)
         )
 
     def stagger(n):
@@ -188,10 +204,10 @@ def track_frame(
         mask = remap[torch.clamp(mask, 0, max_dets + 1).long()]
 
     # ======== propagate tracks (provided dense flow OR sparse KLT) ========
-    ns = state.s_uv.shape[0]
+    ns = state.s_uv.shape[-2]
     if tp.prefer_provided_optical_flow:
-        s_uv = state.s_uv + interp.sample_flow(flow, state.s_uv)
-        d_uv = state.d_uv + interp.sample_flow(flow, state.d_uv)
+        s_uv = state.s_uv + interp.sample_flow(flow, state.s_uv, nb)
+        d_uv = state.d_uv + interp.sample_flow(flow, state.d_uv, nb)
         s_prop_ok = d_prop_ok = True
     else:
         if prev_gray is None:
@@ -220,8 +236,8 @@ def track_frame(
         s_prop_ok, d_prop_ok = ok_all[:ns], ok_all[ns:]
 
     # ======== static track validity =======================================
-    s_label = interp.sample_label(mask, s_uv)
-    s_depth = interp.sample_depth(depth, s_uv).to(dtype)
+    s_label = interp.sample_label(mask, s_uv, nb)
+    s_depth = interp.sample_depth(depth, s_uv, nb).to(dtype)
     s_ok = (
         state.s_valid
         & s_prop_ok
@@ -230,12 +246,12 @@ def track_frame(
         & (s_label == 0)
         & (s_depth > 0)
         & (s_depth < params.max_background_depth)
-        & (state.s_age < tp.max_feature_track_age + stagger(state.s_age.shape[0]))
+        & (state.s_age < tp.max_feature_track_age + stagger(state.s_age.shape[-1]))
     )
 
     # ======== dynamic track validity ======================================
-    d_label = interp.sample_label(mask, d_uv)
-    d_depth = interp.sample_depth(depth, d_uv).to(dtype)
+    d_label = interp.sample_label(mask, d_uv, nb)
+    d_depth = interp.sample_depth(depth, d_uv, nb).to(dtype)
     d_ok = (
         state.d_valid
         & d_prop_ok
@@ -245,7 +261,7 @@ def track_frame(
         & (d_label > 0)
         & (d_depth > 0)
         & (d_depth < params.max_object_depth)
-        & (state.d_age < tp.max_dynamic_feature_age + stagger(state.d_age.shape[0]))
+        & (state.d_age < tp.max_dynamic_feature_age + stagger(state.d_age.shape[-1]))
     )
 
     # ======== detection: static (Shi-Tomasi + grid ANMS) =================
@@ -256,23 +272,23 @@ def track_frame(
     else:
         best, cu, cv = _cell_reduce(shi_tomasi_response(gray), cell)
     cand_uv = torch.stack([cu, cv], dim=-1)
-    cand_label = interp.sample_label(mask, cand_uv)
-    cand_depth = interp.sample_depth(depth, cand_uv).to(dtype)
+    cand_label = interp.sample_label(mask, cand_uv, nb)
+    cand_depth = interp.sample_depth(depth, cand_uv, nb).to(dtype)
     margin = tp.object_boundary_margin
     if margin < 0:
         margin = max(1, round(H * W / (640.0 * 480.0) * (640.0 / 480.0) * 7.51))
     if margin > 0:
         interior_map = (
-            (torch.roll(mask, margin, 0) == mask)
-            & (torch.roll(mask, -margin, 0) == mask)
-            & (torch.roll(mask, margin, 1) == mask)
-            & (torch.roll(mask, -margin, 1) == mask)
+            (torch.roll(mask, margin, -2) == mask)
+            & (torch.roll(mask, -margin, -2) == mask)
+            & (torch.roll(mask, margin, -1) == mask)
+            & (torch.roll(mask, -margin, -1) == mask)
         )
     else:
         interior_map = torch.ones_like(mask, dtype=torch.bool)
 
     def away_from_boundaries(uv):
-        return interp.sample_nearest(interior_map, uv)
+        return interp.sample_nearest(interior_map, uv, nb)
 
     occ_s = _occupancy(s_uv, s_ok, cell, gh, gw)
     cand_ok_s = (
@@ -287,23 +303,23 @@ def track_frame(
     sup = tp.min_distance_btw_tracked_and_detected_static_features
     if sup > cell:
         sgh, sgw = max(H // sup, 1), max(W // sup, 1)
-        occ_sup = _occupancy(s_uv, s_ok, sup, sgh, sgw).reshape(sgh, sgw)
-        su = torch.clamp(torch.div(cand_uv[:, 0], sup, rounding_mode="floor").long(), 0, sgw - 1)
-        sv = torch.clamp(torch.div(cand_uv[:, 1], sup, rounding_mode="floor").long(), 0, sgh - 1)
-        cand_ok_s = cand_ok_s & ~occ_sup[sv, su]
-    need_static = torch.sum(s_ok) < tp.min_features_per_frame
+        occ_sup = _occupancy(s_uv, s_ok, sup, sgh, sgw).reshape(s_ok.shape[:-1] + (sgh, sgw))
+        su = torch.clamp(torch.div(cand_uv[..., 0], sup, rounding_mode="floor").long(), 0, sgw - 1)
+        sv = torch.clamp(torch.div(cand_uv[..., 1], sup, rounding_mode="floor").long(), 0, sgh - 1)
+        cand_ok_s = cand_ok_s & ~occ_sup[rows(sv, nb) + (su,)]
+    need_static = torch.sum(s_ok, dim=-1) < tp.min_features_per_frame
     max_new_s = torch.where(need_static | first_frame, ns, 0)
     assign_s = _fill_free_slots(state.s_tid, s_ok, best, cand_ok_s, max_new_s)
 
     new_s = assign_s >= 0
-    a_s = torch.clamp(assign_s, 0, cand_uv.shape[0] - 1)
-    n_new_s = torch.cumsum(new_s, 0).to(torch.int32)
-    s_uv = torch.where(new_s[:, None], cand_uv[a_s], s_uv)
-    s_depth = torch.where(new_s, cand_depth[a_s], s_depth)
-    s_tid = torch.where(new_s, state.next_tid + n_new_s - 1, state.s_tid)
+    a_s = torch.clamp(assign_s, 0, cand_uv.shape[-2] - 1)
+    n_new_s = torch.cumsum(new_s, -1).to(torch.int32)
+    s_uv = torch.where(new_s[..., None], cand_uv[rows(a_s, nb)], s_uv)
+    s_depth = torch.where(new_s, cand_depth[rows(a_s, nb)], s_depth)
+    s_tid = torch.where(new_s, state.next_tid[..., None] + n_new_s - 1, state.s_tid)
     s_age = torch.where(new_s, 0, state.s_age + 1).to(torch.int32)
     s_valid = s_ok | new_s
-    next_tid = state.next_tid + n_new_s[-1]
+    next_tid = state.next_tid + n_new_s[..., -1]
 
     # ======== detection: dynamic (grid sampling on object masks) =========
     dcell = max(tp.min_distance_btw_tracked_and_detected_dynamic_features, 4)
@@ -313,48 +329,48 @@ def track_frame(
     ccu = ccu.expand(dgh, dgw).reshape(-1)
     ccv = ccv.expand(dgh, dgw).reshape(-1)
     dcand_uv = torch.stack([ccu, ccv], dim=-1)
-    dcand_label = interp.sample_label(mask, dcand_uv)
-    dcand_depth = interp.sample_depth(depth, dcand_uv).to(dtype)
+    dcand_label = interp.sample_label(mask, dcand_uv, nb)
+    dcand_depth = interp.sample_depth(depth, dcand_uv, nb).to(dtype)
     occ_d = _occupancy(d_uv, d_ok, dcell, dgh, dgw)
 
     # ---- per-object re-sampling decision (requiresSampling) -------------
     age_buffer = max(3, tp.dynamic_feature_age_buffer)
     expiry_age = tp.max_dynamic_feature_age - age_buffer
     obj = state.obj_ids                                      # (J,)
-    trk = (state.d_oid[None, :] == obj[:, None]) & d_ok[None, :]
-    n_tracked = torch.sum(trk, dim=1)
-    geriatric = torch.sum(trk & (state.d_age[None, :] > expiry_age), dim=1)
+    trk = (state.d_oid[..., None, :] == obj[..., :, None]) & d_ok[..., None, :]
+    n_tracked = torch.sum(trk, dim=-1)
+    geriatric = torch.sum(trk & (state.d_age[..., None, :] > expiry_age), dim=-1)
     many_old = geriatric > 0.8 * n_tracked
     too_few = n_tracked < tp.min_dynamic_tracks
 
     def _bbox(sel, uv):
         # sel (J, N) bool; uv (N, 2) -> (J, 4) [umin, vmin, umax, vmax]
-        u, v = uv[None, :, 0], uv[None, :, 1]
+        u, v = uv[..., None, :, 0], uv[..., None, :, 1]
         return torch.stack(
             [
-                torch.amin(torch.where(sel, u, 1e9), dim=1),
-                torch.amin(torch.where(sel, v, 1e9), dim=1),
-                torch.amax(torch.where(sel, u, -1e9), dim=1),
-                torch.amax(torch.where(sel, v, -1e9), dim=1),
+                torch.amin(torch.where(sel, u, 1e9), dim=-1),
+                torch.amin(torch.where(sel, v, 1e9), dim=-1),
+                torch.amax(torch.where(sel, u, -1e9), dim=-1),
+                torch.amax(torch.where(sel, v, -1e9), dim=-1),
             ],
             dim=-1,
         )
 
-    det_sel = dcand_label[None, :] == obj[:, None]
+    det_sel = dcand_label[..., None, :] == obj[..., :, None]
     bb_trk = _bbox(trk, d_uv)
     bb_det = _bbox(det_sel, dcand_uv)
     ix = torch.clamp(
-        torch.minimum(bb_trk[:, 2], bb_det[:, 2]) - torch.maximum(bb_trk[:, 0], bb_det[:, 0]),
+        torch.minimum(bb_trk[..., 2], bb_det[..., 2]) - torch.maximum(bb_trk[..., 0], bb_det[..., 0]),
         min=0.0,
     )
     iy = torch.clamp(
-        torch.minimum(bb_trk[:, 3], bb_det[:, 3]) - torch.maximum(bb_trk[:, 1], bb_det[:, 1]),
+        torch.minimum(bb_trk[..., 3], bb_det[..., 3]) - torch.maximum(bb_trk[..., 1], bb_det[..., 1]),
         min=0.0,
     )
     inter = ix * iy
 
     def area(b):
-        return torch.clamp(b[:, 2] - b[:, 0], min=0.0) * torch.clamp(b[:, 3] - b[:, 1], min=0.0)
+        return torch.clamp(b[..., 2] - b[..., 0], min=0.0) * torch.clamp(b[..., 3] - b[..., 1], min=0.0)
 
     union = area(bb_trk) + area(bb_det) - inter
     iou = inter / torch.clamp(union, min=1e-6)
@@ -362,9 +378,9 @@ def track_frame(
     collapse_iou = iou < tp.reanchor_mask_iou
     resample = many_old | too_few | small_iou | collapse_iou | (n_tracked == 0)
 
-    cand_match = dcand_label[None, :] == obj[:, None]        # (J, C)
-    cand_known = torch.any(cand_match & (obj > 0)[:, None], dim=0)
-    cand_resample = torch.any(cand_match & resample[:, None], dim=0)
+    cand_match = dcand_label[..., None, :] == obj[..., :, None]        # (J, C)
+    cand_known = torch.any(cand_match & (obj > 0)[..., :, None], dim=-2)
+    cand_resample = torch.any(cand_match & resample[..., :, None], dim=-2)
     sampling_ok = ~cand_known | cand_resample
 
     dcand_ok = (
@@ -377,24 +393,26 @@ def track_frame(
         & in_bounds(dcand_uv)
     )
     # per-cell hash in uint32 wraparound arithmetic, computed in int64
-    nc = dcand_uv.shape[0]
+    nc = dcand_uv.shape[-2]
     cell_hash = (
         ((torch.arange(nc, dtype=torch.int64, device=dev) * 2654435761) & 0xFFFFFFFF)
         % (1 << 20)
     ).to(dtype) / (1 << 20)
     dscore = -(torch.floor(dcand_depth / 4.0) + cell_hash)
-    nd = state.d_uv.shape[0]
+    nd = state.d_uv.shape[-2]
     assign_d = _fill_free_slots(state.d_tid, d_ok, dscore, dcand_ok, nd)
     new_d = assign_d >= 0
     a_d = torch.clamp(assign_d, 0, nc - 1)
-    n_new_d = torch.cumsum(new_d, 0).to(torch.int32)
-    d_uv = torch.where(new_d[:, None], dcand_uv[a_d], d_uv)
-    d_depth = torch.where(new_d, dcand_depth[a_d], d_depth)
-    d_oid = torch.where(new_d, dcand_label[a_d], state.d_oid).to(torch.int32)
-    d_tid = torch.where(new_d, next_tid + n_new_d - 1, state.d_tid)
+    n_new_d = torch.cumsum(new_d, -1).to(torch.int32)
+    # the candidate grid is shared by every sequence; its labels and depths
+    # are per sequence
+    d_uv = torch.where(new_d[..., None], dcand_uv[a_d], d_uv)
+    d_depth = torch.where(new_d, dcand_depth[rows(a_d, nb)], d_depth)
+    d_oid = torch.where(new_d, dcand_label[rows(a_d, nb)], state.d_oid).to(torch.int32)
+    d_tid = torch.where(new_d, next_tid[..., None] + n_new_d - 1, state.d_tid)
     d_age = torch.where(new_d, 0, state.d_age + 1).to(torch.int32)
     d_valid = d_ok | new_d
-    next_tid = next_tid + n_new_d[-1]
+    next_tid = next_tid + n_new_d[..., -1]
 
     # ======== object slot bookkeeping ====================================
     obj_ids = _update_object_slots(state.obj_ids, d_oid, d_valid)
@@ -402,17 +420,17 @@ def track_frame(
     iou_collapse = (obj > 0) & (n_tracked > 0) & collapse_iou & not_first
     neg2 = torch.full_like(obj, -2)
     obj_resampled = (obj_ids > 0) & torch.any(
-        obj_ids[:, None] == torch.where(iou_collapse, obj, neg2)[None, :], dim=1
+        obj_ids[..., :, None] == torch.where(iou_collapse, obj, neg2)[..., None, :], dim=-1
     )
-    align = obj_ids[:, None] == torch.where(obj > 0, obj, neg2)[None, :]   # (J, J)
+    align = obj_ids[..., :, None] == torch.where(obj > 0, obj, neg2)[..., None, :]   # (J, J)
     obj_mask_iou = torch.where(
-        torch.any(align, dim=1),
-        torch.sum(torch.where(align, iou[None, :], 0.0), dim=1),
+        torch.any(align, dim=-1),
+        torch.sum(torch.where(align, iou[..., None, :], 0.0), dim=-1),
         1.0,
     ).to(dtype)
 
-    det_sel_new = dcand_label[None, :] == obj_ids[:, None]
-    obj_det_area = torch.sum(det_sel_new, dim=1).to(dtype) * float(dcell * dcell)
+    det_sel_new = dcand_label[..., None, :] == obj_ids[..., :, None]
+    obj_det_area = torch.sum(det_sel_new, dim=-1).to(dtype) * float(dcell * dcell)
     obj_det_area = torch.where(obj_ids > 0, obj_det_area, 0.0)
 
     return TrackerState(
@@ -439,21 +457,21 @@ def track_frame(
 def _update_object_slots(obj_ids, d_oid, d_valid):
     """Stable (J,) table of object ids seen among valid tracks: vanished ids
     free their slot; each of J rounds admits the smallest unrepresented label
-    into the first free slot."""
-    J = obj_ids.shape[0]
-    present = (obj_ids[:, None] == d_oid[None, :]) & d_valid[None, :]
-    keep = torch.any(present, dim=1) & (obj_ids > 0)
+    into the first free slot. Over the last axes: (..., J) and (..., N)."""
+    J = obj_ids.shape[-1]
+    present = (obj_ids[..., :, None] == d_oid[..., None, :]) & d_valid[..., None, :]
+    keep = torch.any(present, dim=-1) & (obj_ids > 0)
     ids = torch.where(keep, obj_ids, -1).to(torch.int32)
     slot = torch.arange(J, device=obj_ids.device)
     for _ in range(J):
-        known = torch.any(ids[:, None] == d_oid[None, :], dim=0)
+        known = torch.any(ids[..., :, None] == d_oid[..., None, :], dim=-2)
         cand = torch.where(d_valid & (d_oid > 0) & ~known, d_oid, _INT32_MAX)
-        new_id = torch.amin(cand)
+        new_id = torch.amin(cand, dim=-1)
         has_new = new_id != _INT32_MAX
         free = ids < 0
-        first_free = first_true(free, 0)
-        can = has_new & torch.any(free)
-        ids = torch.where((slot == first_free) & can, new_id, ids).to(torch.int32)
+        first_free = first_true(free, -1)
+        can = has_new & torch.any(free, dim=-1)
+        ids = torch.where((slot == first_free[..., None]) & can[..., None], new_id[..., None], ids).to(torch.int32)
     return ids
 
 

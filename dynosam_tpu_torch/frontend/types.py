@@ -1,6 +1,8 @@
 """Frontend <-> backend data contracts (port of dynosam_tpu/frontend/types.py).
 
-Fixed-capacity tables with validity masks, as in the reference. The IMU
+Fixed-capacity tables with validity masks, as in the reference. Every
+table may carry a leading batch axis of sequences (the batched step,
+parallel/batched.py): a (B, N, 2) track table holds B sequences' tables. The IMU
 window and the right image of `FrameInputs` are optional (None when a
 dataset has neither).
 `GroundTruthFrame` holds host numpy arrays: ground truth is read only on
@@ -21,6 +23,19 @@ def first_true(x, dim):
     """Index of the first True along `dim` (0 if none), as jnp.argmax on a
     bool array; torch.argmax does not take bool tensors on CUDA."""
     return torch.argmax(x.to(torch.uint8), dim=dim)
+
+
+def rows(idx, nb: int):
+    """Index tuple that takes, per sequence, the rows `idx` of a table.
+
+    With no batch axis (nb = 0) it is `(idx,)`: t[rows(idx, 0)] = t[idx].
+    With a leading batch axis (nb = 1) `idx` is (B, ...) and the tuple pairs
+    it with the batch arange, so sequence b reads (or writes) only its own
+    rows: t[rows(idx, 1)][b] = t[b][idx[b]]."""
+    if nb == 0:
+        return (idx,)
+    b = torch.arange(idx.shape[0], device=idx.device)
+    return (b.reshape((-1,) + (1,) * (idx.ndim - 1)), idx)
 
 
 @dataclass

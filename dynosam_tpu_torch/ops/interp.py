@@ -1,6 +1,9 @@
 """Image sampling primitives (port of dynosam_tpu/ops/interp.py).
 
 Images are (H, W) or (H, W, C); points are (..., 2) in (u, v) = (column, row).
+With `nb=1` the image carries a leading batch axis of sequences, (B, H, W[,
+C]), and the points are (B, N, 2), or (N, 2) shared by every sequence: each
+sequence samples its own image.
 """
 
 from __future__ import annotations
@@ -14,25 +17,28 @@ def _clip_uv(uv, h, w):
     return u, v
 
 
-def sample_nearest(img, uv):
+def sample_nearest(img, uv, nb: int = 0):
     """Nearest-neighbour sample. torch.round rounds half to even, as jnp.round."""
-    h, w = img.shape[0], img.shape[1]
+    h, w = img.shape[nb], img.shape[nb + 1]
     u, v = _clip_uv(uv, h, w)
     ui = torch.round(u).long()
     vi = torch.round(v).long()
-    return img[vi, ui]
+    if nb == 0:
+        return img[vi, ui]
+    b = torch.arange(img.shape[0], device=img.device)[:, None]
+    return img[b, vi, ui]
 
 
-def sample_flow(flow, uv):
-    return sample_nearest(flow, uv)
+def sample_flow(flow, uv, nb: int = 0):
+    return sample_nearest(flow, uv, nb)
 
 
-def sample_label(mask, uv):
-    return sample_nearest(mask, uv)
+def sample_label(mask, uv, nb: int = 0):
+    return sample_nearest(mask, uv, nb)
 
 
-def sample_depth(depth, uv):
-    return sample_nearest(depth, uv)
+def sample_depth(depth, uv, nb: int = 0):
+    return sample_nearest(depth, uv, nb)
 
 
 def image_gradients(img):

@@ -2,7 +2,10 @@
 
 A static number of hypotheses is sampled, solved and scored in parallel. The
 port batches over any leading dimensions of `valid` (the object-slot axis of
-the per-object solves), where the reference vmaps.
+the per-object solves), where the reference vmaps. With `nb=1` the data carry
+a leading batch axis of sequences too (the batched step): `valid` is
+(B, *S, N) and each data tensor (B, N, ...), and each sequence samples its
+own correspondences.
 """
 
 from __future__ import annotations
@@ -47,6 +50,13 @@ def _sample_indices(
     return torch.stack(cols, dim=-1)
 
 
+def _lift(data: dict, nb: int, k: int) -> dict:
+    """Data tensors (*nb batch axes, N, ...) with k unit axes inserted after
+    the batch axes, so they broadcast against models of k more leading
+    axes; views only."""
+    return {key: v.reshape(v.shape[:nb] + (1,) * k + v.shape[nb:]) for key, v in data.items()}
+
+
 def ransac(
     generator: Optional[torch.Generator],
     solve_fn: Callable,       # sampled dict (*B, M, s, ...) -> models (*B, M, 4, 4)
@@ -61,11 +71,19 @@ def ransac(
     refit_fn: Callable | None = None,  # (data, weights (*B, N), model (*B,4,4)) -> model
     refit_rounds: int = 2,
     uniforms: Optional[torch.Tensor] = None,
+    nb: int = 0,              # leading sequence axes of `data` (0 or 1)
 ) -> RansacResult:
     idx = _sample_indices(generator, valid, num_hypotheses, sample_size, uniforms)
-    sampled = {k: v[idx] for k, v in data.items()}
+    if nb == 0:
+        sampled = {k: v[idx] for k, v in data.items()}
+        data_m = data_1 = data
+    else:
+        b = torch.arange(idx.shape[0], device=idx.device).reshape((-1,) + (1,) * (idx.ndim - 1))
+        sampled = {k: v[b, idx] for k, v in data.items()}
+        data_m = _lift(data, nb, valid.ndim - nb)            # against (B, *S, M)
+        data_1 = _lift(data, nb, valid.ndim - nb - 1)        # against (B, *S)
     models = solve_fn(sampled)                               # (*B, M, 4, 4)
-    residuals = residual_fn(models, data)                    # (*B, M, N)
+    residuals = residual_fn(models, data_m)                  # (*B, M, N)
     inlier_masks = (residuals < threshold) & valid[..., None, :]
     counts = torch.sum(inlier_masks, dim=-1)
     best = torch.argmax(counts, dim=-1)                      # (*B,) first max
@@ -75,8 +93,8 @@ def ransac(
 
     if refit_fn is not None:
         for _ in range(refit_rounds):
-            model = refit_fn(data, inliers.to(residuals.dtype), model)
-            res = residual_fn(model, data)
+            model = refit_fn(data_1, inliers.to(residuals.dtype), model)
+            res = residual_fn(model, data_1)
             inliers = (res < threshold) & valid
 
     num_inliers = torch.sum(inliers, dim=-1)

@@ -1,5 +1,6 @@
-"""The fused per-frame SLAM step (port of `init_pipeline_state` and the
-sequential route of `make_fused_step` in dynosam_tpu/parallel/batched.py).
+"""The fused per-frame SLAM step and its multi-sequence batch (port of
+`init_pipeline_state`, the sequential route of `make_fused_step` and
+`make_batched_pipeline` in dynosam_tpu/parallel/batched.py).
 
 One call runs frontend(k) -> window advance when the window is full ->
 backend ingestion -> the formulation's optimizer on the window through k,
@@ -7,6 +8,11 @@ and returns the new state and the frame's outputs. The formulation is
 backend_updater_enum: 0 WCME, 1 WCPE, 2 or 3 hybrid (decoupled or joint).
 The window fill is the host integer `GraphState.num_frames`, so the
 reference's `lax.cond` on it (batched.py:108-112) is a Python branch here.
+
+`make_batched_pipeline` steps B sequences as one program: every module on
+the path takes a leading batch axis, so each operation runs once for the
+whole batch (the reference's `jax.vmap` of the fused step), never once per
+sequence.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ class PipelineState:
     graph: GraphState
 
 
-def init_pipeline_state(cfg: DynoConfig, device, image_shape=None) -> PipelineState:
+def init_pipeline_state(cfg: DynoConfig, device="cuda", image_shape=None) -> PipelineState:
     cfg = cfg.normalized()
     return PipelineState(
         frontend=empty_frontend_state(cfg.frontend, device, image_shape=image_shape),
@@ -47,18 +53,11 @@ def init_pipeline_state(cfg: DynoConfig, device, image_shape=None) -> PipelineSt
     )
 
 
-def make_fused_step(
-    cfg: DynoConfig,
-    intr: cam.CameraIntrinsics,
-    generator: Optional[torch.Generator] = None,
-):
-    """Returns step(state, inputs) -> (state, outputs). RANSAC draws from
-    `generator`, which must live on the frames' device."""
+def _incremental(cfg: DynoConfig) -> DynoConfig:
+    """The normalized configuration the fused step runs: incremental mode
+    (optimization_mode 2) warm-starts a few accept/reject LM iterations."""
     cfg = cfg.normalized()
     bcfg = cfg.backend
-    enum = bcfg.backend_updater_enum
-    if enum not in (0, 1, 2, 3):
-        raise ValueError(f"backend_updater_enum={enum}: 0, 1, 2 or 3")
     if bcfg.optimization_mode == 2:
         # incremental mode: warm-started LM, few iterations, accept/reject
         bcfg = dataclasses.replace(
@@ -69,7 +68,21 @@ def make_fused_step(
                 max_iterations=min(3, bcfg.optimizer.max_iterations),
             ),
         )
-    cfg = dataclasses.replace(cfg, backend=bcfg)
+    return dataclasses.replace(cfg, backend=bcfg)
+
+
+def make_fused_step(
+    cfg: DynoConfig,
+    intr: cam.CameraIntrinsics,
+    generator: Optional[torch.Generator] = None,
+):
+    """Returns step(state, inputs) -> (state, outputs). RANSAC draws from
+    `generator`, which must live on the frames' device."""
+    cfg = _incremental(cfg)
+    bcfg = cfg.backend
+    enum = bcfg.backend_updater_enum
+    if enum not in (0, 1, 2, 3):
+        raise ValueError(f"backend_updater_enum={enum}: 0, 1, 2 or 3")
     F = bcfg.max_frames
     if enum in (2, 3):
         advance_fn = window_mod.advance_hybrid
@@ -84,28 +97,6 @@ def make_fused_step(
         update_fn = graph_mod.update_from_packet
         optimize_fn = solver.optimize
 
-    def _outputs(g: GraphState, packet):
-        latest = min(max(g.num_frames - 1, 0), F - 1)
-        prev = max(latest - 1, 0)
-        # the F2F world motion and its validity: hybrid needs a motion
-        # variable or the keyframe at the previous slot, WCPE both pose
-        # variables; WCME's motions are per-frame variables
-        if enum in (2, 3):
-            H_out = hybrid_mod.f2f_motion(g, latest)
-            H_ok = g.H_valid[:, latest] & (g.H_valid[:, prev] | (g.kf_slot == prev)) & (latest > 0)
-        elif enum == 1:
-            H_out = wcpe_mod.f2f_motion(g, latest)
-            H_ok = g.H_valid[:, latest] & g.H_valid[:, prev] & (latest > 0)
-        else:
-            H_out, H_ok = g.H[:, latest], g.H_valid[:, latest]
-        return {
-            "X_world_cam": g.X[latest],
-            "object_ids": g.obj_ids,
-            "object_motions": H_out,
-            "object_motion_valid": H_ok,
-            "frontend_pose": packet.X_world_cam,
-        }
-
     def step(state: PipelineState, inputs: FrameInputs):
         fe_state, packet = frontend_step(
             state.frontend, inputs, intr, cfg.frontend, generator
@@ -115,6 +106,111 @@ def make_fused_step(
             g = advance_fn(g, cfg.backend)
         g = update_fn(g, packet, intr, cfg.backend)
         g = optimize_fn(g, cfg.backend)
-        return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet)
+        return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet, enum)
 
     return step
+
+
+def _outputs(g: GraphState, packet, enum: int):
+    """The frame's outputs at the newest window slot (each with the batch's
+    leading axis, if any)."""
+    latest = min(max(g.num_frames - 1, 0), g.F - 1)
+    prev = max(latest - 1, 0)
+    # the F2F world motion and its validity: hybrid needs a motion
+    # variable or the keyframe at the previous slot, WCPE both pose
+    # variables; WCME's motions are per-frame variables
+    if enum in (2, 3):
+        H_out = hybrid_mod.f2f_motion(g, latest)
+        H_ok = g.H_valid[..., latest] & (g.H_valid[..., prev] | (g.kf_slot == prev)) & (latest > 0)
+    elif enum == 1:
+        H_out = wcpe_mod.f2f_motion(g, latest)
+        H_ok = g.H_valid[:, latest] & g.H_valid[:, prev] & (latest > 0)
+    else:
+        H_out, H_ok = g.H[:, latest], g.H_valid[:, latest]
+    return {
+        "X_world_cam": g.X[..., latest, :, :],
+        "object_ids": g.obj_ids,
+        "object_motions": H_out,
+        "object_motion_valid": H_ok,
+        "frontend_pose": packet.X_world_cam,
+    }
+
+
+def _map_tensors(fn, obj):
+    """`obj` (nested dataclasses of tensors and host ints) with `fn` applied
+    to every tensor."""
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _map_tensors(fn, getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    return fn(obj) if torch.is_tensor(obj) else obj
+
+
+def _refuse_unbatched(cfg: DynoConfig):
+    """NotImplementedError for a configuration the batched modules do not
+    run yet: they cover the provided-flow frontend and the decoupled hybrid
+    backend."""
+    bcfg, fp = cfg.backend, cfg.frontend
+    tp = fp.tracker
+    why = []
+    if bcfg.backend_updater_enum not in (2, 3):
+        why.append(f"backend_updater_enum={bcfg.backend_updater_enum} (WCME 0 and WCPE 1)")
+    elif not bcfg.decoupled_object_solve:
+        why.append("the joint hybrid solve (decoupled_object_solve off)")
+    if not tp.prefer_provided_optical_flow:
+        why.append("KLT tracking")
+    if not tp.prefer_provided_object_detection:
+        why.append("the detector's ByteTrack relabelling")
+    if fp.use_imu:
+        why.append("the IMU")
+    if why:
+        raise NotImplementedError(
+            "make_batched_pipeline: " + ", ".join(why) + " not batched yet (ROADMAP item 17 "
+            "batched the provided-flow frontend and the decoupled hybrid backend)"
+        )
+
+
+def make_batched_pipeline(
+    cfg: DynoConfig,
+    intr: cam.CameraIntrinsics,
+    generator: Optional[torch.Generator] = None,
+):
+    """The fused step over B sequences at once -> (step, init_fn).
+
+    `init_fn(B, device="cuda")` gives a PipelineState whose tensors carry a
+    leading batch axis of B (the reference's `_init_batch`).
+    `step(states, inputs)` takes FrameInputs with the same leading B and
+    returns the new states and per-sequence outputs, each (B, ...). It is
+    one program: every torch operation runs once for the whole batch, the
+    Shi-Tomasi kernel launches once per frame for all B images, and RANSAC
+    draws the whole batch's uniforms from the one `generator` (on the
+    frames' device). The sequences step in lockstep, so the window fill
+    stays one host integer, `GraphState.num_frames`, as the reference's
+    sequences advance together under vmap.
+
+    The reference's `mesh=` argument, which shards the sequence axis over a
+    device mesh, has no counterpart on one GPU and is not taken. Stereo,
+    the IMU, KLT, mask propagation, the detector and the backends other
+    than the decoupled hybrid raise NotImplementedError."""
+    cfg = _incremental(cfg)
+    _refuse_unbatched(cfg)
+
+    def init_fn(B: int, device="cuda") -> PipelineState:
+        one = init_pipeline_state(cfg, device)
+        return _map_tensors(lambda t: t.expand((B,) + t.shape).clone(), one)
+
+    def step(states: PipelineState, inputs: FrameInputs):
+        fidx = states.frontend.frame_idx
+        if fidx.ndim != 1 or inputs.rgb.ndim != 4 or inputs.rgb.shape[0] != fidx.shape[0]:
+            raise ValueError(
+                f"batched step: states with frame_idx {tuple(fidx.shape)} and rgb "
+                f"{tuple(inputs.rgb.shape)} must share one leading batch axis"
+            )
+        fe_state, packet = frontend_step(states.frontend, inputs, intr, cfg.frontend, generator)
+        g = states.graph
+        if g.num_frames >= cfg.backend.max_frames:
+            g = window_mod.advance_hybrid(g, cfg.backend)
+        g = graph_mod.update_from_packet_hybrid(g, packet, intr, cfg.backend)
+        g = hybrid_mod.optimize_decoupled(g, cfg.backend)
+        return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet, 3)
+
+    return step, init_fn

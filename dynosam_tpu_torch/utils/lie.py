@@ -1,7 +1,8 @@
 """Batched SE(3)/SO(3) Lie-group library (PyTorch port of dynosam_tpu/utils/lie.py).
 
 Poses are ``(..., 4, 4)`` homogeneous matrices; tangents are ``(..., 6)`` in
-GTSAM order ``[omega, v]``. Small-angle branches use Taylor series through
+GTSAM order ``[omega, v]``. Every function broadcasts over leading dims, a
+batch axis of sequences included. Small-angle branches use Taylor series through
 ``torch.where`` on sanitised operands, as the JAX reference does.
 
 The reference forces HIGHEST-precision f32 matmuls (TPU matmuls default to
@@ -27,6 +28,14 @@ def mm(a, b):
 
 def einsum(subscripts, *operands):
     return torch.einsum(subscripts, *operands)
+
+
+def mv(A, x):
+    """Matrix-vector product over leading dims: (..., m, n) x (..., n) ->
+    (..., m); an unbatched pair is the plain `A @ x`."""
+    if A.ndim == 2 and x.ndim == 1:
+        return A @ x
+    return (A @ x[..., None])[..., 0]
 
 
 def _taylor_safe(theta2):

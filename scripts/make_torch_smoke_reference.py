@@ -48,9 +48,14 @@ dynosam_tpu_torch/testdata/:
     run_config_dataset), RANSAC seeds 0, 1 and 2, keys as kitti_ref_60f.npz
     with the formulation ("wcme", "wcpe") in place of the mode. This part
     builds its configurations from the JAX package alone.
+  * bench_batched_ref_b8_20f.npz (--only batched) — the batched step
+    (parallel/batched.py::make_batched_pipeline, jitted, its own per-sequence
+    keys) at bench.bench_config() over B=8 sequences of one 27-frame bench
+    scene, sequence b taking frames b .. b+19: the window fills and then
+    advances 10 times. Keys as bench_ref_20f.npz, each (frames, B, ...).
 
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
-    [--only bench|detector|kitti|klt|stereo_imu|forms]
+    [--only bench|detector|kitti|klt|stereo_imu|forms|batched]
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
 after it; the forms files' CPU time is in CHANGES.md)
@@ -91,6 +96,8 @@ FORMS_BENCH = {"wcme": {"backend.backend_updater_enum": 0}, "wcpe": {"backend.ba
                "joint": {"backend.decoupled_object_solve": False}}
 FORMS_KITTI = {"wcme": 0, "wcpe": 1}
 KITTI_FORMS_OUT = os.path.join(TESTDATA, "kitti_forms_ref_60f.npz")
+BATCHED_B = 8
+BATCHED_OUT = os.path.join(TESTDATA, "bench_batched_ref_b8_20f.npz")
 
 
 def _save(path, arrays, t0):
@@ -130,6 +137,21 @@ def bench_reference():
     frames = bench.make_frames(intr, num_frames=BENCH_FRAMES)
     step = jax.jit(make_fused_step(cfg, intr))
     _save(BENCH_OUT, _run(step, init_pipeline_state(cfg), frames), t0)
+
+
+def batched_reference():
+    import jax
+    import jax.numpy as jnp
+
+    import bench
+    from dynosam_tpu.parallel.batched import make_batched_pipeline
+
+    t0 = time.time()
+    cfg, intr = bench.bench_config()
+    frames = bench.make_frames(intr, num_frames=BENCH_FRAMES + BATCHED_B - 1)
+    step, init = make_batched_pipeline(cfg, intr)
+    stacked = [jax.tree.map(lambda *x: jnp.stack(x), *frames[k:k + BATCHED_B]) for k in range(BENCH_FRAMES)]
+    _save(BATCHED_OUT, _run(step, init(BATCHED_B), stacked), t0)
 
 
 def _klt_cfg(**overrides):
@@ -404,10 +426,10 @@ def forms_reference():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms"],
+    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched"],
                     action="append", help="write only these files (default: all)")
     args = ap.parse_args()
-    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms"]
+    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched"]
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -421,6 +443,8 @@ def main():
         stereo_imu_reference()
     if "forms" in todo:
         forms_reference()
+    if "batched" in todo:
+        batched_reference()
 
 
 if __name__ == "__main__":

@@ -17,7 +17,11 @@
     off); their backend layers are the window advance, the graph update, the
     optimizer, inside it the LM loop (lm_accept_reject) and each
     linearisation, and for WCME and WCPE inside that the chain elimination's
-    block-Thomas factorisation and dense chain inverse.
+    block-Thomas factorisation and dense chain inverse;
+  * batched_b8 (or batched_b<B>): make_batched_pipeline at bench_config over
+    8 sequences of one 27-frame bench scene, sequence b on frames b..b+19,
+    each frame one program for the batch; its layers are the bench path's,
+    the optimizer being the decoupled hybrid LM it calls.
 
 Each path runs twice on fresh states: the first pass warms up (kernel build,
 cuBLAS/cuSOLVER/cuDNN handles, allocator), the second is measured. Layers
@@ -30,7 +34,7 @@ image and ByteTrack. A third pass runs under torch.profiler for device busy
 time, device op count and the top kernels by device time.
 
 Usage: python scripts/profile_torch_step.py [--out PATH.json] [--seed N]
-    [--paths bench,klt,stereo_imu,detector,wcme,wcpe,joint]
+    [--paths bench,klt,stereo_imu,detector,wcme,wcpe,joint,batched_b8]
 """
 
 from __future__ import annotations
@@ -145,8 +149,15 @@ def main():
                       "joint": {"backend.decoupled_object_solve": False}}
 
     def make_path(name):
-        engine = None
-        if name in form_overrides:
+        engine, batch = None, None
+        if name.startswith("batched_b"):
+            batch = int(name[len("batched_b"):])
+            cfg, intr = bc.bench_config()
+            scene_frames = bc.bench_scene(intr, 20 + batch - 1, device="cuda").frames()
+            frames = [dataclasses.replace(scene_frames[k], **{
+                f: torch.stack([getattr(fr, f) for fr in scene_frames[k:k + batch]])
+                for f in scene_frames[k].tensors()}) for k in range(20)]
+        elif name in form_overrides:
             cfg, intr = bc.bench_config()
             cfg = cfg.with_overrides(form_overrides[name])
             frames = bc.bench_scene(intr, 20, device="cuda").frames()
@@ -164,12 +175,18 @@ def main():
             cfg, intr = bc.detector_config()
             frames = bc.detector_scene(intr, 24, device="cuda").frames()
             engine = det_mod.YoloV8DetectorEngine(device="cuda")
-        return cfg, intr, frames, engine
+        return cfg, intr, frames, engine, batch
 
-    def run_pass(cfg, intr, frames, engine):
+    def make_step(cfg, intr, batch):
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
-        step = make_fused_step(cfg, intr, gen)
-        state = init_pipeline_state(cfg, "cuda", image_shape=(intr.height, intr.width))
+        if batch:
+            step, init = batched_mod.make_batched_pipeline(cfg, intr, gen)
+            return step, init(batch, "cuda")
+        return make_fused_step(cfg, intr, gen), init_pipeline_state(
+            cfg, "cuda", image_shape=(intr.height, intr.width))
+
+    def run_pass(cfg, intr, frames, engine, batch):
+        step, state = make_step(cfg, intr, batch)
         times = []
         for f in frames:
             torch.cuda.synchronize()
@@ -191,12 +208,10 @@ def main():
             for (owner, attr, _), f in zip(hooks, orig):
                 setattr(owner, attr, f)
 
-    def profile_pass(cfg, intr, frames, engine):
+    def profile_pass(cfg, intr, frames, engine, batch):
         from torch.profiler import ProfilerActivity, profile
 
-        gen = torch.Generator(device="cuda").manual_seed(args.seed)
-        step = make_fused_step(cfg, intr, gen)
-        state = init_pipeline_state(cfg, "cuda", image_shape=(intr.height, intr.width))
+        step, state = make_step(cfg, intr, batch)
 
         def one(state, f):
             if engine is not None:
@@ -219,11 +234,14 @@ def main():
 
     result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "paths": {}}
     for name in args.paths.split(","):
-        cfg, intr, frames, engine = make_path(name)
-        run_pass(cfg, intr, frames, engine)                       # warm-up
+        cfg, intr, frames, engine, batch = make_path(name)
+        run_pass(cfg, intr, frames, engine, batch)                # warm-up
         layers.clear()
         hooks = step_hooks
-        if name in ("wcme", "wcpe"):
+        if batch:
+            hooks = [h for h in step_hooks if h[1] != "optimize"] + [
+                (hybrid_mod, "optimize_decoupled", "hybrid_optimize")]
+        elif name in ("wcme", "wcpe"):
             hooks = [h for h in step_hooks if h[0] is not window_mod and h[0] is not graph_mod
                      and h[0] is not hybrid_mod] + form_hooks[name]
         elif name == "joint":
@@ -239,7 +257,7 @@ def main():
         lk_mod.lk_flow = lk_flow_named(orig_flow)
         lk_calls[0] = 0
         try:
-            step_times = hooked(hooks, lambda: run_pass(cfg, intr, frames, engine))
+            step_times = hooked(hooks, lambda: run_pass(cfg, intr, frames, engine, batch))
         finally:
             lk_mod.lk_flow = orig_flow
         n = len(frames)
@@ -260,12 +278,14 @@ def main():
             # the first lk_track call of each frame
             trk_lk = layers["lk_track"][:: len(layers["lk_track"]) // n]
             layers["tracker_rest"] = [t - lkt for t, lkt in zip(layers["tracker"], trk_lk)]
-        wall, kernels, by_name = profile_pass(cfg, intr, frames, engine)
+        wall, kernels, by_name = profile_pass(cfg, intr, frames, engine, batch)
         busy_us = sum(by_name.values())
         n_prof = len(frames) - 1
-        steady = step_times[10:] if name in ("bench", "klt", "wcme", "wcpe", "joint") else step_times[1:]
+        steady = (step_times[10:] if batch or name in ("bench", "klt", "wcme", "wcpe", "joint")
+                  else step_times[1:])
         r = {
             "frames": len(frames),
+            "sequences": batch or 1,
             "step_ms": [t * 1e3 for t in step_times],
             # bench, klt: frames 11-20, where every step advances the window
             "step_ms_median_steady": statistics.median(steady) * 1e3,

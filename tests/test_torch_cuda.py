@@ -187,3 +187,32 @@ def test_fused_step_on_the_card_matches_the_cpu(cuda):
                 launches[0] + 5, launches[1])
     # noise-free scene: RANSAC's outcome does not depend on the draws
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4)
+
+
+def test_tracker_batch_launches_the_batched_entry_once(cuda):
+    """The tracker's detection at B=8 (bench width, cell 16) is one launch
+    of the kernel's blockIdx.z entry, and its per-cell results equal eight
+    single-image launches bit for bit."""
+    from dynosam_tpu_torch.bench_config import bench_config
+    from dynosam_tpu_torch.frontend import tracker as tracker_mod
+    from dynosam_tpu_torch.parallel.batched import _map_tensors
+
+    cfg, _ = bench_config()
+    B, H, W = 8, 384, 1280
+    gray = torch.rand((B, H, W), generator=cuda, device="cuda")
+    state = _map_tensors(lambda x: x.expand((B,) + x.shape).clone(),
+                         tracker_mod.empty_tracker_state(cfg.frontend, "cuda"))
+    depth = torch.full((B, H, W), 10.0, device="cuda")
+    flow = torch.zeros((B, H, W, 2), device="cuda")
+    mask = torch.zeros((B, H, W), dtype=torch.int32, device="cuda")
+    first = torch.ones((B,), dtype=torch.bool, device="cuda")
+    launches = (st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches)
+    out = tracker_mod.track_frame(state, gray, depth, flow, mask, cfg.frontend, first)
+    assert (st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches) == (
+        launches[0] + 1, launches[1])
+    assert out.s_uv.shape == (B, cfg.frontend.tracker.max_features_per_frame, 2)
+    assert bool((out.s_valid.sum(-1) > 0).all())
+    batched = st.shi_tomasi_cell_max(gray, 16)
+    for b in range(B):
+        one = st.shi_tomasi_cell_max(gray[b].contiguous(), 16)
+        assert all(torch.equal(x[b], y) for x, y in zip(batched, one))
