@@ -90,7 +90,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
      aggregate and per-sequence frames/s and host syncs per frame; and on
      the B=1 run's final window the landmark-chunked assembly
      (parallel/sharded.py, P=4) held to hybrid.linearize;
-  12. print the kernel table (with each kernel's bound: the larger of its
+  12. datasets: each of the seven on-disk formats (dyno-KITTI with png
+     masks, Virtual KITTI 2, OMD, TartanAir-Shibuya, VIODE, ClusterSlam,
+     Aria; bench_config.DATASET_FORMATS) written by the port's writers at
+     its dataset's frame size (12 frames; VIODE and Aria 10), frame 5 read
+     back against what the writer was given within the format's
+     quantisation, then run from disk through run_dynosam.run at the
+     real-io configuration on the card (VIODE's and ClusterSlam's depth by
+     dense stereo inside the reader, on the card); camera ATE and matured
+     object motions held to the scene's ground truth and to the JAX run of
+     dynosam_tpu_torch/testdata/datasets_ref_12f.npz (DATASET_BOUNDS); the
+     first frame's inputs and graph state on the card; the fused K1 once per
+     frame, the map entry never; frames/s and decode ms per frame;
+  13. print the kernel table (with each kernel's bound: the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates; launches per path under launches_by_path) and
      the contract line.
@@ -258,6 +270,53 @@ BATCHED_SIZES = (1, 8)
 BATCHED_OPS_RATIO = 1.5
 CHUNK_P = 4
 CHUNK_REL = 1e-4
+
+
+# Phase 12 (datasets): 12 frames per format (10 for VIODE and Aria,
+# bench_config.dataset_frames); frame 5 read back against what
+# the writer was given. VKITTI's 16-bit flow quantises to half a code step,
+# (w - 1) / 65535 px, plus DATASET_VKITTI_FLOW_PX for the f32 decode; its
+# quality-98 JPEG loses up to
+# DATASET_JPEG_LEVELS grey levels against the truncated render (the codec
+# itself equals OpenCV, tests/test_torch_codecs.py).
+DATASET_CHECK_FRAME = 5
+DATASET_VKITTI_FLOW_PX = 1e-3
+DATASET_JPEG_LEVELS = 12.0
+DATASET_MOTION_OVERLAP = 0.9
+# Bounds per format, 3-15x above the readings of torch on the CPU (4
+# threads) and on the H100 (run AH): against the scene's ground truth, the
+# largest mature camera translation (m) and rotation (rad) error and the
+# median matured-motion translation error (m), the two readings equal to
+# 3 digits; against the JAX run, the largest pose translation and rotation
+# difference and the median and largest matured-motion difference on
+# shared keys. Readings, CPU / card:
+#   kitti_png   0.0497 0.0025 5.7e-4 | 5e-6/8.0e-6 2e-7/3.5e-7 4e-6/1.7e-5 1.2e-3/3.5e-4
+#   vkitti      0.0092 6.6e-4 2.2e-3 | 5.2e-4/1.3e-5 7e-6/2.6e-7 2.0e-5/7.8e-5 7.3e-5/3.5e-4
+#   omd         0.0515 8.0e-4 4.0e-3 | 3e-6/2.2e-5 1e-6/6.1e-6 1.9e-5/3.4e-5 8.2e-5/2.1e-4
+#   tartanair   0.0232 1.9e-4 5.8e-4 | 2e-6/3.3e-6 2e-7/1.3e-6 1.2e-5/8.8e-6 3.7e-5/1.0e-4
+#   viode       0.541  0.0120 0.449  | 0.018/3.5e-4 5.1e-4/2.0e-5 0.122/0.201 0.791/1.01
+#   clusterslam 0.717  0.0088 0.259  | 0.021/0.018 5.2e-4/8.8e-5 0.018/0.012 0.761/0.802
+#   aria        0.0232 1.4e-4 4.7e-3 | 2e-6/4.5e-6 6e-8/6.7e-8 8e-6/1.3e-5 3.1e-5/5.1e-5
+# The two stereo formats track poorly in the reference too (the JAX run is
+# within 2 cm of the port's): their depth, matched on a synthesised right
+# view, is invalid on 5-11% of the pixels, and the JAX reader's jitted
+# matcher flips validity gates at other pixels than the port's.
+DATASET_BOUNDS = {
+    "kitti_png": {"ate_max_m": 0.25, "ate_rot_rad": 0.0125, "ame_median_m": 5e-3, "ref_pose_m": 1e-4,
+                  "ref_pose_rad": 5e-6, "ref_motion_median_m": 2e-4, "ref_motion_max_m": 1e-2},
+    "vkitti": {"ate_max_m": 0.05, "ate_rot_rad": 5e-3, "ame_median_m": 0.01, "ref_pose_m": 5e-3,
+               "ref_pose_rad": 7e-5, "ref_motion_median_m": 8e-4, "ref_motion_max_m": 4e-3},
+    "omd": {"ate_max_m": 0.25, "ate_rot_rad": 5e-3, "ame_median_m": 0.02, "ref_pose_m": 2e-4,
+            "ref_pose_rad": 6e-5, "ref_motion_median_m": 3e-4, "ref_motion_max_m": 2e-3},
+    "tartanair": {"ate_max_m": 0.12, "ate_rot_rad": 2e-3, "ame_median_m": 5e-3, "ref_pose_m": 5e-5,
+                  "ref_pose_rad": 1.5e-5, "ref_motion_median_m": 1.5e-4, "ref_motion_max_m": 1e-3},
+    "viode": {"ate_max_m": 2.0, "ate_rot_rad": 0.06, "ame_median_m": 1.5, "ref_pose_m": 0.2,
+              "ref_pose_rad": 5e-3, "ref_motion_median_m": 1.0, "ref_motion_max_m": 3.0},
+    "clusterslam": {"ate_max_m": 2.5, "ate_rot_rad": 0.05, "ame_median_m": 1.0, "ref_pose_m": 0.2,
+                    "ref_pose_rad": 5e-3, "ref_motion_median_m": 0.2, "ref_motion_max_m": 3.0},
+    "aria": {"ate_max_m": 0.12, "ate_rot_rad": 2e-3, "ame_median_m": 0.025, "ref_pose_m": 5e-5,
+             "ref_pose_rad": 1e-6, "ref_motion_median_m": 1.5e-4, "ref_motion_max_m": 6e-4},
+}
 
 
 def say(msg):
@@ -1276,6 +1335,203 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
     return paths
 
 
+def _aligned_truth(np, scene):
+    """The scene's camera poses and object motions in the frame of its first
+    camera pose (the readers align the first pose to the identity)."""
+    X = scene.scn.X_gt.detach().cpu().numpy().astype(np.float64)
+    A = np.linalg.inv(X[0])
+    H = {oid: np.einsum("ij,fjk,kl->fil", A, h.detach().cpu().numpy().astype(np.float64), X[0])
+         for oid, h in zip(scene.scn.object_ids, scene.scn.H_gt)}
+    return A @ X, H
+
+
+def check_reader(torch, name, ds, scene, k):
+    """(a) of phase 12: the reader's frame k against what the writer was
+    given, within the format's quantisation -> the readings."""
+    import numpy as np
+
+    from dynosam_tpu_torch.bench_config import DATASET_FORMATS
+
+    got = {f: v.detach().cpu().numpy() for f, v in ds.frame_host(k).tensors().items()}
+    src = {f: v.detach().cpu().numpy() for f, v in scene.frame(k).tensors().items()}
+    out = {}
+    if not np.array_equal(got["mask"], src["mask"]):
+        raise AssertionError(f"{name}: frame {k} mask differs from the written one "
+                             f"on {int((got['mask'] != src['mask']).sum())} pixels")
+    out["flow_px"] = float(np.abs(got["flow"] - src["flow"]).max())
+    # VKITTI's 16-bit codes step 2 (w - 1) / 65535 px; rounding is half a step
+    w = src["flow"].shape[1]
+    if out["flow_px"] > ((w - 1) / 65535.0 + DATASET_VKITTI_FLOW_PX if name == "vkitti" else 0.0):
+        raise AssertionError(f"{name}: frame {k} flow off by {out['flow_px']} px")
+    rgb8 = np.floor(src["rgb"] * np.float32(255.0))
+    out["rgb_levels"] = float(np.abs(got["rgb"] * np.float32(255.0) - rgb8).max())
+    if out["rgb_levels"] > (DATASET_JPEG_LEVELS if name == "vkitti" else 1e-3):
+        raise AssertionError(f"{name}: frame {k} rgb off by {out['rgb_levels']} grey levels")
+    d, dg = src["depth"].astype(np.float64), got["depth"].astype(np.float64)
+    err = np.abs(dg - d)
+    _, _, _, (fx, _, _, _), baseline, _, _ = DATASET_FORMATS[name]
+    if name in ("viode", "clusterslam"):
+        valid = dg > 0
+        rel = float(np.median(err[valid] / d[valid]))
+        out.update(depth_valid=float(valid.mean()), depth_median_rel=rel)
+        if valid.mean() < 0.2 or rel > STEREO_DEPTH_RELERR:
+            raise AssertionError(f"{name}: stereo depth valid on {valid.mean():.3f}, median rel err {rel}")
+    else:
+        if name in ("kitti_png", "omd"):      # uint16 disparity at 1/256 px
+            bound = d ** 2 / (fx * baseline * 256.0) * 0.51 + 1e-4
+        elif name == "vkitti":                # centimetres
+            bound = np.full_like(d, 0.005 + 1e-5)
+        else:                                 # depth * 256
+            bound = np.full_like(d, 0.5 / 256.0 + 1e-6)
+        out["depth_excess"] = float((err - bound).max())
+        if out["depth_excess"] > 0:
+            raise AssertionError(f"{name}: frame {k} depth beyond its quantisation by {out['depth_excess']} m")
+    return out
+
+
+def dataset_errors(pipe, scene, ref, name):
+    """(b) and (c) of phase 12: mature camera poses and matured object
+    motions against the scene's ground truth and against the JAX reference's
+    run -> readings."""
+    import numpy as np
+
+    X = np.stack(pipe.trajectory).astype(np.float64)
+    X_true, H_true = _aligned_truth(np, scene)
+    X_true = X_true[:len(X)]
+    out = {"ate_max_m": float(np.linalg.norm(X[:, :3, 3] - X_true[:, :3, 3], axis=-1).max())}
+    dR = np.einsum("kji,kjl->kil", X[:, :3, :3], X_true[:, :3, :3])
+    w = 0.5 * np.stack([dR[:, 2, 1] - dR[:, 1, 2], dR[:, 0, 2] - dR[:, 2, 0], dR[:, 1, 0] - dR[:, 0, 1]], -1)
+    out["ate_rot_rad"] = float(np.arcsin(np.clip(np.linalg.norm(w, axis=-1), 0.0, 1.0)).max())
+    got_m = pipe.backend.matured_motion
+    mot = [float(np.linalg.norm(np.asarray(H)[:3, 3] - H_true[oid][f][:3, 3]))
+           for (f, oid), H in got_m.items() if oid in H_true and f > 0]
+    if not mot:
+        raise AssertionError(f"{name}: no matured object motion")
+    out.update(ame_max_m=max(mot), ame_median_m=float(np.median(mot)), n_motions=len(mot))
+    ref_err = kitti_errors(pipe, ref, name)
+    out.update({f"ref_{k}": v for k, v in ref_err.items()})
+    return out
+
+
+def dataset_run(torch, name, root, device, seed=0):
+    """One format of phase 12: write dataset_frames(name) frames of its scene with
+    the port's writers, check frame DATASET_CHECK_FRAME read back, run
+    run_dynosam.run over the directory at the real-io configuration ->
+    (pipeline, scene, readings). The first frame's inputs and the graph
+    state after it must lie on `device`; K1 counts are left for the caller."""
+    from dynosam_tpu_torch import run_dynosam
+    from dynosam_tpu_torch.bench_config import (DATASET_FORMATS, dataset_frames, dataset_scene,
+                                                kitti_real_io_config)
+    from dynosam_tpu_torch.dataproviders import fixture_writers, kitti_writer
+    from dynosam_tpu_torch.dataproviders.base import create_dataset
+    from dynosam_tpu_torch.pipeline.pipeline import DynoPipeline
+    from dynosam_tpu_torch.utils.stats import Statistics
+
+    dtype, _, _, (fx, _, _, _), baseline, writer_kw, reader_kw = DATASET_FORMATS[name]
+    scene = dataset_scene(name, dataset_frames(name), device=device)
+    out_dir = os.path.join(root, name)
+    t0 = time.perf_counter()
+    if name == "kitti_png":
+        kitti_writer.write_kitti_sequence(scene, out_dir, base_line=fx * baseline, **writer_kw)
+    else:
+        writer = {"vkitti": "write_vkitti_sequence", "omd": "write_omd_sequence",
+                  "tartanair": "write_tartanair_sequence", "viode": "write_viode_sequence",
+                  "clusterslam": "write_clusterslam_sequence", "aria": "write_aria_sequence"}[name]
+        getattr(fixture_writers, writer)(scene, out_dir, **writer_kw)
+    readings = {"write_s": time.perf_counter() - t0}
+    readings.update(check_reader(torch, name, create_dataset(dtype, out_dir, device=device, **reader_kw),
+                                 scene, DATASET_CHECK_FRAME))
+
+    first = {}
+    process = DynoPipeline.process_frame
+
+    def checked(self, inputs, gt=None):
+        result = process(self, inputs, gt)
+        if not first:
+            first.update(inputs=_device_types(inputs), state=_device_types(self.backend.state))
+        return result
+
+    Statistics.reset()
+    DynoPipeline.process_frame = checked
+    try:
+        pipe, n, dt = run_dynosam.run(kitti_real_io_config(), dtype, out_dir, os.path.join(root, name + "_out"),
+                                      device=device, dataset_kwargs=reader_kw)
+    finally:
+        DynoPipeline.process_frame = process
+    want = torch.device(device).type
+    off = {k: v for part in first.values() for k, v in part.items() if v != want}
+    if off or not first:
+        raise AssertionError(f"{name}: pipeline tensors not on {want}: {off}")
+    decode = Statistics.get("pipeline.decode")
+    readings.update(frames=n, run_s=dt, fps=n / dt, decode_ms=decode.mean)
+    return pipe, scene, readings
+
+
+def datasets_readings(torch, ref, device="cuda", names=None):
+    """Every format of phase 12 without the bounds -> {name: readings}
+    (for calibration on the CPU: device="cpu")."""
+    import shutil
+    import tempfile
+
+    from dynosam_tpu_torch.bench_config import DATASET_FORMATS
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+
+    root = tempfile.mkdtemp(prefix="smoke_datasets_")
+    out = {}
+    try:
+        for name in names or DATASET_FORMATS:
+            st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+            pipe, scene, readings = dataset_run(torch, name, root, device)
+            readings["k1"], readings["k1_map"] = _k1_counts(st)
+            readings.update(dataset_errors(pipe, scene, ref, name))
+            out[name] = readings
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def run_datasets_path(torch, seed, ref_path, device="cuda", smi=""):
+    """Phase 12: the seven on-disk formats, each written by the port's
+    writers at its dataset's frame size and run from disk through
+    run_dynosam.run, held to DATASET_BOUNDS -> K1 launches."""
+    import numpy as np
+
+    from dynosam_tpu_torch.bench_config import DATASET_FORMATS
+
+    ref = np.load(ref_path)
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    launches = {"K1": 0, "K1 map": 0}
+    for name, r in datasets_readings(torch, ref, device).items():
+        if on_card and (r["k1"], r["k1_map"]) != (r["frames"], 0):
+            raise AssertionError(f"{name}: fused K1 launched {r['k1']} times and the map entry "
+                                 f"{r['k1_map']} times over {r['frames']} frames")
+        launches["K1"] += r["k1"]
+        launches["K1 map"] += r["k1_map"]
+        if r["ref_overlap"] < DATASET_MOTION_OVERLAP:
+            raise AssertionError(f"{name}: matured motions share {r['ref_overlap']:.3f} of their keys with JAX's")
+        bounds = DATASET_BOUNDS[name]
+        over = {k: (r[k], b) for k, b in bounds.items() if not r[k] <= b}
+        if over:
+            raise AssertionError(f"{name}: readings beyond bounds (reading, bound): {over}")
+        _, w, h, _, _, _, _ = DATASET_FORMATS[name]
+        say(f"{smi} | dataset {name} ({w}x{h}, {r['frames']} frames written in {r['write_s']:.2f} s): "
+            f"{r['fps']:.3f} frames/s on {device} through run_dynosam.run (real-io: incremental, 2 LM "
+            f"iterations, deferred, prefetch), decode {r['decode_ms']:.2f} ms/frame, fused K1 {r['k1']}, map "
+            f"{r['k1_map']}; frame {DATASET_CHECK_FRAME} read back: mask exact, flow {r['flow_px']:.2e} px, rgb "
+            f"{r['rgb_levels']:.0f} levels, "
+            + (f"stereo depth valid {r['depth_valid']:.3f} median rel {r['depth_median_rel']:.4f}"
+               if "depth_valid" in r else f"depth within its quantisation ({r['depth_excess']:.2e} m)")
+            + f"; vs GT ATE {r['ate_max_m'] * 100:.3f} cm / {r['ate_rot_rad']:.2e} rad, AME median "
+            f"{r['ame_median_m'] * 100:.3f} cm max {r['ame_max_m'] * 100:.3f} cm over {r['n_motions']}; "
+            f"vs JAX pose {r['ref_pose_m']:.2e} m / {r['ref_pose_rad']:.2e} rad, motions median "
+            f"{r['ref_motion_median_m']:.2e} max {r['ref_motion_max_m']:.2e} m (key overlap "
+            f"{r['ref_overlap']:.3f}); bounds {bounds}")
+    say(f"phase 12 (datasets) done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the RANSAC and test-input generators")
@@ -1315,7 +1571,7 @@ def main():
     k1 = check_k1(torch, args.seed)
     k2 = check_k2(torch, args.seed)
 
-    # ---- 5-11. the main paths, counts zeroed just before each ----------------
+    # ---- 5-12. the main paths, counts zeroed just before each ----------------
     bench_launches = run_bench_path(torch, args.seed, os.path.join(testdata, "bench_ref_20f.npz"))
     klt_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "bench_klt_ref_20f.npz"))
     stereo_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "stereo_imu_ref_12f.npz"),
@@ -1326,10 +1582,12 @@ def main():
     forms_launches = run_forms_path(torch, args.seed, testdata)
     batched_launches = run_batched_path(torch, args.seed, os.path.join(testdata, "bench_batched_ref_b8_20f.npz"),
                                         smi=smi)
+    dataset_launches = run_datasets_path(torch, args.seed, os.path.join(testdata, "datasets_ref_12f.npz"), smi=smi)
 
-    # ---- 12. results ------------------------------------------------------------
+    # ---- 13. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "klt": klt_launches, "stereo_imu": stereo_launches,
-             "detector": det_launches, "pipeline": pipe_launches, **forms_launches, **batched_launches}
+             "detector": det_launches, "pipeline": pipe_launches, **forms_launches, **batched_launches,
+             "datasets": dataset_launches}
 
     def row(name, kid, source, replaces, check, **extra):
         by_path = {p: launches.get(kid, 0) for p, launches in paths.items()}

@@ -222,7 +222,9 @@ def stereo_track(left_gray, right_gray, uv_left, valid, fx: float, baseline: flo
 def _box_filter(x, half: int):
     """Mean over a (2*half+1)^2 window of the last two axes, outside pixels
     counting as 0 (the reference's reduce_window pads with its init value);
-    the window is summed row by row, left to right."""
+    the window is summed row by row, left to right. The divisor is a tensor
+    on x's device: CUDA divides by a host scalar as a multiply by its
+    reciprocal, one ulp off the CPU's (and the reference's) quotient."""
     k = 2 * half + 1
     H, W = x.shape[-2:]
     xp = torch.nn.functional.pad(x, (half, half, half, half))
@@ -230,7 +232,7 @@ def _box_filter(x, half: int):
     for i in range(k):
         for j in range(k):
             s = s + xp[..., i:i + H, j:j + W]
-    return s / float(k * k)
+    return s / torch.tensor(float(k * k), dtype=s.dtype, device=s.device)
 
 
 def dense_disparity(left_gray, right_gray, *, num_disparities: int = 64, block_size: int = 5,

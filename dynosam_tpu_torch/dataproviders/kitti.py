@@ -5,7 +5,9 @@ dynosam_tpu/dataproviders/kitti.py). On-disk layout:
   flow/%06d.flo       dense optical flow k -> k+1 stored at frame k
   depth/%06d.png      uint16 disparity; depth = base_line / (raw / depth_scale_factor)
   motion/%06d.txt     instance masks as whitespace-separated int grids
-  semantic/%06d.txt   (mask_type MOTION vs SEMANTIC_INSTANCE)
+  semantic/%06d.txt   (mask_type MOTION vs SEMANTIC_INSTANCE); with
+                      mask_format="png", %06d.png read as cv2.IMREAD_UNCHANGED
+                      reads it (the Virtual KITTI repack)
   pose_gt.txt         "frame_id" + 16 row-major 4x4 entries per line, aligned
                       so the first pose is the identity
   object_pose.txt     frame obj_id bbox(4) t(3) ry; object pose in the camera
@@ -29,6 +31,7 @@ import torch
 
 from dynosam_tpu_torch import native
 from dynosam_tpu_torch.cv import camera as cam
+from dynosam_tpu_torch.dataproviders.base import object_ground_truth
 from dynosam_tpu_torch.frontend.types import FrameInputs, GroundTruthFrame
 
 # KITTI tracking camera intrinsics (sequences 0000-0013)
@@ -74,12 +77,10 @@ class KittiDataProvider:
             mask_folder = (
                 "motion" if str(dp["mask_type"]).upper() == "MOTION" else "semantic"
             )
-        if mask_format != "txt":
-            raise NotImplementedError(
-                f"mask_format={mask_format!r}: only txt masks are read (ROADMAP.md queue 1, "
-                "item 19: the other dataset providers)"
-            )
+        if mask_format not in ("txt", "png"):
+            raise ValueError(f"mask_format must be 'txt' or 'png', not {mask_format!r}")
         self.mask_folder = mask_folder
+        self.mask_format = mask_format
         self.max_objects = max_objects
         self.pad_to_multiple = pad_to_multiple
         if intrinsics is None and all(k in dp for k in ("fx", "fy", "cx", "cy")):
@@ -87,7 +88,7 @@ class KittiDataProvider:
 
         rgb_dir = os.path.join(path, "image_0")
         self._n = len([f for f in os.listdir(rgb_dir) if f.endswith(".png")])
-        self._h, self._w = native.read_png(os.path.join(rgb_dir, "000000.png")).shape[:2]
+        self._h, self._w = native.read_png(os.path.join(rgb_dir, "000000.png"), color=True).shape[:2]
 
         ip = dict(DEFAULT_INTRINSICS)
         if intrinsics:
@@ -175,7 +176,7 @@ class KittiDataProvider:
     def frame_host(self, k: int) -> FrameInputs:
         """Frame k decoded on the host, as CPU tensors."""
         name = f"{k:06d}"
-        rgb = native.read_png(os.path.join(self.path, "image_0", name + ".png"))
+        rgb = native.read_png(os.path.join(self.path, "image_0", name + ".png"), color=True)
         rgb = rgb.astype(np.float32) / np.float32(255.0)
         raw = native.read_png(os.path.join(self.path, "depth", name + ".png"))
         depth = native.disparity_to_depth(raw, self.base_line, self.depth_scale_factor)
@@ -185,9 +186,13 @@ class KittiDataProvider:
             )
         else:
             flow = np.zeros((self._h, self._w, 2), np.float32)
-        mask = native.read_txt_mask(
-            os.path.join(self.path, self.mask_folder, name + ".txt"), self._h, self._w
-        )
+        if self.mask_format == "txt":
+            mask = native.read_txt_mask(
+                os.path.join(self.path, self.mask_folder, name + ".txt"), self._h, self._w
+            )
+        else:
+            mask = native.read_png(os.path.join(self.path, self.mask_folder, name + ".png"), order="bgr")
+            mask = mask.astype(np.int32)
         return FrameInputs(
             frame_id=torch.tensor(k, dtype=torch.int32),
             rgb=torch.from_numpy(np.ascontiguousarray(self._pad(rgb))),
@@ -203,29 +208,8 @@ class KittiDataProvider:
     def ground_truth(self, k: int) -> Optional[GroundTruthFrame]:
         if k >= len(self._poses):
             return None
-        X = self._poses[k]
-        J = self.max_objects
-        ids = np.full((J,), -1, np.int32)
-        poses = np.tile(np.eye(4), (J, 1, 1))
-        motions = np.tile(np.eye(4), (J, 1, 1))
-        valid = np.zeros((J,), bool)
-        objs = self._object_gt.get(k, {})
-        prev = self._object_gt.get(k - 1, {})
-        for j, (oid, L_cam) in enumerate(sorted(objs.items())[:J]):
-            ids[j] = oid
-            L_w = X @ L_cam
-            poses[j] = L_w
-            valid[j] = True
-            if oid in prev and k > 0:
-                L_w_prev = self._poses[k - 1] @ prev[oid]
-                motions[j] = L_w @ np.linalg.inv(L_w_prev)
-        return GroundTruthFrame(
-            X_world_cam=np.asarray(X, np.float32),
-            object_ids=ids,
-            object_poses=np.asarray(poses, np.float32),
-            object_motions=np.asarray(motions, np.float32),
-            object_valid=valid,
-        )
+        return object_ground_truth(self._poses[k], self._object_gt.get(k, {}), self._object_gt.get(k - 1, {}),
+                                   self._poses[k - 1] if k > 0 else None, self.max_objects)
 
     def __iter__(self):
         for k in range(len(self)):

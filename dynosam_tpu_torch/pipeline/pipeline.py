@@ -42,14 +42,17 @@ _END = object()
 
 
 def _upload(inputs: FrameInputs, device: torch.device, stream) -> tuple:
-    """Copy host frame inputs to `device` on `stream` from pinned buffers
-    -> (inputs on the device, event marking the copy's end). The caching
-    host allocator keeps each pinned buffer until its copy has ended."""
-    if device.type != "cuda" or inputs.rgb.is_cuda:
+    """Copy the host tensors of frame inputs to `device` on `stream` from
+    pinned buffers (tensors already there, such as a stereo reader's depth,
+    stay) -> (inputs on the device, event marking the end of the copies and
+    of the work queued on `stream` before them). The caching host allocator
+    keeps each pinned buffer until its copy has ended."""
+    if device.type != "cuda":
         return inputs, None
     with torch.cuda.stream(stream):
         out = dataclasses.replace(inputs, **{
-            k: v.pin_memory().to(device, non_blocking=True) for k, v in inputs.tensors().items()
+            k: v if v.is_cuda else v.pin_memory().to(device, non_blocking=True)
+            for k, v in inputs.tensors().items()
         })
         event = torch.cuda.Event()
         event.record(stream)
@@ -58,7 +61,10 @@ def _upload(inputs: FrameInputs, device: torch.device, stream) -> tuple:
 
 def _prefetch(it: Iterator, size: int, device: torch.device) -> Iterator:
     """Yield the items of `it` (FrameInputs), decoded and uploaded ahead by
-    a worker thread; an error in the worker is raised here."""
+    a worker thread; an error in the worker is raised here. On a card the
+    worker's current stream is the side stream, so device work done while
+    producing an item (a reader's stereo depth) is ordered before the
+    item's event."""
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
@@ -66,6 +72,7 @@ def _prefetch(it: Iterator, size: int, device: torch.device) -> Iterator:
         try:
             if stream is not None:
                 torch.cuda.set_device(device)
+                torch.cuda.set_stream(stream)
             for item in it:
                 q.put(_upload(item, device, stream))
             q.put((_END, None))

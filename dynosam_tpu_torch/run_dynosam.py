@@ -1,6 +1,6 @@
 """Run the full pipeline on a dataset and, optionally, evaluate the results
 (the port's counterpart of scripts/run_dynosam.py, flag for flag, plus
---device).
+--device and --dataset_option).
 
 Examples:
   # the committed dyno-KITTI fixture, hybrid incremental, with evaluation
@@ -11,13 +11,18 @@ Examples:
   # the same on the CPU
   python -m dynosam_tpu_torch.run_dynosam ... --device cpu
 
+  # a VIODE sequence written by dataproviders/fixture_writers.py at its
+  # 0.5 m fixture baseline (reader arguments by --dataset_option)
+  python -m dynosam_tpu_torch.run_dynosam --dataset_type 6 --dataset_path /data/viode \\
+      --flags params/backend.flags --dataset_option baseline=0.5
+
   # synthetic dense scene (no dataset needed), parameter overrides
   python -m dynosam_tpu_torch.run_dynosam --dataset_type 100 --frames 16 \\
       --params_path params/default.yaml --override opt_window_size=12
 
-The default configuration is the reference's (WCME, sliding window), whose
-formulation the port does not have yet: give --flags params/backend.flags or
---params_path params/default.yaml for the hybrid backend.
+With no --flags or --params_path the configuration is the reference's
+default (WCME, sliding window); params/backend.flags selects the hybrid
+backend.
 """
 
 from __future__ import annotations
@@ -30,6 +35,16 @@ from typing import List, Optional
 from dynosam_tpu_torch.config import DynoConfig, load_flags_file
 
 
+def _parse_value(v: str):
+    """A command-line value as an int, float or bool where it reads as one."""
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            continue
+    return v == "true" if v in ("true", "false") else v
+
+
 def build_config(params_path: Optional[str] = None, flags: List[str] = (),
                  overrides: List[str] = ()) -> DynoConfig:
     """DynoConfig from a YAML file (else the defaults), then .flags files,
@@ -40,21 +55,15 @@ def build_config(params_path: Optional[str] = None, flags: List[str] = (),
         values.update(load_flags_file(f))
     for ov in overrides:
         k, v = ov.split("=", 1)
-        for cast in (int, float):
-            try:
-                v = cast(v)
-                break
-            except ValueError:
-                continue
-        if v in ("true", "false"):
-            v = v == "true"
-        values[k] = v
+        values[k] = _parse_value(v)
     return cfg.with_overrides(values) if values else cfg
 
 
 def open_dataset(dataset_type: int, dataset_path: Optional[str], frames: Optional[int],
-                 max_objects: int, device):
-    """-> (intrinsics, host frames iterable, ground truths iterable, count)."""
+                 max_objects: int, device, dataset_kwargs: Optional[dict] = None):
+    """-> (intrinsics, host frames iterable, ground truths iterable, count).
+    dataset_kwargs go to the reader (e.g. a VIODE fixture's baseline, a
+    TartanAir fixture's depth_scale)."""
     if dataset_type == 100:
         from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario
 
@@ -64,7 +73,8 @@ def open_dataset(dataset_type: int, dataset_path: Optional[str], frames: Optiona
                 [dense.scn.ground_truth(k, max_objects) for k in range(n)], n)
     from dynosam_tpu_torch.dataproviders.base import create_dataset
 
-    ds = create_dataset(dataset_type, dataset_path, device=device, pad_to_multiple=32)
+    ds = create_dataset(dataset_type, dataset_path, device=device, pad_to_multiple=32,
+                        **(dataset_kwargs or {}))
     n = min(frames or len(ds), len(ds))
     return (ds.intrinsics(), (ds.frame_host(k) for k in range(n)),
             (ds.ground_truth(k) for k in range(n)), n)
@@ -88,11 +98,11 @@ def build_pipeline(cfg: DynoConfig, intr, output_path: str, name: str = "dynosam
 
 def run(cfg: DynoConfig, dataset_type: int, dataset_path: Optional[str], output_path: str,
         frames: Optional[int] = None, name: str = "dynosam_tpu", use_detector: bool = False,
-        device="cuda"):
+        device="cuda", dataset_kwargs: Optional[dict] = None):
     """Run the pipeline over a dataset, writing the CSV logs and statistics
     under `output_path` -> (pipeline, frames processed, wall seconds)."""
     intr, frame_it, gt_it, n = open_dataset(
-        dataset_type, dataset_path, frames, cfg.backend.max_objects, device
+        dataset_type, dataset_path, frames, cfg.backend.max_objects, device, dataset_kwargs
     )
     pipe = build_pipeline(cfg, intr, output_path, name=name, use_detector=use_detector,
                           device=device)
@@ -104,7 +114,10 @@ def run(cfg: DynoConfig, dataset_type: int, dataset_path: Optional[str], output_
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dataset_type", type=int, default=100,
-                    help="DatasetType enum (0=KITTI, 100=synthetic)")
+                    help="DatasetType enum (0 KITTI, 1 Virtual KITTI 2, 2 ClusterSlam, 3 OMD, "
+                    "4 Aria, 5 TartanAir-Shibuya, 6 VIODE, 100 synthetic)")
+    ap.add_argument("--dataset_option", action="append", default=[],
+                    help="reader argument name=value (e.g. baseline=0.5 for a VIODE fixture)")
     ap.add_argument("--dataset_path", default=None)
     ap.add_argument("--params_path", default=None, help="DynoConfig YAML")
     ap.add_argument("--flags", action="append", default=[],
@@ -135,7 +148,9 @@ def main(argv=None):
     cfg = build_config(args.params_path, args.flags, args.override)
     pipe, n, dt = run(cfg, args.dataset_type, args.dataset_path, args.output_path,
                       frames=args.frames, name=args.name, use_detector=args.use_detector,
-                      device=args.device)
+                      device=args.device,
+                      dataset_kwargs={k: _parse_value(v) for k, v in
+                                      (o.split("=", 1) for o in args.dataset_option)})
     print(f"processed {n} frames in {dt:.2f}s ({n / dt:.1f} FPS incl. host I/O) on {pipe.device}")
     print(Statistics.summary())
 

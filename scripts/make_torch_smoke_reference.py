@@ -54,8 +54,20 @@ dynosam_tpu_torch/testdata/:
     scene, sequence b taking frames b .. b+19: the window fills and then
     advances 10 times. Keys as bench_ref_20f.npz, each (frames, B, ...).
 
+  * datasets_ref_12f.npz (--only datasets) — the host pipeline at the port's
+    real-io configuration (bench_config.kitti_real_io_config(): hybrid
+    incremental, 2 LM iterations, deferred outputs) over each on-disk format
+    of bench_config.DATASET_FORMATS: the port's two-object dataset scene
+    rendered by the JAX package at the format's frame size and camera,
+    written by the JAX writers (dyno-KITTI's masks converted to png), read
+    by the JAX readers padded to multiples of 32 as run_dynosam reads them,
+    bench_config.dataset_frames(name) frames (12; VIODE and Aria 10),
+    RANSAC seed 0. Per format `<name>_X` (frames, 4, 4) mature
+    camera poses and `<name>_motion_key` / `<name>_motion_H` the matured
+    object motions, as kitti_ref_60f.npz.
+
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
-    [--only bench|detector|kitti|klt|stereo_imu|forms|batched]
+    [--only bench|detector|kitti|klt|stereo_imu|forms|batched|datasets]
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
 after it; the forms files' CPU time is in CHANGES.md)
@@ -98,6 +110,7 @@ FORMS_KITTI = {"wcme": 0, "wcpe": 1}
 KITTI_FORMS_OUT = os.path.join(TESTDATA, "kitti_forms_ref_60f.npz")
 BATCHED_B = 8
 BATCHED_OUT = os.path.join(TESTDATA, "bench_batched_ref_b8_20f.npz")
+DATASETS_OUT = os.path.join(TESTDATA, "datasets_ref_12f.npz")
 
 
 def _save(path, arrays, t0):
@@ -424,12 +437,72 @@ def forms_reference():
     _kitti_runs([(name, _jax_kitti_config(f)) for name, f in FORMS_KITTI.items()], KITTI_FORMS_OUT, t0)
 
 
+def datasets_reference():
+    """The JAX writers, readers and pipeline over each format of
+    bench_config.DATASET_FORMATS (see the module's doc)."""
+    import shutil
+    import tempfile
+
+    import cv2
+    import numpy as np
+
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu.cv import camera as jcam
+    from dynosam_tpu.dataproviders import fixture_writers, kitti_writer
+    from dynosam_tpu.dataproviders.base import create_dataset
+    from dynosam_tpu.dataproviders.simulator import ObjectSpec, ScenarioSpec
+    from dynosam_tpu.dataproviders.synthetic_dense import DenseScenario
+    from dynosam_tpu.pipeline.pipeline import DynoPipeline
+    from dynosam_tpu_torch import bench_config as tbench
+
+    t0 = time.time()
+    cfg = DynoConfig.from_dict(dataclasses.asdict(tbench.kitti_real_io_config()))
+    writers = {"vkitti": "write_vkitti_sequence", "omd": "write_omd_sequence",
+               "tartanair": "write_tartanair_sequence", "viode": "write_viode_sequence",
+               "clusterslam": "write_clusterslam_sequence", "aria": "write_aria_sequence"}
+    out = {}
+    for name, (dtype, w, h, (fx, fy, cx, cy), baseline, writer_kw, reader_kw) in tbench.DATASET_FORMATS.items():
+        intr = jcam.CameraIntrinsics.create(fx, fy, cx, cy, width=w, height=h, baseline=baseline)
+        sp = tbench.dataset_spec(tbench.dataset_frames(name))
+        spec = ScenarioSpec(
+            num_frames=sp.num_frames, num_static=0, camera_motion_xi=sp.camera_motion_xi, frame_dt=sp.frame_dt,
+            objects=[ObjectSpec(object_id=o.object_id, initial_pose_xi=o.initial_pose_xi, motion_xi=o.motion_xi,
+                                num_points=0) for o in sp.objects],
+        )
+        scene = DenseScenario(spec, intr, world_texture=True)
+        tmp = tempfile.mkdtemp(prefix="datasets_ref_")
+        try:
+            if name == "kitti_png":
+                kitti_writer.write_kitti_sequence(scene, tmp, base_line=fx * baseline)
+                motion = os.path.join(tmp, "motion")
+                for f in sorted(os.listdir(motion)):
+                    mask = np.loadtxt(os.path.join(motion, f), dtype=np.int32)
+                    cv2.imwrite(os.path.join(motion, f[:-4] + ".png"), mask.astype(np.uint8))
+                    os.remove(os.path.join(motion, f))
+            else:
+                getattr(fixture_writers, writers[name])(scene, tmp, **writer_kw)
+            ds = create_dataset(dtype, tmp, pad_to_multiple=32, **reader_kw)
+            pipe = DynoPipeline(cfg, ds.intrinsics())
+            for k in range(len(ds)):
+                pipe.process_frame(ds.frame(k), ds.ground_truth(k))
+            pipe.finish()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        motions = {k: np.asarray(v, np.float32) for k, v in pipe.backend.matured_motion.items()}
+        keys = sorted(motions)
+        out[f"{name}_X"] = np.stack(pipe.trajectory).astype(np.float32)
+        out[f"{name}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
+        out[f"{name}_motion_H"] = np.stack([motions[k] for k in keys])
+        print(f"  {name}: {len(ds)} frames, {len(keys)} matured motions ({time.time() - t0:.0f} s)", flush=True)
+    _save(DATASETS_OUT, out, t0)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched"],
+    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "datasets"],
                     action="append", help="write only these files (default: all)")
     args = ap.parse_args()
-    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched"]
+    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "datasets"]
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -445,6 +518,8 @@ def main():
         forms_reference()
     if "batched" in todo:
         batched_reference()
+    if "datasets" in todo:
+        datasets_reference()
 
 
 if __name__ == "__main__":

@@ -216,3 +216,26 @@ def test_tracker_batch_launches_the_batched_entry_once(cuda):
     for b in range(B):
         one = st.shi_tomasi_cell_max(gray[b].contiguous(), 16)
         assert all(torch.equal(x[b], y) for x, y in zip(batched, one))
+
+
+def test_viode_depth_is_dense_stereo_on_the_card(cuda, tmp_path):
+    """A VIODE provider on the card computes its depth with
+    cv/stereo.py::dense_stereo_depth there (frame_host hands it over on the
+    device), equal to the same provider's on the CPU at the stereo tests'
+    bound: valid maps equal, depths to 1e-6 relative."""
+    from dynosam_tpu_torch.dataproviders.base import create_dataset
+    from dynosam_tpu_torch.dataproviders.fixture_writers import write_viode_sequence
+
+    scene = default_dense_scenario(num_frames=4, device="cpu")
+    write_viode_sequence(scene, str(tmp_path), baseline=0.5)
+    intr = {k: getattr(scene.intr, k) for k in ("fx", "fy", "cx", "cy")}
+    kw = dict(intrinsics=intr, baseline=0.5, num_disparities=64)
+    on_card = create_dataset(6, str(tmp_path), device="cuda", **kw)
+    on_cpu = create_dataset(6, str(tmp_path), device="cpu", **kw)
+    host = on_card.frame_host(2)
+    assert host.depth.is_cuda and not host.rgb.is_cuda
+    got, ref = on_card.frame(2).depth, on_cpu.frame(2).depth
+    assert got.is_cuda
+    got = got.cpu()
+    assert torch.equal(got > 0, ref > 0) and (ref > 0).float().mean() > 0.2
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)

@@ -116,8 +116,9 @@ def test_fused_step_advances_the_full_window(fused_runs):
 def test_unported_backend_and_frontend_options_raise():
     """Every formulation builds the fused step now (WCME, WCPE and the joint
     hybrid, held to the reference in test_torch_wcme.py, test_torch_wcpe.py
-    and test_torch_backend.py); an unknown backend_updater_enum and the
-    dataset types still unported (ROADMAP item 19) raise. KLT, the IMU and
+    and test_torch_backend.py); an unknown backend_updater_enum raises, and
+    a missing dataset directory raises as the file system does (every
+    dataset type is ported, test_torch_datasets.py). KLT, the IMU and
     mask propagation build (KLT needs the image shape, as in the
     reference)."""
     from dynosam_tpu_torch.dataproviders.base import create_dataset
@@ -129,7 +130,7 @@ def test_unported_backend_and_frontend_options_raise():
     tbatched.make_fused_step(cfg.with_overrides({"backend.decoupled_object_solve": False}), intr)
     with pytest.raises(ValueError, match="backend_updater_enum"):
         tbatched.make_fused_step(cfg.with_overrides({"backend.backend_updater_enum": 4}), intr)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(FileNotFoundError):
         create_dataset(1, "unused", device="cpu")
     klt = cfg.with_overrides({"frontend.tracker.prefer_provided_optical_flow": False})
     with pytest.raises(ValueError, match="image_shape"):
