@@ -4,8 +4,9 @@
 Phases, each printing one line; any failure raises and exits non-zero:
   1. require a CUDA card; print torch/CUDA versions and the card's name and
      power limit (nvidia-smi);
-  2. build both kernels (csrc/shi_tomasi.cu = K1, csrc/mask_combine.cu = K2;
-     one nvcc per source, started together, sm_90a);
+  2. build the kernels (csrc/shi_tomasi.cu = K1, csrc/mask_combine.cu = K2,
+     and K2 v3, scripts/ab_torch_k2_v3.cu, for phase 4's times only; one
+     nvcc per source, started together, sm_90a);
   3. hold K1 against its plain PyTorch version on the card. The fused entry
      (response + per-cell argmax, the main path's): random and constant
      frames at 384x1280 and 384x640 with cell 16 (on the constant frame
@@ -14,16 +15,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
      single-image result; `best` bit for bit or within KERNEL_RTOL, with
      the near-tie cells counted, and (u, v) equal in every cell. The map
      entry: random, constant and a (3, 384, 1280) batch. Then, in one
-     process and in turns, at B=1 and B=8, median device times (a spin
-     kernel hides the enqueue) and times with the launch from Python of
-     the fused kernel, the map route (the map entry + torch `cell_reduce`)
-     and the plain pair (scripts/ab_torch_k1.py also times earlier kernel
-     sources beside them);
-  4. hold K2 against its plain version: random (32, 96x160, 32) inputs, a
-     ragged K=5 over 37x61 prototype pixels, and the real prototypes and
-     coefficients of the detector scene's frame 0; median device times of
-     the kernel, its plain version and the cuBLAS product coef @ proto^T
-     alone (the library yardstick);
+     process and in turns, at B=1 and B=8, of the fused kernel, the map
+     entry, the map route (the map entry + torch `cell_reduce`) and the
+     plain pair and map: loop-timed device times (one event pair around 200
+     back-to-back calls, a spin kernel in front), median device times of
+     one launch (a spin kernel hides the enqueue), torch.profiler's device
+     time per call (the kernels only) and times with the launch from Python
+     (scripts/ab_torch_k1.py also times earlier kernel sources beside them);
+  4. hold K2's two entries against their plain versions. Entry A
+     (mask_combine, K2_ATOL): random (32, 96x160, 32) inputs, a ragged K=5
+     over 37x61 prototype pixels, both also as NCHW views, and the real
+     prototypes (as the network returns them) and coefficients of the
+     detector scene's frame 0. Entry B (mask_label, the label image in one
+     launch): random (32, 96x160 -> 384x640) inputs with boxes crossing the
+     border and each other, invalid rows with NaN coefficients and two
+     tied scores, a ragged K=5 (37x61 -> 148x244) and the detector's frame
+     0, each with box_pad 0 and 2; every label pixel equal to plain but
+     where a detection's plain interpolated value lies within K2_NEAR of
+     the threshold (counted, at most K2_NEAR_SHARE of the pixels). Then the
+     times, measured as in phase 3, in turns: entry A v4, v3 (the kernel
+     before the redesign), plain and the cuBLAS product coef @ proto^T
+     alone (the library yardstick) at (32, 96x160, 32); entry B, the unfused
+     route (v3 + torch upsample / crop / threshold / label) and plain at
+     the detector's frame 0, and both routes at 32 random detections;
   5. bench path: the fused SLAM step (frontend -> window advance -> graph
      update -> decoupled hybrid LM) at bench_config() over 20 bench frames
      rendered on the card (the 10-frame window advances 10 times); the fused
@@ -47,12 +61,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
      path is, and the valid static tracks' depths to the true depth (stereo
      repairs the corruption). Both phases print the median host time per
      frame, the first frame's and the host syncs per frame with their sites;
-  8. detector path: 24 frames of detector_scene() through YOLOv8-seg (K2)
-     -> ByteTrack relabelling -> fused step at detector_config(); the fused
-     K1 and K2 must each launch once per frame, the map entry never;
-     detections, label images, object ids,
-     camera poses and object motions held to
+  8. detector path: 24 frames of detector_scene() through YOLOv8-seg (the
+     label image by K2's entry B) -> ByteTrack relabelling -> fused step at
+     detector_config(); the fused K1 and K2's entry B must each launch once
+     per frame, entry A and the K1 map entry never; detections, label
+     images, object ids, camera poses and object motions held to
      dynosam_tpu_torch/testdata/det_ref_24f.npz;
+  8b. held-out detector: the committed checkpoint's held-out evaluation
+     (eval/detector_heldout.py: 48 random scenes from seed 10 000 through
+     the engine, at most 8 detections) on the card, K2's entry B once per
+     scene and entry A never; the instances, the mean mask IoU and the
+     class accuracy held to the JAX run
+     dynosam_tpu_torch/testdata/det_heldout_ref_48.npz (HELDOUT_*), the
+     largest instance's IoU difference printed;
   9. pipeline path: the port's entry-point code (run_dynosam.open_dataset,
      build_pipeline, DynoPipeline.run with prefetch) over the 60 frames of
      tests/fixtures/kitti_fixture read from disk, (a) in the hybrid
@@ -102,10 +123,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
      dynosam_tpu_torch/testdata/datasets_ref_12f.npz (DATASET_BOUNDS); the
      first frame's inputs and graph state on the card; the fused K1 once per
      frame, the map entry never; frames/s and decode ms per frame;
-  13. print the kernel table (with each kernel's bound: the larger of its
+  13. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
+     K2 entry A, K2 entry B), with each one's bound (the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
-     SXM's published rates; launches per path under launches_by_path) and
-     the contract line.
+     SXM's published rates), loop-timed `ms` / `plain_ms` / `library_ms`
+     beside the single-launch and profiler times, and launches per path
+     under launches_by_path; then the contract line.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -124,7 +147,14 @@ from concurrent.futures import ThreadPoolExecutor
 BENCH_FRAMES = 20
 DET_FRAMES = 24
 KERNEL_RTOL = 1e-5            # K1: max |kernel - plain| <= KERNEL_RTOL * max |response|
-K2_ATOL = 1e-5                # K2: max |kernel - plain| on sigmoid outputs in (0, 1)
+K2_ATOL = 1e-5                # K2 entry A: max |kernel - plain| on sigmoid outputs in (0, 1)
+# K2 entry B (the label image): every pixel equal to the plain version's but
+# where some valid detection, inside its padded box, has a plain
+# interpolated value within K2_NEAR of the threshold (the two interpolate
+# and sum in another order, so such a pixel may round either way); those
+# pixels are counted, and at most K2_NEAR_SHARE of the image.
+K2_NEAR = 1e-5
+K2_NEAR_SHARE = 1e-4
 GT_TRANS_M, GT_ROT_RAD = 0.05, 0.01        # tests/test_pipeline.py bounds
 REF_TRANS_M, REF_ROT_RAD = 0.01, 1e-3      # against the JAX reference
 REF_MOTION_TRANS_M = 0.05
@@ -171,9 +201,34 @@ KLT_REF_BOUNDS = {
 STEREO_DEPTH_RELERR = 0.05
 TIMING_RUNS = 50
 SPIN_CYCLES = 10_000_000      # ~5 ms of GPU clock, longer than any enqueue here
+# loop-timed kernels: one event pair around LOOP_LAUNCHES back-to-back calls
+# (fewer for a call of many device operations, see kernel_times), a spin
+# kernel in front that outlasts their enqueue (checked), median of
+# LOOP_ROUNDS rounds in turns; torch.profiler over PROFILED_CALLS calls, for
+# the kernels only. The plain versions and unfused routes loop a fixed
+# count each (the `routes` of kernel_times): 800 // their device operations
+# per call as torch.profiler counted them on the H100 (run AR: K1's plain
+# pair 66, plain map 50, map route 14, K2's unfused routes and entry B's
+# plain 27-28, entry A's plain 2), rounded down
+LOOP_LAUNCHES = 200
+LOOP_ROUNDS = 3
+SPIN_LOOP_CYCLES = 100_000_000  # calibrates the spin's clock rate
+PROFILED_CALLS = 50
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 K1_OPS_PER_PIXEL = 29         # 28 flops of the response + 1 comparison of the argmax
+K2B_OPS_PER_PIXEL = 10        # entry B per output pixel in a padded box: the lerp (9) + the test
+# held-out phase: the committed checkpoint's evaluation (48 scenes of
+# eval/detector_heldout.py) against testdata/det_heldout_ref_48.npz, a fresh
+# JAX run (114 instances, mean IoU 0.712946, class accuracy 0.956140). The
+# instances must be the same. Torch on the CPU (4 threads) read |mean IoU -
+# JAX| 2.94e-7 (one label pixel flipped near the threshold: the largest
+# instance moved 3.35e-5) and every class hit equal; the H100 read 0 and
+# every hit equal in two runs. The mean IoU bound sits ~15x above the CPU's
+# reading; class hits, equal on both, must stay equal.
+HELDOUT_SCENES = 48
+HELDOUT_MEAN_IOU = 4.4e-6     # |mean IoU - reference|
+HELDOUT_CLASS_ACC = 0.0       # |class accuracy - reference|
 # pipeline path: the committed dyno-KITTI fixture, all 60 frames
 KITTI_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "kitti_fixture")
 PIPE_FRAMES = 60
@@ -348,6 +403,89 @@ def median_ms(torch, fns, spin, runs=TIMING_RUNS):
     return {n: statistics.median(v) for n, v in times.items()}
 
 
+def loop_ms(torch, fns, ns, rounds=LOOP_ROUNDS):
+    """{name: device time of one call} of the no-argument callables `fns`:
+    one event pair around `ns[name]` back-to-back calls, divided by that
+    count, median over `rounds` rounds in turns. A spin kernel queued in front, sized to
+    twice the calls' enqueue time, keeps the card busy while the host
+    enqueues them, so they run back to back; raises if the enqueue still
+    outlasted the spin."""
+    # the spin's clock rate, then each callable's enqueue time for n calls,
+    # which sets its spin: twice that, plus 10 ms
+    s0, e0 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s0.record()
+    torch.cuda._sleep(SPIN_LOOP_CYCLES)
+    e0.record()
+    e0.synchronize()
+    cycles_per_ms = SPIN_LOOP_CYCLES / s0.elapsed_time(e0)
+    spin = {}
+    for k, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ns[k]):
+            fn()
+        spin[k] = int(cycles_per_ms * (2e3 * (time.perf_counter() - t0) + 10.0))
+        torch.cuda.synchronize()
+    names = list(fns)
+    times = {k: [] for k in names}
+    for r in range(rounds):
+        for k in names if r % 2 == 0 else names[::-1]:
+            s0, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            s0.record()
+            torch.cuda._sleep(spin[k])
+            e0.record()
+            t0 = time.perf_counter()
+            for _ in range(ns[k]):
+                fns[k]()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            e1.record()
+            e1.synchronize()
+            spin_ms = s0.elapsed_time(e0)
+            if not host_ms < spin_ms:
+                raise AssertionError(f"loop timing of {k}: enqueueing {ns[k]} calls took {host_ms:.1f} ms, "
+                                     f"longer than the {spin_ms:.1f} ms spin")
+            times[k].append(e0.elapsed_time(e1) / ns[k])
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def profiler_ms(torch, fns, n=PROFILED_CALLS):
+    """{name: (device ms per call, kernel names, device events per call)}:
+    the CUDA events torch.profiler records over `n` calls, summed and
+    divided by `n`; None where it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for k, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.time_range.elapsed_us() for e in ev)
+        out[k] = (total / n / 1e3, sorted({e.name[:60] for e in ev}), len(ev) / n) if ev and total > 0 else None
+    return out
+
+
+def kernel_times(torch, fns, routes=None):
+    """Every measure of `fns` in one place: single launches (device and with
+    the launch from Python) and loop-timed; the kernels (the names not in
+    `routes`) also under torch.profiler. A kernel's loop holds
+    LOOP_LAUNCHES calls, fewer for a call of many device operations, and a
+    route's loop the count `routes` gives it, so that the enqueued
+    operations stay within the launch queue (~1000 deep; a full queue
+    blocks the host behind the spin)."""
+    routes = routes or {}
+    prof = profiler_ms(torch, {k: fn for k, fn in fns.items() if k not in routes})
+    ns = {k: max(10, min(LOOP_LAUNCHES, int(800 // v[2]))) if v else LOOP_LAUNCHES for k, v in prof.items()}
+    return {"single": median_ms(torch, fns, spin=True), "call": median_ms(torch, fns, spin=False),
+            "loop": loop_ms(torch, fns, {**ns, **routes}), "loop_calls": {**ns, **routes},
+            "profiler": {k: prof[k][0] if prof.get(k) else None for k in fns},
+            "profiler_kernels": {k: prof[k][1] if prof.get(k) else [] for k in fns}}
+
+
 def bound_ms(nbytes, nops):
     """(least time in ms, what bounds it): bytes over the memory rate or
     operations over the f32 rate, whichever takes longer."""
@@ -446,12 +584,16 @@ def check_k1(torch, seed):
     for label, img in (("b1", rand(H, W)), ("b8", rand(B, H, W))):
         fns = {
             "fused": lambda img=img: st.shi_tomasi_cell_max(img, 16),
+            "map": lambda img=img: st.shi_tomasi_response(img),
             "map_route": lambda img=img: st.cell_reduce(st.shi_tomasi_response(img), 16),
             "plain": lambda img=img: st.shi_tomasi_cell_max_reference(img, 16),
+            "map_plain": lambda img=img: st.shi_tomasi_response_reference(img),
         }
-        times[label] = {"device": median_ms(torch, fns, spin=True),
-                        "call": median_ms(torch, fns, spin=False),
-                        "bound": k1_bound(tuple(img.shape), 16)}
+        n_px = img.numel()
+        routes = {"map_route": 50, "plain": 10, "map_plain": 15}
+        times[label] = {**kernel_times(torch, fns, routes), "bound": k1_bound(tuple(img.shape), 16),
+                        # the map entry: the frame read once and the map written once
+                        "map_bound": bound_ms(8 * n_px, (K1_OPS_PER_PIXEL - 1) * n_px)}
     t1, t8 = times["b1"], times["b8"]
     say(f"K1 fused matches plain: best {'bit for bit' if bitwise else 'within KERNEL_RTOL'} "
         f"(max abs err {max(errs):.3e}), (u, v) equal in every cell, {near} near-tie cells, over "
@@ -459,26 +601,163 @@ def check_k1(torch, seed):
         f"cell's first pixel, an (8, 384, 1280) batch equal to its single images); map entry max "
         f"abs err {max(map_errs):.3e}, batch images equal")
     for label, t in times.items():
-        d, c = t["device"], t["call"]
-        say(f"K1 at {label.upper()} 384x1280 cell 16, median device time: fused {d['fused']:.4f} ms, "
-            f"map route (map entry + torch cell_reduce) {d['map_route']:.4f} ms, plain pair "
-            f"{d['plain']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); with the launch "
-            f"from Python: fused {c['fused']:.4f}, map route {c['map_route']:.4f}, plain {c['plain']:.4f} ms")
+        d, c, lp, pr = t["single"], t["call"], t["loop"], t["profiler"]
+        say(f"K1 at {label.upper()} 384x1280 cell 16, median device time of one launch: fused "
+            f"{d['fused']:.4f} ms, map entry {d['map']:.4f}, map route (map entry + torch cell_reduce) "
+            f"{d['map_route']:.4f} ms, plain pair {d['plain']:.4f} ms, plain map {d['map_plain']:.4f}; "
+            f"loop-timed (calls per loop {t['loop_calls']}): fused {lp['fused']:.5f} ms, map entry "
+            f"{lp['map']:.5f}, map route {lp['map_route']:.5f}, plain pair {lp['plain']:.5f}, plain map "
+            f"{lp['map_plain']:.5f}; torch.profiler per call: fused {_ms(pr['fused'])}, map entry "
+            f"{_ms(pr['map'])}; bound {t['bound'][0]:.5f} ms ({t['bound'][1]}), map entry's "
+            f"{t['map_bound'][0]:.5f} ms ({t['map_bound'][1]}); with the launch from Python: fused "
+            f"{c['fused']:.4f}, map route {c['map_route']:.4f}, plain {c['plain']:.4f} ms")
+
+    def measures(t, name, plain):
+        return {"ms": t["loop"][name], "plain_ms": t["loop"][plain],
+                "loop_calls": {name: t["loop_calls"][name], plain: t["loop_calls"][plain]},
+                "single_launch_ms": t["single"][name],
+                "plain_single_launch_ms": t["single"][plain], "profiler_ms": t["profiler"][name],
+                "call_ms": t["call"][name]}
+
     return {
-        "max_abs_err": max(errs + map_errs), "ms": t1["device"]["fused"], "plain_ms": t1["device"]["plain"],
-        "bound": t1["bound"], "map_route_ms": t1["device"]["map_route"],
-        "call_ms": t1["call"]["fused"], "near_tie_cells": near, "best_bitwise": bitwise,
-        "b8": {"ms": t8["device"]["fused"], "plain_ms": t8["device"]["plain"],
-               "map_route_ms": t8["device"]["map_route"], "bound_ms": t8["bound"][0]},
+        "fused": {"max_abs_err": max(errs[:-1]), "bound": t1["bound"], **measures(t1, "fused", "plain"),
+                  "map_route_ms": t1["loop"]["map_route"], "near_tie_cells": near, "best_bitwise": bitwise},
+        "map": {"max_abs_err": max(map_errs), "bound": t1["map_bound"], **measures(t1, "map", "map_plain")},
+        "batched": {"max_abs_err": errs[-1], "bound": t8["bound"], **measures(t8, "fused", "plain"),
+                    "map_route_ms": t8["loop"]["map_route"]},
     }
 
 
-def check_k2(torch, seed):
+def _ms(x):
+    return "not recorded" if x is None else f"{x:.5f} ms"
+
+
+def _random_label_inputs(torch, gen, K, hp, wp, H, W):
+    """Entry B's random case: NCHW-view prototypes, boxes crossing the
+    image border and each other, a fifth of the rows invalid (their
+    coefficients NaN, which the kernel must never read), rows 1 and 3
+    overlapping with equal scores."""
+    proto = torch.randn((1, 32, hp, wp), generator=gen, device="cuda").permute(0, 2, 3, 1)[0]
+    coef = torch.randn((K, 32), generator=gen, device="cuda")
+    size = torch.tensor([W, H], dtype=torch.float32, device="cuda")
+    c = (torch.rand((K, 2), generator=gen, device="cuda") * 1.2 - 0.1) * size
+    wh = (torch.rand((K, 2), generator=gen, device="cuda") * 0.55 + 0.05) * size
+    boxes = torch.cat([c - wh / 2, c + wh / 2], 1)
+    boxes[3] = boxes[1] + 5.0
+    scores = torch.rand((K,), generator=gen, device="cuda") * 0.7 + 0.3
+    scores[3] = scores[1]
+    valid = torch.rand((K,), generator=gen, device="cuda") > 0.2
+    valid[[1, 3]] = True
+    coef[~valid] = float("nan")
+    return proto, coef, boxes.contiguous(), torch.where(valid, scores, 0.0), valid
+
+
+def compare_labels(torch, mc, got, proto, coef, boxes, scores, valid, out_hw, box_pad):
+    """Entry B's label image against its plain version under the K2_NEAR
+    rule -> (pixels differing, pixels near the threshold, largest |label
+    difference| away from it, which must be 0)."""
+    import torch.nn.functional as F
+
+    ref = mc.mask_label_reference(proto, coef, boxes, scores, valid, out_hw, box_pad=box_pad)
+    low = mc.mask_combine_reference(proto, coef)
+    vals = F.interpolate(low[None], size=tuple(out_hw), mode="bilinear", align_corners=False)[0]
+    inside = mc.crop_threshold(torch.ones_like(low), boxes, valid, out_hw, 0.0, box_pad)
+    near = (((vals - 0.5).abs() <= K2_NEAR) & inside).any(0)
+    differ = got != ref
+    away = int((got - ref).abs()[~near].max()) if bool((~near).any()) else 0
+    n_near = int(near.sum())
+    if away or n_near > K2_NEAR_SHARE * near.numel():
+        raise AssertionError(f"K2 entry B vs plain at {tuple(proto.shape)} -> {tuple(out_hw)}, pad {box_pad}: "
+                             f"{int((differ & ~near).sum())} pixels differ away from the threshold, "
+                             f"{n_near} near it")
+    return int(differ.sum()), n_near, away
+
+
+def k2_label_bound(boxes, valid, proto_shape, K, out_hw, box_pad):
+    """Entry B's bound for these inputs. Bytes: the detection table read
+    once, the label image written once, and of the prototypes only the
+    pixels the label needs: those the interpolation reads for some output
+    pixel inside a valid detection's padded box (its source rows and columns
+    and the one beyond them, clipped to the prototype), counted once however
+    many boxes cover them. Operations only inside each valid detection's
+    padded box: the product and sigmoid over the prototype pixels under it,
+    the interpolation and tests over its output pixels."""
+    import math
+
+    Hp, Wp, nm = proto_shape
+    H, W = out_hw
+
+    def src(scale, d):          # F.interpolate's source index, align_corners=False
+        return max((d + 0.5) * scale - 0.5, 0.0)
+
+    needed = [[False] * Wp for _ in range(Hp)]
+    n_out = 0
+    for (x1, y1, x2, y2), v in zip(boxes.tolist(), valid.tolist()):
+        if not v:
+            continue
+        ox0, ox1 = max(math.ceil(x1 - box_pad), 0), min(math.floor(x2 + box_pad), W - 1)
+        oy0, oy1 = max(math.ceil(y1 - box_pad), 0), min(math.floor(y2 + box_pad), H - 1)
+        if ox1 < ox0 or oy1 < oy0:
+            continue
+        n_out += (ox1 - ox0 + 1) * (oy1 - oy0 + 1)
+        lx0, lx1 = int(src(Wp / W, ox0)), min(int(src(Wp / W, ox1)) + 1, Wp - 1)
+        ly0, ly1 = int(src(Hp / H, oy0)), min(int(src(Hp / H, oy1)) + 1, Hp - 1)
+        for row in needed[ly0:ly1 + 1]:
+            row[lx0:lx1 + 1] = [True] * (lx1 - lx0 + 1)
+    n_needed = sum(map(sum, needed))
+    n_low = n_out * (Hp * Wp) / (H * W)
+    nbytes = 4 * nm * n_needed + K * (4 * nm + 16 + 4 + 1) + 4 * H * W
+    return bound_ms(nbytes, n_low * (2 * nm + 4) + n_out * K2B_OPS_PER_PIXEL)
+
+
+K2_V3_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "ab_torch_k2_v3.cu")
+
+
+def k2_v3_route(torch, lib_path):
+    """K2 v3's launch (the kernel before its redesign, kept verbatim in
+    scripts/ab_torch_k2_v3.cu, built by _build from its absolute path):
+    contiguous (Hp, Wp, nm) prototypes, contiguous (K, nm) coefficients ->
+    (K, Hp, Wp) sigmoid masks."""
+    import ctypes
+
+    fn = ctypes.CDLL(str(lib_path)).dyno_mask_combine_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(proto, coef):
+        Hp, Wp, nm = proto.shape
+        out = torch.empty((coef.shape[0], Hp, Wp), dtype=torch.float32, device=proto.device)
+        err = fn(proto.data_ptr(), coef.data_ptr(), out.data_ptr(), Hp * Wp, coef.shape[0], nm,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"v3 launch failed: cudaError_t {err}")
+        return out
+    return run
+
+
+def unfused_label_route(v3):
+    """The detector's label image before entry B: the prototypes copied to
+    NHWC, v3, then torch's upsample, crop, threshold and label argmax."""
+    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
+
+    def run(proto, coef, boxes, scores, valid, out_hw, mask_threshold=0.5, box_pad=0.0):
+        low = v3(proto.contiguous(), coef)
+        return mc.label_image(mc.crop_threshold(low, boxes, valid, out_hw, mask_threshold, box_pad), scores)
+    return run
+
+
+def check_k2(torch, seed, v3_lib):
+    """Phase 4: both entries of K2 against their plain versions, and their
+    times beside v3's (the kernel before this redesign, built from
+    K2_V3_SOURCE, built at `v3_lib`), the plain versions' and the cuBLAS
+    product's -> {"combine": entry A's row, "label": entry B's row}."""
     from dynosam_tpu_torch.bench_config import detector_config, detector_scene
     from dynosam_tpu_torch.nn import postprocess as pp
     from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
     from dynosam_tpu_torch.ops.cuda import mask_combine as mc
 
+    v3 = k2_v3_route(torch, v3_lib)
+    unfused = unfused_label_route(v3)
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def compare(proto, coef):
@@ -487,19 +766,23 @@ def check_k2(torch, seed):
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         if not err <= K2_ATOL:
-            raise AssertionError(f"K2 vs plain at {tuple(coef.shape)} x {tuple(proto.shape)}: "
-                                 f"max abs err {err}")
+            raise AssertionError(f"K2 vs plain at {tuple(coef.shape)} x {tuple(proto.shape)} "
+                                 f"(strides {proto.stride()}): max abs err {err}")
         return err
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
+    # entry A
     proto, coef = randn(96, 160, 32), randn(32, 32)
     err_rand = compare(proto, coef)
     err_ragged = compare(randn(37, 61, 32), randn(5, 32))
+    proto_nchw = randn(1, 32, 96, 160).permute(0, 2, 3, 1)[0]
+    err_nchw = max(compare(proto_nchw, coef), compare(randn(1, 32, 37, 61).permute(0, 2, 3, 1)[0], randn(5, 32)))
+    err_v3 = float((v3(proto, coef) - mc.mask_combine_reference(proto, coef)).abs().max())
 
-    # the real inputs: prototypes and the NMS survivors' coefficients of the
-    # detector scene's frame 0
+    # the real inputs: prototypes (as the network returns them) and the NMS
+    # survivors of the detector scene's frame 0
     _, intr = detector_config()
     rgb = detector_scene(intr, 1, device="cuda").frame(0).rgb
     engine = YoloV8DetectorEngine(device="cuda")
@@ -509,30 +792,92 @@ def check_k2(torch, seed):
         det = pp.nms(*pp.decode_all(single), max_detections=engine.max_detections,
                      score_threshold=engine.score_threshold, iou_threshold=engine.iou_threshold,
                      class_ids=engine.class_ids)
-    real_proto, real_coef = single["proto"].contiguous(), det.mcoef.contiguous()
-    err_real = compare(real_proto, real_coef)
+    real_proto = single["proto"]
+    err_real = compare(real_proto, det.mcoef)
+    err_a = max(err_rand, err_ragged, err_nchw, err_real)
 
+    # entry B: random, ragged and the real frame, box_pad 0 and 2
+    out_hw = (384, 640)
+    cases = {"random (32, 96x160 -> 384x640)": _random_label_inputs(torch, gen, 32, 96, 160, *out_hw),
+             "ragged (5, 37x61 -> 148x244)": _random_label_inputs(torch, gen, 5, 37, 61, 148, 244),
+             "detector frame 0": (real_proto, det.mcoef, det.boxes, det.scores, det.valid)}
+    hw = {"ragged (5, 37x61 -> 148x244)": (148, 244)}
+    label_lines, n_differ, n_near, away = [], 0, 0, 0
+    for name, args in cases.items():
+        for pad in (0.0, 2.0):
+            got = mc.mask_label(*args, hw.get(name, out_hw), box_pad=pad)
+            d, nn_, a = compare_labels(torch, mc, got, *args, hw.get(name, out_hw), pad)
+            n_differ, n_near, away = n_differ + d, n_near + nn_, max(away, a)
+            label_lines.append(f"{name} pad {pad:g}: {d} differ, {nn_} near")
+    rnd = cases["random (32, 96x160 -> 384x640)"]
+
+    # times at (32, 96x160, 32) for A, at the detector's frame 0 for B
     proto2d = proto.reshape(-1, proto.shape[-1])
-    fns = {"kernel": lambda: mc.mask_combine(proto, coef),
-           "plain": lambda: mc.mask_combine_reference(proto, coef),
-           # the library yardstick: the cuBLAS product alone, no sigmoid
-           "library": lambda: coef @ proto2d.T}
-    dev, call = median_ms(torch, fns, spin=True), median_ms(torch, fns, spin=False)
-    # coef, proto read once and the masks written once; 2 K nm flops per
-    # mask pixel for the product and 4 for the sigmoid
+    ta = kernel_times(torch, {
+        "v4": lambda: mc.mask_combine(proto, coef),
+        "v4_nchw": lambda: mc.mask_combine(proto_nchw, coef),
+        "v3": lambda: v3(proto, coef),
+        "plain": lambda: mc.mask_combine_reference(proto, coef),
+        # the library yardstick: the cuBLAS product alone, no sigmoid
+        "library": lambda: coef @ proto2d.T}, routes={"plain": 200})
+    real = (real_proto, det.mcoef, det.boxes, det.scores, det.valid, out_hw)
+    tb = kernel_times(torch, {
+        "entry_b": lambda: mc.mask_label(*real),
+        "unfused_route": lambda: unfused(*real),
+        "plain": lambda: mc.mask_label_reference(*real),
+        "entry_b_random32": lambda: mc.mask_label(*rnd, out_hw),
+        "unfused_route_random32": lambda: unfused(*rnd, out_hw)},
+        routes={"unfused_route": 25, "plain": 25, "unfused_route_random32": 25})
     K, nm = coef.shape
     P = proto.shape[0] * proto.shape[1]
-    bound = bound_ms(4 * (K * nm + P * nm + K * P), 2 * K * nm * P + 4 * K * P)
-    say(f"K2 matches plain: max abs err random (32, 96x160, 32) {err_rand:.3e}, ragged "
-        f"(5, 37x61, 32) {err_ragged:.3e}, detector frame 0 {tuple(real_coef.shape)} x "
-        f"{tuple(real_proto.shape)} {err_real:.3e} (bound {K2_ATOL}); median device time "
-        f"{dev['kernel']:.4f} ms kernel vs {dev['plain']:.4f} ms plain vs {dev['library']:.4f} ms "
-        f"for the cuBLAS product coef @ proto^T alone at (32, 96x160, 32), "
-        f"bound {bound[0]:.5f} ms ({bound[1]}); with the launch from Python {call['kernel']:.4f} "
-        f"ms vs {call['plain']:.4f} ms")
-    return {"max_abs_err": max(err_rand, err_ragged, err_real), "ms": dev["kernel"],
-            "plain_ms": dev["plain"], "library_ms": dev["library"], "bound": bound,
-            "call_ms": call["kernel"]}
+    # coef, proto read once and the masks written once; 2 K nm flops per
+    # mask pixel for the product and 4 for the sigmoid
+    bound_a = bound_ms(4 * (K * nm + P * nm + K * P), 2 * K * nm * P + 4 * K * P)
+    bound_b = k2_label_bound(det.boxes, det.valid, tuple(real_proto.shape), det.mcoef.shape[0], out_hw, 0.0)
+    bound_rnd = k2_label_bound(rnd[2], rnd[4], tuple(rnd[0].shape), rnd[1].shape[0], out_hw, 0.0)
+    s1, lp, pr, c = ta["single"], ta["loop"], ta["profiler"], ta["call"]
+    say(f"K2 entry A (v4) matches plain: max abs err random (32, 96x160, 32) {err_rand:.3e}, ragged "
+        f"(5, 37x61, 32) {err_ragged:.3e}, NCHW views {err_nchw:.3e}, detector frame 0 "
+        f"{tuple(det.mcoef.shape)} x {tuple(real_proto.shape)} strides {real_proto.stride()} "
+        f"{err_real:.3e} (bound {K2_ATOL}); v3 {err_v3:.3e}")
+    say(f"K2 entry A at (32, 96x160, 32), loop-timed (calls per loop {ta['loop_calls']}): v4 {lp['v4']:.5f} ms "
+        f"(NCHW view {lp['v4_nchw']:.5f}), v3 {lp['v3']:.5f}, plain {lp['plain']:.5f}, cuBLAS product "
+        f"coef @ proto^T alone {lp['library']:.5f}; one launch: v4 {s1['v4']:.5f} (NCHW {s1['v4_nchw']:.5f}), "
+        f"v3 {s1['v3']:.5f}, plain {s1['plain']:.5f}, cuBLAS {s1['library']:.5f}; torch.profiler per call: "
+        f"v4 {_ms(pr['v4'])}, v3 {_ms(pr['v3'])}, cuBLAS {_ms(pr['library'])}; bound {bound_a[0]:.5f} ms "
+        f"({bound_a[1]}); with the launch from Python v4 {c['v4']:.4f} ms, v3 {c['v3']:.4f}, "
+        f"plain {c['plain']:.4f}")
+    s1, lp, pr, c = tb["single"], tb["loop"], tb["profiler"], tb["call"]
+    say(f"K2 entry B (label image) matches plain: {n_differ} pixels differ, all within {K2_NEAR:g} of the "
+        f"threshold, {n_near} such pixels over {len(label_lines)} cases ({'; '.join(label_lines)})")
+    say(f"K2 entry B at the detector's frame 0 ({int(det.valid.sum())} valid of {det.valid.numel()}, "
+        f"96x160 -> 384x640), loop-timed (calls per loop {tb['loop_calls']}): entry B {lp['entry_b']:.5f} ms, "
+        f"unfused route (v3 + copy + torch upsample/crop/threshold + label) {lp['unfused_route']:.5f}, "
+        f"plain {lp['plain']:.5f}; one launch: "
+        f"entry B {s1['entry_b']:.5f}, unfused route {s1['unfused_route']:.5f}, plain {s1['plain']:.5f}; "
+        f"torch.profiler per call: entry B {_ms(pr['entry_b'])}; "
+        f"bound {bound_b[0]:.5f} ms ({bound_b[1]}); with the launch from Python entry B "
+        f"{c['entry_b']:.4f} ms, unfused route {c['unfused_route']:.4f}; random 32 detections: entry B "
+        f"{lp['entry_b_random32']:.5f} ms loop-timed, unfused route {lp['unfused_route_random32']:.5f}, "
+        f"bound {bound_rnd[0]:.5f} ms ({bound_rnd[1]})")
+    return {
+        "combine": {"max_abs_err": err_a, "ms": ta["loop"]["v4"], "plain_ms": ta["loop"]["plain"],
+                    "loop_calls": ta["loop_calls"],
+                    "library_ms": ta["loop"]["library"], "bound": bound_a,
+                    "single_launch_ms": ta["single"]["v4"], "plain_single_launch_ms": ta["single"]["plain"],
+                    "library_single_launch_ms": ta["single"]["library"], "profiler_ms": ta["profiler"]["v4"],
+                    "nchw_view_ms": ta["loop"]["v4_nchw"], "v3_ms": ta["loop"]["v3"],
+                    "v3_single_launch_ms": ta["single"]["v3"], "call_ms": ta["call"]["v4"]},
+        "label": {"max_abs_err": away, "max_abs_err_of": "|label - plain label| away from the K2_NEAR band",
+                  "ms": tb["loop"]["entry_b"], "plain_ms": tb["loop"]["plain"], "loop_calls": tb["loop_calls"],
+                  "bound": bound_b, "single_launch_ms": tb["single"]["entry_b"],
+                  "plain_single_launch_ms": tb["single"]["plain"], "profiler_ms": tb["profiler"]["entry_b"],
+                  "unfused_route_ms": tb["loop"]["unfused_route"],
+                  "unfused_route_single_launch_ms": tb["single"]["unfused_route"],
+                  "call_ms": tb["call"]["entry_b"], "pixels_differing": n_differ,
+                  "pixels_near_threshold": n_near, "random32_ms": tb["loop"]["entry_b_random32"],
+                  "random32_bound_ms": bound_rnd[0]},
+    }
 
 
 def rot_trans_err(torch, lie, A, B):
@@ -764,11 +1109,11 @@ def run_detector_path(torch, seed, ref_path, device="cuda"):
         return dataclasses.replace(fr, mask=label)
 
     st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
-    mc.mask_combine.launches = 0
+    mc.mask_combine.launches = mc.mask_label.launches = 0
     outs, times = _drive(torch, step, state, frames, device, per_frame=detect)
     launches = {"K1": st.shi_tomasi_cell_max.launches, "K2": mc.mask_combine.launches,
-                "K1 map": st.shi_tomasi_response.launches}
-    if device == "cuda" and launches != {"K1": DET_FRAMES, "K2": DET_FRAMES, "K1 map": 0}:
+                "K2 label": mc.mask_label.launches, "K1 map": st.shi_tomasi_response.launches}
+    if device == "cuda" and launches != {"K1": DET_FRAMES, "K2": 0, "K2 label": DET_FRAMES, "K1 map": 0}:
         raise AssertionError(f"kernel launches {launches} over {DET_FRAMES} frames")
 
     ref = np.load(ref_path)
@@ -791,13 +1136,63 @@ def run_detector_path(torch, seed, ref_path, device="cuda"):
                              f"{np.nonzero((ids != ref['object_ids']).any(1))[0].tolist()}")
     tr, rr, n_mot, mot = compare_to_reference(torch, lie, outs, ref, device)
     say(f"detector path: {DET_FRAMES} frames of detector_scene at detector_config on "
-        f"{frames[0].depth.device}, fused K1 launches {launches['K1']}, K2 launches "
-        f"{launches['K2']}, K1 map entry {launches['K1 map']}; "
+        f"{frames[0].depth.device}, fused K1 launches {launches['K1']}, K2 label entry "
+        f"{launches['K2 label']}, K2 entry A {launches['K2']}, K1 map entry {launches['K1 map']}; "
         f"{n_det} valid detections as in the JAX ref, boxes within {box_err:.2e} px, scores "
         f"{score_err:.2e}; label images agree on >= {agree:.6f} of pixels; object ids equal; "
         f"camera vs JAX ref max {tr:.2e} m / {rr:.2e} rad; {n_mot} object motions vs JAX ref max "
         f"{mot:.2e} m; first frame {times[0] * 1e3:.1f} ms, median frames 2-{DET_FRAMES} "
         f"{statistics.median(times[1:]) * 1e3:.2f} ms")
+    return launches
+
+
+def heldout_readings(torch, ref, device="cuda"):
+    """The checkpoint's held-out evaluation on the port (48 scenes, at most
+    8 detections, score 0.25) against the JAX run in `ref` -> (result of
+    eval/detector_heldout.py, readings, launches, seconds)."""
+    import numpy as np
+
+    from dynosam_tpu_torch.eval import detector_heldout as dh
+    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
+
+    engine = dh.make_engine(device)
+    mc.mask_combine.launches = mc.mask_label.launches = 0
+    t0 = time.perf_counter()
+    res = dh.evaluate(HELDOUT_SCENES, device=device, engine=engine)
+    dt = time.perf_counter() - t0
+    launches = {"K2": mc.mask_combine.launches, "K2 label": mc.mask_label.launches}
+    same = res["instances"] == int(ref["instances"]) and (res["scene"] == ref["scene"]).all() \
+        and (res["frame"] == ref["frame"]).all()
+    rd = {"instances": res["instances"], "same_instances": bool(same),
+          "mean_iou": res["mean_mask_iou"], "class_accuracy": res["class_accuracy"],
+          "mean_iou_err": abs(res["mean_mask_iou"] - float(ref["mean_mask_iou"])),
+          "class_acc_err": abs(res["class_accuracy"] - float(ref["class_accuracy"])),
+          "instance_iou_err": float(np.abs(res["iou"] - ref["iou"]).max()) if same else float("inf"),
+          "class_hits_differ": int((res["class_hit"] != ref["class_hit"]).sum()) if same else -1}
+    return res, rd, launches, dt
+
+
+def run_heldout_path(torch, ref_path, device="cuda"):
+    """Phase 8b: the committed checkpoint's held-out numbers on the card,
+    each frame's label image from K2's entry B, held to the JAX run
+    det_heldout_ref_48.npz -> launches."""
+    import numpy as np
+
+    ref = np.load(ref_path)
+    res, rd, launches, dt = heldout_readings(torch, ref, device)
+    if device == "cuda" and launches != {"K2": 0, "K2 label": HELDOUT_SCENES}:
+        raise AssertionError(f"held-out: kernel launches {launches} over {HELDOUT_SCENES} scenes")
+    if not (rd["same_instances"] and rd["mean_iou_err"] <= HELDOUT_MEAN_IOU
+            and rd["class_acc_err"] <= HELDOUT_CLASS_ACC):
+        raise AssertionError(f"held-out detector numbers vs the JAX run: {rd}")
+    say(f"held-out detector: {HELDOUT_SCENES} scenes through the engine on {device}, K2 label entry "
+        f"{launches['K2 label']} launches, entry A {launches['K2']}; {rd['instances']} instances as in the "
+        f"JAX run ({int(ref['instances'])}), mean mask IoU {rd['mean_iou']:.6f} (JAX {float(ref['mean_mask_iou']):.6f}, "
+        f"checkpoint json {float(ref['json_mean_mask_iou']):.6f}; |diff| {rd['mean_iou_err']:.2e}), class "
+        f"accuracy {rd['class_accuracy']:.6f} (JAX {float(ref['class_accuracy']):.6f}, json "
+        f"{float(ref['json_class_accuracy']):.6f}; {rd['class_hits_differ']} hits differ), largest instance "
+        f"IoU |diff| {rd['instance_iou_err']:.2e}; mean detected IoU {res['mean_detected_iou']:.6f}, missed "
+        f"{res['missed_rate']:.4f}; {dt:.1f} s")
     return launches
 
 
@@ -1501,7 +1896,6 @@ def run_datasets_path(torch, seed, ref_path, device="cuda", smi=""):
 
     ref = np.load(ref_path)
     on_card = torch.device(device).type == "cuda"
-    t0 = time.perf_counter()
     launches = {"K1": 0, "K1 map": 0}
     for name, r in datasets_readings(torch, ref, device).items():
         if on_card and (r["k1"], r["k1_map"]) != (r["frames"], 0):
@@ -1528,7 +1922,6 @@ def run_datasets_path(torch, seed, ref_path, device="cuda", smi=""):
             f"vs JAX pose {r['ref_pose_m']:.2e} m / {r['ref_pose_rad']:.2e} rad, motions median "
             f"{r['ref_motion_median_m']:.2e} max {r['ref_motion_max_m']:.2e} m (key overlap "
             f"{r['ref_overlap']:.3f}); bounds {bounds}")
-    say(f"phase 12 (datasets) done in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1541,6 +1934,7 @@ def main():
 
     import torch
 
+    t_start = time.perf_counter()
     # ---- 1. the card --------------------------------------------------------
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -1558,57 +1952,82 @@ def main():
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
 
     # ---- 2. build, one nvcc per source, in parallel --------------------------
+    # (K2 v3, the kernel before its redesign, only for phase 4's times)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = list(pool.map(_build.build, [st.SOURCE, mc.SOURCE]))
-    for src, (lib, build_s) in zip([st.SOURCE, mc.SOURCE], built):
-        say(f"built {os.path.relpath(_build.CSRC / src, root)} -> {os.path.relpath(lib, root)} "
+    jobs = {str(_build.CSRC / src): lambda src=src: _build.build(src)
+            for src in (st.SOURCE, mc.SOURCE, K2_V3_SOURCE)}
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = {src: pool.submit(job) for src, job in jobs.items()}
+        built = {src: f.result() for src, f in futures.items()}
+    for src, (lib, build_s) in built.items():
+        say(f"built {os.path.relpath(src, root)} -> {os.path.relpath(lib, root)} "
             f"with nvcc {' '.join(_build.NVCC_FLAGS)} in {build_s:.2f} s"
             + (" (cached)" if build_s == 0.0 else ""))
-    say(f"both builds done in {time.perf_counter() - t0:.2f} s wall")
+    say(f"all {len(jobs)} builds done in {time.perf_counter() - t0:.2f} s wall")
+
+    def timed(phase, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        say(f"phase {phase} done in {time.perf_counter() - t:.1f} s")
+        return out
 
     # ---- 3, 4. kernels against their plain versions --------------------------
-    k1 = check_k1(torch, args.seed)
-    k2 = check_k2(torch, args.seed)
+    k1 = timed("3 (K1)", check_k1, torch, args.seed)
+    k2 = timed("4 (K2)", check_k2, torch, args.seed, built[K2_V3_SOURCE][0])
 
     # ---- 5-12. the main paths, counts zeroed just before each ----------------
-    bench_launches = run_bench_path(torch, args.seed, os.path.join(testdata, "bench_ref_20f.npz"))
-    klt_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "bench_klt_ref_20f.npz"))
-    stereo_launches = run_klt_path(torch, args.seed, os.path.join(testdata, "stereo_imu_ref_12f.npz"),
-                                   stereo_imu=True)
-    det_launches = run_detector_path(torch, args.seed, os.path.join(testdata, "det_ref_24f.npz"))
-    pipe_launches, _ = run_pipeline_path(torch, args.seed, os.path.join(testdata, "kitti_ref_60f.npz"),
-                                         smi=smi)
-    forms_launches = run_forms_path(torch, args.seed, testdata)
-    batched_launches = run_batched_path(torch, args.seed, os.path.join(testdata, "bench_batched_ref_b8_20f.npz"),
-                                        smi=smi)
-    dataset_launches = run_datasets_path(torch, args.seed, os.path.join(testdata, "datasets_ref_12f.npz"), smi=smi)
+    bench_launches = timed("5 (bench)", run_bench_path, torch, args.seed,
+                           os.path.join(testdata, "bench_ref_20f.npz"))
+    klt_launches = timed("6 (klt)", run_klt_path, torch, args.seed, os.path.join(testdata, "bench_klt_ref_20f.npz"))
+    stereo_launches = timed("7 (stereo + IMU)", run_klt_path, torch, args.seed,
+                            os.path.join(testdata, "stereo_imu_ref_12f.npz"), stereo_imu=True)
+    det_launches = timed("8 (detector)", run_detector_path, torch, args.seed,
+                         os.path.join(testdata, "det_ref_24f.npz"))
+    heldout_launches = timed("8b (held-out)", run_heldout_path, torch,
+                             os.path.join(testdata, "det_heldout_ref_48.npz"))
+    pipe_launches, _ = timed("9 (pipeline)", run_pipeline_path, torch, args.seed,
+                             os.path.join(testdata, "kitti_ref_60f.npz"), smi=smi)
+    forms_launches = timed("10 (formulations)", run_forms_path, torch, args.seed, testdata)
+    batched_launches = timed("11 (batched)", run_batched_path, torch, args.seed,
+                             os.path.join(testdata, "bench_batched_ref_b8_20f.npz"), smi=smi)
+    dataset_launches = timed("12 (datasets)", run_datasets_path, torch, args.seed,
+                             os.path.join(testdata, "datasets_ref_12f.npz"), smi=smi)
 
     # ---- 13. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "klt": klt_launches, "stereo_imu": stereo_launches,
-             "detector": det_launches, "pipeline": pipe_launches, **forms_launches, **batched_launches,
-             "datasets": dataset_launches}
+             "detector": det_launches, "heldout": heldout_launches, "pipeline": pipe_launches,
+             **forms_launches, **batched_launches, "datasets": dataset_launches}
+    batched = {p for p in paths if p.startswith("batched_")}
 
-    def row(name, kid, source, replaces, check, **extra):
-        by_path = {p: launches.get(kid, 0) for p, launches in paths.items()}
+    def row(name, kid, source, replaces, check, only=None, **extra):
+        # K1's counter counts the fused entry on every path; on the batched
+        # paths it launches as K1b (the kernel's blockIdx.z over B)
+        by_path = {p: launches.get(kid, 0) for p, launches in paths.items() if only is None or only(p)}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": check["max_abs_err"], "ms": check["ms"], "plain_ms": check["plain_ms"],
                 "bound_ms": check["bound"][0], "bound_by": check["bound"][1],
-                # no single PyTorch call computes K1's function; K2's yardstick
-                # is the cuBLAS product without the sigmoid
-                "library_ms": check.get("library_ms"), **extra}
+                # no single PyTorch call computes K1's or the label image's
+                # function; entry A's yardstick is the cuBLAS product alone
+                "library_ms": check.get("library_ms"),
+                "timing": f"ms, plain_ms, library_ms: one event pair around up to {LOOP_LAUNCHES} back-to-back "
+                          f"calls (loop_calls), divided by their count; *single_launch_ms: median of one event "
+                          f"pair per call; profiler_ms: torch.profiler's device time per call",
+                **{k: v for k, v in check.items() if k not in ("max_abs_err", "ms", "plain_ms", "bound",
+                                                              "library_ms")}, **extra}
 
+    say(f"all phases done in {time.perf_counter() - t_start:.1f} s (builds included; the limit is 1200 s)")
+    st_src, mc_src = "dynosam_tpu_torch/csrc/shi_tomasi.cu", "dynosam_tpu_torch/csrc/mask_combine.cu"
     print(json.dumps({"kernels": [
-        row("shi_tomasi_cell_max", "K1", "dynosam_tpu_torch/csrc/shi_tomasi.cu",
-            "dynosam_tpu/ops/pallas/shi_tomasi.py:31", k1,
-            map_launches_by_path={p: launches.get("K1 map", 0) for p, launches in paths.items()},
-            map_route_ms=k1["map_route_ms"], call_ms=k1["call_ms"], best_bitwise=k1["best_bitwise"],
-            near_tie_cells=k1["near_tie_cells"], batched_b8=k1["b8"],
-            # the batched paths launch the kernel's blockIdx.z entry, K1b's port
-            batched_entry_replaces="dynosam_tpu/ops/pallas/shi_tomasi.py:87"),
-        row("mask_combine", "K2", "dynosam_tpu_torch/csrc/mask_combine.cu",
-            "dynosam_tpu/ops/pallas/mask_combine.py:23", k2, call_ms=k2["call_ms"]),
+        row("shi_tomasi_cell_max", "K1", st_src, "dynosam_tpu/ops/pallas/shi_tomasi.py:31", k1["fused"],
+            only=lambda p: p not in batched),
+        row("shi_tomasi_response (K1 map entry)", "K1 map", st_src, "dynosam_tpu/ops/pallas/shi_tomasi.py:31",
+            k1["map"]),
+        row("shi_tomasi_cell_max batched (K1b)", "K1", st_src, "dynosam_tpu/ops/pallas/shi_tomasi.py:87",
+            k1["batched"], only=lambda p: p in batched),
+        row("mask_combine (K2 entry A)", "K2", mc_src, "dynosam_tpu/ops/pallas/mask_combine.py:23", k2["combine"]),
+        row("mask_label (K2 entry B)", "K2 label", mc_src, "dynosam_tpu/ops/pallas/mask_combine.py:23",
+            k2["label"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

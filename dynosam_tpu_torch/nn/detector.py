@@ -2,8 +2,9 @@
 
   * `YoloV8DetectorEngine` — RGB image -> int32 instance-label image:
     YOLOv8-seg forward (nn/yolov8.py) -> DFL decode + fixed-shape NMS ->
-    mask combination (kernel K2 on the card, nn/postprocess.py) -> label
-    image at the caller's resolution. Loads the committed checkpoint by
+    label image from the prototypes in one step (kernel K2's entry B on the
+    card, nn/postprocess.py::mask_label_image) -> label image at the
+    caller's resolution. Loads the committed checkpoint by
     default.
   * `MaskPassthroughEngine` — externally provided masks
     (prefer_provided_object_detection=True).
@@ -83,6 +84,7 @@ class YoloV8DetectorEngine:
         iou_threshold: float = 0.6,
         class_ids: Optional[Sequence[int]] = DEFAULT_CLASS_FILTER,
         mask_threshold: float = 0.5,
+        box_pad: float = 0.0,
         checkpoint: str = CKPT_PATH,
         device="cuda",
     ):
@@ -90,12 +92,14 @@ class YoloV8DetectorEngine:
         count and scale from its metadata; a head of fewer than 80 classes
         is not COCO's, so the COCO class filter is dropped. The network is
         fully convolutional, so `input_hw` may differ from the training
-        resolution."""
+        resolution. `box_pad` widens each box by that many pixels before
+        the mask crop."""
         self.input_hw = tuple(input_hw)
         self.max_detections = max_detections
         self.score_threshold = score_threshold
         self.iou_threshold = iou_threshold
         self.mask_threshold = mask_threshold
+        self.box_pad = box_pad
         if model is None:
             model, meta = load_flax_checkpoint(checkpoint)
             if meta["num_classes"] < 80:
@@ -118,8 +122,8 @@ class YoloV8DetectorEngine:
             iou_threshold=self.iou_threshold,
             class_ids=self.class_ids,
         )
-        masks = pp.combine_masks(det, single["proto"], (H, W), mask_threshold=self.mask_threshold)
-        label = pp.masks_to_label_image(masks, det.scores)
+        label = pp.mask_label_image(det, single["proto"], (H, W), mask_threshold=self.mask_threshold,
+                                    box_pad=self.box_pad)
         return resize_labels(label, rgb.shape[:2]), det
 
     def process(self, rgb: torch.Tensor) -> torch.Tensor:

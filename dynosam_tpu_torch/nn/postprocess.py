@@ -3,8 +3,10 @@ and the instance-label image (port of dynosam_tpu/nn/postprocess.py).
 
 Detections live in a padded (max_detections,) table with a validity mask.
 `combine_masks` computes sigmoid(coef @ proto^T) through
-ops/cuda/mask_combine.py (kernel K2 on the card), then upsamples x4
-bilinearly, crops to the boxes and thresholds.
+ops/cuda/mask_combine.py (kernel K2's entry A on the card), then upsamples
+x4 bilinearly, crops to the (padded) boxes and thresholds;
+`mask_label_image` goes from the same inputs to the label image in one
+launch of K2's entry B, which the detector calls.
 """
 
 from __future__ import annotations
@@ -12,9 +14,8 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
-import torch.nn.functional as F
 
-from dynosam_tpu_torch.ops.cuda.mask_combine import mask_combine
+from dynosam_tpu_torch.ops.cuda.mask_combine import crop_threshold, label_image, mask_combine, mask_label
 
 
 class Detections(NamedTuple):
@@ -127,28 +128,26 @@ def combine_masks(
     proto,                      # (Hp, Wp, nm) prototype basis (input / 4)
     out_hw,                     # (H, W) of the network input
     mask_threshold: float = 0.5,
+    box_pad: float = 0.0,
 ):
-    """Per-instance masks: sigmoid(coef @ proto^T) through the K2 wrapper,
-    upsampled to the input size, zeroed outside the box and thresholded
-    -> (K, H, W) bool."""
-    H, W = out_hw
-    low = mask_combine(proto.contiguous(), det.mcoef.contiguous())     # (K, Hp, Wp)
-    masks = F.interpolate(low[None], size=(H, W), mode="bilinear", align_corners=False)[0]
-    ys = torch.arange(H, dtype=torch.float32, device=proto.device)[None, :, None]
-    xs = torch.arange(W, dtype=torch.float32, device=proto.device)[None, None, :]
-    b = det.boxes
-    inside = (
-        (xs >= b[:, 0, None, None])
-        & (xs <= b[:, 2, None, None])
-        & (ys >= b[:, 1, None, None])
-        & (ys <= b[:, 3, None, None])
-    )
-    return (masks > mask_threshold) & inside & det.valid[:, None, None]
+    """Per-instance masks: sigmoid(coef @ proto^T) through the K2 wrapper's
+    entry A (the prototype in the network's own layout), upsampled to the
+    input size, zeroed outside the box widened by `box_pad` pixels and
+    thresholded -> (K, H, W) bool."""
+    low = mask_combine(proto, det.mcoef)                                # (K, Hp, Wp)
+    return crop_threshold(low, det.boxes, det.valid, out_hw, mask_threshold, box_pad)
 
 
 def masks_to_label_image(masks, scores):
     """(K, H, W) bool + (K,) scores -> (H, W) int32 label image: 0 for the
     background, 1..K by detection index, overlaps to the higher score."""
-    s = torch.where(masks, scores[:, None, None], -torch.inf)
-    best = torch.argmax(s, dim=0)
-    return torch.where(torch.any(masks, dim=0), best + 1, 0).to(torch.int32)
+    return label_image(masks, scores)
+
+
+def mask_label_image(det: Detections, proto, out_hw, mask_threshold: float = 0.5,
+                     box_pad: float = 0.0):
+    """`masks_to_label_image(combine_masks(...), det.scores)` as one step:
+    the K2 wrapper's entry B, one launch on the card, no (K, H, W) array;
+    the plain composition on the CPU -> (H, W) int32."""
+    return mask_label(proto, det.mcoef, det.boxes, det.scores, det.valid, out_hw,
+                      mask_threshold=mask_threshold, box_pad=box_pad)

@@ -65,9 +65,17 @@ dynosam_tpu_torch/testdata/:
     RANSAC seed 0. Per format `<name>_X` (frames, 4, 4) mature
     camera poses and `<name>_motion_key` / `<name>_motion_H` the matured
     object motions, as kitti_ref_60f.npz.
+  * det_heldout_ref_48.npz (--only heldout) — the committed detector
+    checkpoint's held-out evaluation (scripts/train_detector.py eval_iou:
+    48 scenes of random_scene from np.random.default_rng(10_000), the JAX
+    engine with at most 8 detections, score 0.25, no class filter, the
+    XLA mask combination) rerun: per ground-truth instance its best mask
+    IoU (`iou`), class hit (`class_hit`), `scene` and `frame`; the totals
+    mean_mask_iou, class_accuracy, instances, mean_detected_iou,
+    missed_rate; and the checkpoint's sidecar numbers as json_*.
 
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
-    [--only bench|detector|kitti|klt|stereo_imu|forms|batched|datasets]
+    [--only bench|detector|kitti|klt|stereo_imu|forms|batched|datasets|heldout]
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
 after it; the forms files' CPU time is in CHANGES.md)
@@ -111,6 +119,9 @@ KITTI_FORMS_OUT = os.path.join(TESTDATA, "kitti_forms_ref_60f.npz")
 BATCHED_B = 8
 BATCHED_OUT = os.path.join(TESTDATA, "bench_batched_ref_b8_20f.npz")
 DATASETS_OUT = os.path.join(TESTDATA, "datasets_ref_12f.npz")
+HELDOUT_OUT = os.path.join(TESTDATA, "det_heldout_ref_48.npz")
+HELDOUT_SCENES = 48
+HELDOUT_SEED = 10_000
 
 
 def _save(path, arrays, t0):
@@ -286,6 +297,84 @@ def detector_reference():
     outs = _run(step, init_pipeline_state(cfg), scene.frames(), per_frame=detect)
     outs.update({k: np.stack(v) for k, v in dets.items()})
     _save(DET_OUT, outs, t0)
+
+
+def heldout_reference():
+    """The checkpoint's held-out evaluation (scripts/train_detector.py
+    eval_iou) rerun, keeping each instance's IoU and class hit; raises
+    unless its totals equal eval_iou's own over the same scenes."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from flax import serialization
+
+    from dynosam_tpu.nn import detector as jdet
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_detector as td
+
+    t0 = time.time()
+    with open(jdet.CKPT_PATH, "rb") as fh:
+        variables = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32),
+                                 serialization.msgpack_restore(fh.read()))
+    with open(jdet.CKPT_PATH + ".json") as fh:
+        meta = json.load(fh)
+    # eval_iou's engine: at most 8 detections, score 0.25, no class filter,
+    # the XLA mask combination
+    engine = jdet.YoloV8DetectorEngine(variables, num_classes=meta["num_classes"], scale=meta["scale"],
+                                       input_hw=(td.IMG_H, td.IMG_W), max_detections=8,
+                                       score_threshold=0.25, class_ids=None, use_pallas_masks=False)
+    rng = np.random.default_rng(HELDOUT_SEED)
+    out = {k: [] for k in ("iou", "class_hit", "scene", "frame")}
+    for s in range(HELDOUT_SCENES):
+        scn = td.random_scene(rng)
+        cm = td._cls_of_oid(scn)
+        k = int(rng.integers(0, scn.scn.spec.num_frames))
+        fr = scn.frame(k)
+        gt = np.asarray(fr.mask)
+        label, det = engine.detect(jnp.asarray(fr.rgb))
+        label = np.asarray(label)
+        det_cls = np.asarray(det.classes)
+        for oid in np.unique(gt):           # eval_iou's scoring
+            if oid <= 0:
+                continue
+            g = gt == oid
+            if g.sum() < 40:
+                continue
+            best, best_lab = 0.0, -1
+            for lab in np.unique(label):
+                if lab <= 0:
+                    continue
+                p = label == lab
+                iou = np.logical_and(g, p).sum() / max(np.logical_or(g, p).sum(), 1)
+                if iou > best:
+                    best, best_lab = iou, int(lab)
+            out["iou"].append(best)
+            out["class_hit"].append(best_lab > 0 and int(det_cls[best_lab - 1]) == int(cm[int(oid)]))
+            out["scene"].append(s)
+            out["frame"].append(k)
+    a = np.asarray(out["iou"], np.float64)
+    arrays = {"iou": a, "class_hit": np.asarray(out["class_hit"], bool),
+              "scene": np.asarray(out["scene"], np.int32), "frame": np.asarray(out["frame"], np.int32),
+              "mean_mask_iou": a.mean(), "class_accuracy": np.mean(out["class_hit"]),
+              "instances": a.size, "mean_detected_iou": a[a > 0.1].mean(),
+              "missed_rate": np.mean(a <= 0.1),
+              # the checkpoint's sidecar, for comparison
+              "json_mean_mask_iou": meta["mean_mask_iou"], "json_class_accuracy": meta["class_accuracy"],
+              "json_instances": meta["instances"]}
+    # the totals are eval_iou's own: the scoring above is its body
+    miou, cacc, count, extra = td.eval_iou(variables, num_scenes=HELDOUT_SCENES, seed=HELDOUT_SEED)
+    mine = (int(arrays["instances"]), float(arrays["mean_mask_iou"]), float(arrays["class_accuracy"]),
+            float(arrays["mean_detected_iou"]), float(arrays["missed_rate"]))
+    theirs = (count, miou, cacc, extra["mean_detected_iou"], extra["missed_rate"])
+    if mine != theirs:
+        raise AssertionError(f"held-out totals {mine} differ from eval_iou's {theirs}")
+    print(f"  held-out: {a.size} instances, mean IoU {a.mean():.6f}, class accuracy "
+          f"{np.mean(out['class_hit']):.6f} (checkpoint json: {meta['instances']}, "
+          f"{meta['mean_mask_iou']:.6f}, {meta['class_accuracy']:.6f})", flush=True)
+    _save(HELDOUT_OUT, arrays, t0)
 
 
 def _summary(mod):
@@ -499,10 +588,12 @@ def datasets_reference():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "datasets"],
+    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "datasets",
+                                       "heldout"],
                     action="append", help="write only these files (default: all)")
     args = ap.parse_args()
-    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "datasets"]
+    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "datasets",
+                         "heldout"]
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -520,6 +611,8 @@ def main():
         batched_reference()
     if "datasets" in todo:
         datasets_reference()
+    if "heldout" in todo:
+        heldout_reference()
 
 
 if __name__ == "__main__":

@@ -29,8 +29,9 @@ are timed on the host clock with a torch.cuda.synchronize() at each
 boundary (so the layer times add up to more than an unhooked step):
 tracker, the rest of the frontend (RANSAC, GN, joint refinement; stereo,
 IMU and CLAHE taken out), window advance, graph update and hybrid optimize; on the detector path also the
-network, decode + NMS, mask combination (with K2 alone inside it), label
-image and ByteTrack. A third pass runs under torch.profiler for device busy
+network, decode + NMS, the label image from the prototypes
+(nn/postprocess.py::mask_label_image, one launch of K2's entry B) and
+ByteTrack. A third pass runs under torch.profiler for device busy
 time, device op count and the top kernels by device time.
 
 Usage: python scripts/profile_torch_step.py [--out PATH.json] [--seed N]
@@ -109,9 +110,8 @@ def main():
         (det_mod.YoloV8DetectorEngine, "detect", "detector_total"),
         (pp_mod, "decode_all", "decode"),
         (pp_mod, "nms", "nms"),
-        (pp_mod, "combine_masks", "mask_combination"),
-        (pp_mod, "mask_combine", "K2"),
-        (pp_mod, "masks_to_label_image", "label_image"),
+        # the label image in one launch of K2's entry B
+        (pp_mod, "mask_label_image", "mask_label"),
         (tracker_mod.bt, "masks_to_detections", "bytetrack_boxes"),
         (tracker_mod.bt, "bytetrack_step", "bytetrack_step"),
     ]

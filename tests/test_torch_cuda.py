@@ -1,6 +1,6 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels (K1
-Shi-Tomasi with its fused per-cell argmax, K2 mask combination) against
-their plain versions, the
+Shi-Tomasi with its fused per-cell argmax, K2 mask combination and its
+one-launch label image) against their plain versions, the
 detector engine and the fused step past its window on the card against the
 same code on the CPU. They skip without a CUDA device. This file imports no JAX, so it
 also runs where JAX is absent:
@@ -132,8 +132,8 @@ def test_mask_combine_kernel_matches_plain_version(cuda, k, hp, wp, nm):
 
 def test_mask_combine_rejects_what_the_kernel_does_not_take(cuda):
     proto = torch.randn((8, 8, 32), generator=cuda, device="cuda")
-    with pytest.raises(ValueError):         # shared memory for K=400 exceeds the limit
-        mc.mask_combine(proto, torch.randn((400, 32), generator=cuda, device="cuda"))
+    with pytest.raises(ValueError):         # K=2000's coefficients exceed the device's shared memory
+        mc.mask_combine(proto, torch.randn((2000, 32), generator=cuda, device="cuda"))
     with pytest.raises(ValueError):         # devices differ
         mc.mask_combine(proto, torch.randn((4, 32)))
     with pytest.raises(ValueError):         # nm not a multiple of 4
@@ -141,16 +141,81 @@ def test_mask_combine_rejects_what_the_kernel_does_not_take(cuda):
         mc.mask_combine(p30, torch.randn((4, 30), generator=cuda, device="cuda"))
 
 
+@pytest.mark.parametrize("k, hp, wp", [(32, 96, 160), (5, 37, 61)])
+def test_mask_combine_kernel_takes_the_nchw_view(cuda, k, hp, wp):
+    proto = torch.randn((1, 32, hp, wp), generator=cuda, device="cuda").permute(0, 2, 3, 1)[0]
+    coef = torch.randn((k, 32), generator=cuda, device="cuda")
+    before = mc.mask_combine.launches
+    out = mc.mask_combine(proto, coef)
+    assert mc.mask_combine.launches == before + 1
+    torch.testing.assert_close(out, mc.mask_combine_reference(proto, coef), rtol=0, atol=1e-5)
+
+
+def _label_inputs(gen, k, hp, wp, H, W):
+    """NCHW-view prototypes, boxes crossing the border and each other, a
+    fifth of the rows invalid with NaN coefficients, rows 1 and 3 tied."""
+    proto = torch.randn((1, 32, hp, wp), generator=gen, device="cuda").permute(0, 2, 3, 1)[0]
+    coef = torch.randn((k, 32), generator=gen, device="cuda")
+    size = torch.tensor([W, H], dtype=torch.float32, device="cuda")
+    c = (torch.rand((k, 2), generator=gen, device="cuda") * 1.2 - 0.1) * size
+    wh = (torch.rand((k, 2), generator=gen, device="cuda") * 0.55 + 0.05) * size
+    boxes = torch.cat([c - wh / 2, c + wh / 2], 1)
+    boxes[3] = boxes[1] + 5.0
+    scores = torch.rand((k,), generator=gen, device="cuda") * 0.7 + 0.3
+    scores[3] = scores[1]
+    valid = torch.rand((k,), generator=gen, device="cuda") > 0.2
+    valid[[1, 3]] = True
+    coef[~valid] = float("nan")
+    return proto, coef, boxes.contiguous(), torch.where(valid, scores, 0.0), valid
+
+
+def _near_threshold(proto, coef, boxes, valid, out_hw, pad, thr=0.5, near=1e-5):
+    """(H, W) pixels where a valid detection inside its padded box has a
+    plain interpolated value within `near` of the threshold."""
+    low = mc.mask_combine_reference(proto, coef)
+    vals = torch.nn.functional.interpolate(low[None], size=out_hw, mode="bilinear", align_corners=False)[0]
+    inside = mc.crop_threshold(torch.ones_like(low), boxes, valid, out_hw, 0.0, pad)
+    return (((vals - thr).abs() <= near) & inside).any(0)
+
+
+@pytest.mark.parametrize("box_pad", [0.0, 2.0])
+@pytest.mark.parametrize("k, hp, wp, H, W", [(32, 96, 160, 384, 640), (5, 37, 61, 148, 244), (4, 10, 10, 7, 13)])
+def test_mask_label_kernel_matches_plain_version(cuda, k, hp, wp, H, W, box_pad):
+    proto, coef, boxes, scores, valid = _label_inputs(cuda, k, hp, wp, H, W)
+    before = mc.mask_label.launches
+    out = mc.mask_label(proto, coef, boxes, scores, valid, (H, W), box_pad=box_pad)
+    assert mc.mask_label.launches == before + 1
+    ref = mc.mask_label_reference(proto, coef, boxes, scores, valid, (H, W), box_pad=box_pad)
+    near = _near_threshold(proto, coef, boxes, valid, (H, W), box_pad)
+    assert out.dtype == torch.int32 and out.shape == (H, W)
+    assert not bool(((out != ref) & ~near).any())
+    assert float(near.float().mean()) <= 1e-4
+    # the same labels from contiguous NHWC prototypes
+    assert torch.equal(out, mc.mask_label(proto.contiguous(), coef, boxes, scores, valid, (H, W), box_pad=box_pad))
+
+
+def test_mask_label_rejects_what_the_kernel_does_not_take(cuda):
+    proto, coef, boxes, scores, valid = _label_inputs(cuda, 6, 24, 40, 96, 160)
+    before = mc.mask_label.launches
+    with pytest.raises(ValueError):         # nm = 24 is not instantiated
+        mc.mask_label(proto[..., :24], coef[:, :24].contiguous(), boxes, scores, valid, (96, 160))
+    with pytest.raises(ValueError):         # devices differ
+        mc.mask_label(proto, coef, boxes.cpu(), scores, valid, (96, 160))
+    with pytest.raises(ValueError):         # rows not on one pixel grid
+        mc.mask_label(proto.transpose(0, 1), coef, boxes, scores, valid, (96, 160))
+    assert mc.mask_label.launches == before
+
+
 def test_detector_engine_on_the_card_matches_the_cpu(cuda):
     _, intr = detector_config()
     rgb = detector_scene(intr, 1, device="cpu").frame(0).rgb
     dets = {}
     for dev in ("cpu", "cuda"):
-        launches = mc.mask_combine.launches
+        launches = mc.mask_combine.launches, mc.mask_label.launches
         label, det = YoloV8DetectorEngine(device=dev).detect(rgb.to(dev))
         dets[dev] = (label.cpu(), det.valid.cpu(), det.boxes.cpu())
-        if dev == "cuda":
-            assert mc.mask_combine.launches == launches + 1
+        if dev == "cuda":       # the label image in one launch of entry B, entry A never
+            assert (mc.mask_combine.launches, mc.mask_label.launches) == (launches[0], launches[1] + 1)
     (lc, vc, bc), (lg, vg, bg) = dets["cpu"], dets["cuda"]
     assert torch.equal(vc, vg) and int(vc.sum()) > 0
     torch.testing.assert_close(bg[vg], bc[vc], rtol=0, atol=0.05)

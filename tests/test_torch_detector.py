@@ -276,3 +276,24 @@ def test_engine_end_to_end_on_a_textured_frame(checkpoint):
     # labels: equal but for pixels whose mask probability sits within f32
     # rounding of the threshold
     assert (tlab.numpy() != np.asarray(jlab)).mean() <= 1e-4
+
+
+def test_engine_box_pad_matches_jax(checkpoint):
+    """The engine with box_pad=2 (each box widened by 2 px before the mask
+    crop) against JAX's YoloV8DetectorEngine(box_pad=2) on the textured
+    frame, and the pad's effect against the unpadded engine."""
+    variables, meta, model = checkpoint
+    _, intr = tbench.detector_config()
+    rgb = np.asarray(jax_dense(tbench.detector_scene(intr, num_frames=1, device="cpu")).frame(0).rgb)
+    kw = dict(input_hw=(intr.height, intr.width), class_ids=None)
+    jeng = jdet.YoloV8DetectorEngine(variables, num_classes=meta["num_classes"], scale=meta["scale"],
+                                     use_pallas_masks=False, box_pad=2.0, **kw)
+    teng = tdet.YoloV8DetectorEngine(model, device="cpu", box_pad=2.0, **kw)
+    jlab, jd = jeng.detect(jnp.asarray(rgb))
+    tlab, td = teng.detect(t(rgb))
+    np.testing.assert_array_equal(td.valid.numpy(), np.asarray(jd.valid))
+    # labels: equal but for pixels whose mask probability sits within f32
+    # rounding of the threshold
+    assert (tlab.numpy() != np.asarray(jlab)).mean() <= 1e-4
+    unpadded = tdet.YoloV8DetectorEngine(model, device="cpu", **kw).process(t(rgb))
+    assert int((tlab != unpadded).sum()) > 0
