@@ -45,6 +45,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
      held to the renderer's ground truth
      and poses + object motions to the JAX reference
      dynosam_tpu_torch/testdata/bench_ref_20f.npz;
+  5b. pipelined path: the same 20 frames through make_fused_step(...,
+     pipelined=True) (the optimizer on the window through the previous frame
+     before the advance and the frame's ingestion, the reference's
+     pipelined order), K1 once per frame, held at the bench path's bounds to
+     the ground truth and to bench_pipelined_ref_20f.npz; device ops, busy
+     time and idle share per advancing frame (torch.profiler over two);
   6. KLT path: the fused step at bench_klt_config() (tracking by pyramidal
      KLT with the forward-backward check on CLAHE-equalized frames) over 20
      frames of the world-textured bench scene rendered on the card (the
@@ -75,15 +81,16 @@ Phases, each printing one line; any failure raises and exits non-zero:
      dynosam_tpu_torch/testdata/det_heldout_ref_48.npz (HELDOUT_*), the
      largest instance's IoU difference printed;
   9. pipeline path: the port's entry-point code (run_dynosam.open_dataset,
-     build_pipeline, DynoPipeline.run with prefetch) over the 60 frames of
+     build_pipeline, DynoPipeline.run with prefetch) over
      tests/fixtures/kitti_fixture read from disk, (a) in the hybrid
      incremental, sliding-window and full-batch modes at ACCURACY.md's
-     configuration, eager, each run writing its CSV logs and evaluated by
-     DatasetEvaluator: mature camera poses and matured object motions held
-     to dynosam_tpu_torch/testdata/kitti_ref_60f.npz, the evaluator's
-     numbers to the JAX seeds' range; (b) incremental again with deferred
-     outputs (mid-run drains), its logs equal to (a)'s byte for byte; (c)
-     the real-io configuration timed after a warm-up (frames/s and the
+     configuration over its first 30 frames, eager, each run writing its
+     CSV logs and evaluated by DatasetEvaluator: mature camera poses and
+     matured object motions held to the nearest of the JAX runs (seeds
+     0-5) in dynosam_tpu_torch/testdata/kitti_ref_30f.npz, the evaluator's
+     numbers to the JAX seeds' range; (b) incremental again with deferred outputs
+     (a mid-run drain), its logs equal to (a)'s byte for byte; (c) the
+     real-io configuration over all 60 frames, timed after a warm-up (frames/s and the
      per-layer host times). Every run: the fused K1 once per frame, the map
      entry never; the first frame's inputs and graph state on the card;
      host syncs counted with torch's sync debug mode;
@@ -110,7 +117,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
      (torch.profiler over two frames) at B=8 at most 1.5x those at B=1;
      aggregate and per-sequence frames/s and host syncs per frame; and on
      the B=1 run's final window the landmark-chunked assembly
-     (parallel/sharded.py, P=4) held to hybrid.linearize;
+     (parallel/sharded.py, P=4) held to hybrid.linearize; then WCME, WCPE
+     and the joint hybrid solve at B=8 on the same frames, K1b once per
+     frame, each held at phase 10's bounds to
+     bench_batched_{wcme,wcpe,joint}_ref_b8_20f.npz (WCME's and WCPE's
+     motions where settled; WCPE's sequences 5 and 6 to the ground truth
+     only, BATCHED_REF_EXCLUDED), with ms per advancing frame, aggregate
+     frames/s, device ops, busy time and idle share per advancing frame
+     and host syncs per frame with their sites;
   12. datasets: each of the seven on-disk formats (dyno-KITTI with png
      masks, Virtual KITTI 2, OMD, TartanAir-Shibuya, VIODE, ClusterSlam,
      Aria; bench_config.DATASET_FORMATS) written by the port's writers at
@@ -123,7 +137,16 @@ Phases, each printing one line; any failure raises and exits non-zero:
      dynosam_tpu_torch/testdata/datasets_ref_12f.npz (DATASET_BOUNDS); the
      first frame's inputs and graph state on the card; the fused K1 once per
      frame, the map entry never; frames/s and decode ms per frame;
-  13. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
+  13. tooling: python -m dynosam_tpu_torch.run_dynosam's main() with --viz
+     over 12 fixture frames (tracking PNGs, the trajectory plot and the
+     Motion-JPEG AVI decoded and checked), the same frames' packets saved
+     and replayed through PacketReplayProvider into a fresh RegularBackend
+     (the same camera poses), graph_tools on its final window, and one
+     frame through --use_detector --detector_weights with a state dict the
+     phase writes from the port's own scale-n, 80-class network under
+     ultralytics' names (K2's entry B once, detections equal to the same
+     network held directly);
+  14. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
      K2 entry A, K2 entry B), with each one's bound (the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates), loop-timed `ms` / `plain_ms` / `library_ms`
@@ -230,8 +253,14 @@ HELDOUT_SCENES = 48
 HELDOUT_MEAN_IOU = 4.4e-6     # |mean IoU - reference|
 HELDOUT_CLASS_ACC = 0.0       # |class accuracy - reference|
 # pipeline path: the committed dyno-KITTI fixture, all 60 frames
-KITTI_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "kitti_fixture")
-PIPE_FRAMES = 60
+ROOT = os.path.dirname(os.path.abspath(__file__))
+KITTI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "kitti_fixture")
+# the three modes and the deferred run take the first PIPE_FRAMES frames (cut
+# from all 60 to keep the smoke near half its time limit); the real-io run
+# and phase 10's fixture runs take all 60
+PIPE_FRAMES = 30
+REAL_IO_FRAMES = 60
+FORM_KITTI_FRAMES = 60
 KITTI_MODES = ("incremental", "sliding_window", "full_batch")
 DRAIN_EVERY = 16              # deferred run: drains after frames 16, 32, 48 and at the end
 DEFERRED_LOGS = ("camera_pose", "object_motion", "object_pose", "object_bbx")
@@ -241,43 +270,52 @@ DEFERRED_LOGS = ("camera_pose", "object_motion", "object_pose", "object_bbx")
 ACCURACY_ROWS = {"incremental": (1.186, 0.00396, 1.336, 1.143),
                  "sliding_window": (1.168, 0.00521, 1.251, 1.102),
                  "full_batch": (1.108, 0.00201, 0.635, 0.429)}
-# Pipeline path against kitti_ref_60f.npz (JAX, seed 0), per mode: the
-# largest pose translation (m) and rotation (rad) over the 60 frames, the
-# largest and the median matured-motion translation (m). The port samples
-# RANSAC with its own generator, so it lands from JAX seed 0 as another seed
-# does, plus f32 reordering, which moves the CPU's readings with its thread
-# count. Each bound sits ~4x above the larger of the JAX seeds' spread (seeds
-# 1, 2 vs 0, the file's `seed_spread`) and the port's readings, in that
-# order: spread / H100 / CPU (2 threads; default threads in brackets).
-#   incremental  pose 2.8e-4 / 2.45e-4 / 2.1e-4 (1.3e-4) m, 2.4e-5 / 3.7e-5 /
-#                2.9e-5 rad; motions max 4.8e-4 / 1.4e-4 / 5.0e-4 (1.6e-4) m,
-#                median 1.1e-5 / 1.3e-5 / 1.4e-5 m
-#   full_batch   pose 1.2e-5 / 2.2e-5 / 4.3e-5 (1.2e-5) m, 1.4e-7 / 1.7e-7 /
-#                3.0e-6 rad; motions max 2.1e-3 / 5.7e-4 / 8.6e-4 (2.8e-4) m,
-#                median 4.2e-6 / 4.9e-6 / 7.6e-6 m
-#   sliding      pose 2.7e-4 / 2.6e-3 / 3.0e-4 (2.6e-3) m, 4.5e-5 / 1.1e-4 /
-#                6.8e-5 rad; motions max 3.3e-4 / 2.5e-3 / 2.5e-3 (2.2e-3) m,
-#                median 8.0e-5 / 1.2e-4 / 2.0e-5 m
-# The sliding readings are one LM accept/reject flip: at frame 29 the object
-# phase's candidate error lies within a few f32 ulps of the current one
-# (|err| ~ 1.4e4), the port rejects where JAX accepts, object 3's motion
-# moves 1.9e-2 m and, through the marginal prior, the trajectory from frame
-# 23 on ~1e-3 m; whether it flips depends on the order of the sums.
+# Pipeline path against kitti_ref_30f.npz (JAX seeds 0-5, every run kept;
+# the first 30 fixture frames), per mode: the largest pose translation (m)
+# and rotation (rad), the largest and the median matured-motion
+# translation (m), against the nearest JAX run (compare_kitti). The port
+# samples RANSAC with its own generator, so it lands as another seed does,
+# plus f32 reordering; and some LM accept/reject decisions on the fixture
+# lie within f32 rounding of the total error (~7 ulps), so runs part there
+# by seed, by torch's thread count or by device. Given the same input, JAX
+# and the port decide alike (LM traces on saved states; float64 sides with
+# the reject in the full-batch case). Full-batch parts at frame 26's warm
+# start (its final solve takes no step): JAX seed 3 alone, the port on 4
+# threads and the card take the accept (8.0e-4 / 2.3e-4 m from seed 0).
+# Sliding-window parts twice: mid-run (seeds 1, 4 and the port sit 3.3e-4
+# / 1.0e-4 m from seeds 0, 2, 3) and at frame 29, the last, where seed 5
+# alone and the card flip object 3's last motion by 2.63e-2 m; the card
+# takes seeds 1/4's first branch and seed 5's second. Readings against the
+# nearest run, JAX (each seed vs its nearest other on its branch) / torch
+# on the CPU (4 threads) / the H100:
+#   incremental  pose 1.8e-5-8.8e-5 / 4.7e-5 / 9.3e-5 m, 9.2e-6-1.5e-5 /
+#                2.0e-5 / 1.7e-5 rad; motions max 1.1e-5-2.0e-5 / 3.5e-5
+#                / 9.5e-5 m, median 2.3e-6-6.3e-6 / 4.0e-6 / 5.6e-6 m
+#   sliding      pose 2.6e-5-3.5e-5 / 5.6e-5 / 6.2e-5 m, 1.3e-5-1.8e-5 /
+#                2.1e-5 / 2.5e-5 rad; motions max 1.7e-5-4.6e-5 / 3.8e-5
+#                / 3.3e-4 m (against seed 5, whose mid-run branch the
+#                card does not share: the gap of seeds 1 and 0), median
+#                4.5e-6-5.9e-6 / 4.8e-6 / 1.2e-4 m
+#   full_batch   pose 1.5e-6-3.1e-6 / 4.4e-6 / 3.6e-6 m, 9.4e-8-1.1e-7 /
+#                9.0e-8 / 6.4e-8 rad; motions max 6.4e-6-1.8e-5 / 2.9e-5 /
+#                2.4e-5 m, median 1.3e-6-2.7e-6 / 3.8e-6 / 4.1e-6 m
+# Bounds 4-11x the larger of the port's readings.
 KITTI_REF_BOUNDS = {
-    "incremental": {"pose_m": 1e-3, "pose_rad": 2e-4, "motion_max_m": 2e-3, "motion_median_m": 1e-4},
-    "full_batch": {"pose_m": 2e-4, "pose_rad": 1e-5, "motion_max_m": 8e-3, "motion_median_m": 4e-5},
-    "sliding_window": {"pose_m": 1e-2, "pose_rad": 5e-4, "motion_max_m": 1e-2, "motion_median_m": 1e-3},
+    "incremental": {"pose_m": 1e-3, "pose_rad": 2e-4, "motion_max_m": 1e-3, "motion_median_m": 5e-5},
+    "full_batch": {"pose_m": 5e-5, "pose_rad": 1e-6, "motion_max_m": 3e-4, "motion_median_m": 4e-5},
+    "sliding_window": {"pose_m": 5e-4, "pose_rad": 2e-4, "motion_max_m": 2e-3, "motion_median_m": 5e-4},
 }
 KITTI_MOTION_OVERLAP = 0.98   # (frame, object) keys of matured motions shared; read 1.0
 # The evaluator's numbers must lie in the JAX seeds' [min, max], widened on
-# both sides by margin x the range's midpoint. The seeds spread by at most
-# 0.4% (ATE), 7% (ATE rot), 0.3% (AME rms, median). Beyond the seeds' range
-# the card read at most +0.22% (ATE), +15% (ATE rot, sliding), -0.07% (AME
-# rms) and -0.16% (median); against the seeds' mean the CPU read at most
-# +0.8%, +16%, +0.13% and -0.15%. ATE rot is
-# the aligned ATE's rotation: Umeyama on a nearly straight path is
-# ill-conditioned about the direction of travel, hence its wider margin,
-# twice the largest excess read.
+# both sides by margin x the range's midpoint. Over 60 frames the seeds
+# spread by at most 0.4% (ATE), 7% (ATE rot), 0.3% (AME rms, median);
+# beyond the seeds' range the card read at most +0.22% (ATE), +15% (ATE
+# rot, sliding), -0.07% (AME rms) and -0.16% (median). Over 30 frames the
+# six seeds' ranges take in both branches above (full-batch AME median
+# 0.004776-0.004960 m, sliding AME RMS 0.014471-0.016735 m), and the CPU
+# and the card read inside them. ATE rot is the aligned ATE's rotation:
+# Umeyama on a nearly straight path is ill-conditioned about the direction
+# of travel, hence its wider margin, twice the largest excess read.
 KITTI_RANGE_MARGIN = {"ate_unaligned_m": 0.02, "ate_rot_rad": 0.3, "ame_rms_m": 0.02,
                       "ame_median_m": 0.02}
 
@@ -323,8 +361,51 @@ FORM_KITTI_BOUNDS = {"pose_m": 2e-4, "pose_rad": 2e-6, "motion_max_m": 2e-3, "mo
 BATCHED_FRAMES = 20
 BATCHED_SIZES = (1, 8)
 BATCHED_OPS_RATIO = 1.5
+# WCME, WCPE and the joint hybrid solve at B=8, each held to the ground
+# truth and to bench_batched_{form}_ref_b8_20f.npz (WCME's and WCPE's
+# motions where settled only, as phase 10, see FORM_COV_REL). Readings,
+# largest over the 8 sequences, torch on the CPU (3 threads) / the H100:
+#   wcme   GT 6.3e-4 / 6.3e-4 m, 2.1e-5 / 2.1e-5 rad; JAX ref 2.7e-5 /
+#          2.3e-5 m, 3.1e-7 / 3.1e-7 rad; settled motions 8.9e-4 / 1.2e-3 m
+#   wcpe   GT 3.0e-3 / 3.0e-3 m, 1.0e-4 / 1.0e-4 rad; JAX ref (sequences
+#          0-4 and 7) 1.7e-5 / - m, 8.4e-7 / - rad; settled motions 8.9e-4
+#          / 1.2e-3 m
+#   joint  GT 2.6e-2 / 2.6e-2 m, 4.8e-4 / 4.8e-4 rad; JAX ref 5.9e-5 /
+#          2.5e-4 m, 1.3e-6 / 6.4e-6 rad; motions 4.5e-4 / 3.3e-4 m
+# WCPE's JAX reference parts from the port in sequences 5 and 6 from frame
+# 2, after the one LM step WCPE takes at frame 1 on this scene (ROADMAP
+# queue 3: its object-pose gauge leaves the reduced system at the edge of
+# f32 positive definiteness, where XLA's, LAPACK's and cuSOLVER's Cholesky
+# pass or fail differently): JAX's sequence 5 ends 2.8e-3 rad off the
+# ground truth, the port's 6.0e-5 (its sequence 6 1.4e-4 rad from JAX), so
+# those two are held to the ground truth only (BATCHED_REF_EXCLUDED; their
+# JAX-ref readings are printed) and the other six to the reference. The
+# joint solve's 2.6 cm against the ground truth is the reference's too (the
+# port sits 2.5e-4 m from it). Bounds ~4-15x the larger reading.
+BATCHED_FORMS_B = 8
+BATCHED_REF_EXCLUDED = {"wcpe": (5, 6)}
+BATCHED_FORM_BOUNDS = {
+    "wcme": {"gt_m": 5e-3, "gt_rad": 2e-4, "ref_m": 2e-4, "ref_rad": 3e-6, "motion_m": 1e-2},
+    "wcpe": {"gt_m": 2e-2, "gt_rad": 1e-3, "ref_m": 2e-4, "ref_rad": 5e-6, "motion_m": 5e-3},
+    "joint": {"gt_m": 0.1, "gt_rad": 2e-3, "ref_m": 1e-3, "ref_rad": 3e-5, "motion_m": 5e-3},
+}
 CHUNK_P = 4
 CHUNK_REL = 1e-4
+# tooling phase: the entry point with --viz over the first TOOLING_FRAMES
+# fixture frames; each Motion-JPEG frame is its PNG's own JPEG (quality 95)
+# bit for bit, within TOOLING_JPEG_MEAN_LEVELS grey levels of the PNG on
+# average (the CPU read 9.36 on these 320x96 frames dense with 5-px feature
+# dots; 0.88-0.90 on the smooth frames of tests/test_torch_tooling.py); the
+# replayed backend's camera poses within TOOLING_REPLAY_M (entries) of the
+# pipeline's own (the same packets through the same code: the CPU read 0;
+# the card's scatter-adds may order their sums differently); the detector
+# built from the ultralytics-named state dict against the same network
+# held directly: labels and validity equal, boxes within TOOLING_DET_BOX_PX
+# (the CPU read 0 over 32 valid detections)
+TOOLING_FRAMES = 12
+TOOLING_JPEG_MEAN_LEVELS = 20.0
+TOOLING_REPLAY_M = 1e-4
+TOOLING_DET_BOX_PX = 1e-3
 
 
 # Phase 12 (datasets): 12 frames per format (10 for VIODE and Aria,
@@ -980,6 +1061,67 @@ def run_bench_path(torch, seed, ref_path, device="cuda"):
     return {"K1": launches, "K1 map": map_launches}
 
 
+def pipelined_readings(torch, seed, ref_path, device="cuda"):
+    """The pipelined fused step (make_fused_step(..., pipelined=True)) at
+    bench_config over the bench frames -> (launches, readings against the
+    ground truth and the JAX reference, per-frame host seconds, device ops
+    and busy ms per advancing frame (None off the card))."""
+    import numpy as np
+
+    from dynosam_tpu_torch.bench_config import bench_config, bench_scene
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.parallel.batched import init_pipeline_state, make_fused_step
+    from dynosam_tpu_torch.utils import lie
+
+    cfg, intr = bench_config()
+    scene = bench_scene(intr, BENCH_FRAMES, device=device)
+    frames, X_gt = scene.frames(), scene.scn.X_gt
+    step = make_fused_step(cfg, intr, torch.Generator(device=device).manual_seed(seed), pipelined=True)
+    held = {"n": 0}
+
+    def after(state):
+        held["n"] += 1
+        if held["n"] == BENCH_FRAMES - 2:
+            held["before_last2"] = state
+
+    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+    outs, times = _drive(torch, step, init_pipeline_state(cfg, device), frames, device, after=after)
+    launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
+    if device == "cuda" and (launches["K1"], launches["K1 map"]) != (BENCH_FRAMES, 0):
+        raise AssertionError(f"pipelined: fused K1 launched {launches['K1']} times and the map entry "
+                             f"{launches['K1 map']} times over {BENCH_FRAMES} frames")
+    rot, trans = rot_trans_err(torch, lie, torch.stack([o["X_world_cam"] for o in outs]), X_gt)
+    rd = {"gt_m": float(trans.max()), "gt_rad": float(rot.max())}
+    rd["ref_m"], rd["ref_rad"], rd["n_motions"], rd["motion_m"] = compare_to_reference(
+        torch, lie, outs, np.load(ref_path), device, bounds=(np.inf,) * 3)
+    ops = busy = None
+    if device == "cuda":
+        ops, busy, _ = profile_frames(torch, step, held["before_last2"], frames[-2:])
+    return launches, rd, times, ops, busy
+
+
+def run_pipelined_path(torch, seed, ref_path, device="cuda"):
+    """Phase 5b: the pipelined fused step over the bench frames, held to
+    the bench path's bounds -> launches."""
+    launches, rd, times, ops, busy = pipelined_readings(torch, seed, ref_path, device)
+    checks = {"gt_m": GT_TRANS_M, "gt_rad": GT_ROT_RAD, "ref_m": REF_TRANS_M, "ref_rad": REF_ROT_RAD,
+              "motion_m": REF_MOTION_TRANS_M}
+    over = {k: (rd[k], v) for k, v in checks.items() if not rd[k] <= v}
+    if over:
+        raise AssertionError(f"pipelined: readings over their bounds (reading, bound): {over}")
+    steady = statistics.median(times[10:])
+    idle = None if busy is None else 1.0 - busy / (steady * 1e3)
+    say(f"pipelined path: make_fused_step(pipelined=True) over {BENCH_FRAMES} frames of bench_config on "
+        f"{device}, fused K1 launches {launches['K1']}, map entry {launches['K1 map']}; camera vs GT max "
+        f"{rd['gt_m']:.2e} m / {rd['gt_rad']:.2e} rad; vs JAX ref max {rd['ref_m']:.2e} m / "
+        f"{rd['ref_rad']:.2e} rad; {rd['n_motions']} object motions vs JAX ref max {rd['motion_m']:.2e} m; "
+        f"first frame {times[0] * 1e3:.1f} ms, median advancing frames 11-{BENCH_FRAMES} "
+        f"{steady * 1e3:.2f} ms; device ops per advancing frame {ops if ops is not None else 'n/a'}, device "
+        f"busy {f'{busy:.2f}' if busy is not None else 'n/a'} ms, idle "
+        f"{f'{idle:.1%}' if idle is not None else 'n/a'} of the step")
+    return launches
+
+
 def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False):
     """The fused step tracking by KLT on the world-textured bench scene; with
     stereo_imu, under stereo_imu_config() on frames that carry a right
@@ -1239,14 +1381,15 @@ def _device_types(obj):
             if hasattr(getattr(obj, f.name), "device")}
 
 
-def kitti_run(torch, cfg, out_dir, device, seed):
+def kitti_run(torch, cfg, out_dir, device, seed, frames=PIPE_FRAMES):
     """One run of the port's entry-point code (run_dynosam.open_dataset +
-    build_pipeline + DynoPipeline.run) over the committed fixture, from
-    disk -> (pipeline, frames, wall seconds, host syncs). The first frame's
-    FrameInputs and the GraphState after it must lie on `device`."""
+    build_pipeline + DynoPipeline.run) over the committed fixture's first
+    `frames` frames, from disk -> (pipeline, frames, wall seconds, host
+    syncs). The first frame's FrameInputs and the GraphState after it must
+    lie on `device`."""
     from dynosam_tpu_torch.run_dynosam import build_pipeline, open_dataset
 
-    intr, frame_it, gt_it, n = open_dataset(0, KITTI_FIXTURE, PIPE_FRAMES, cfg.backend.max_objects, device)
+    intr, frame_it, gt_it, n = open_dataset(0, KITTI_FIXTURE, frames, cfg.backend.max_objects, device)
     pipe = build_pipeline(cfg, intr, out_dir, device=device, seed=seed)
     first = {}
     process = pipe.process_frame
@@ -1273,16 +1416,18 @@ def _k1_counts(st):
     return st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches
 
 
-def kitti_errors(pipe, ref, mode):
+def kitti_errors(pipe, ref, mode, run=None):
     """Mature camera poses and matured object motions against the JAX
-    reference -> the KITTI_REF_BOUNDS readings (largest pose translation and
-    rotation, largest and median matured-motion translation), the motions
-    compared and the share of (frame, object) keys the two sides have in
-    common."""
+    reference's seed-0 run of `mode` (or its run `run`, a key prefix such as
+    "full_batch_seed3") -> the KITTI_REF_BOUNDS readings (largest pose
+    translation and rotation, largest and median matured-motion
+    translation), the motions compared and the share of (frame, object)
+    keys the two sides have in common."""
     import numpy as np
 
+    run = run or mode
     X = np.stack(pipe.trajectory).astype(np.float64)
-    X_ref = ref[f"{mode}_X"].astype(np.float64)
+    X_ref = ref[f"{run}_X"].astype(np.float64)
     trans = np.linalg.norm(X[:, :3, 3] - X_ref[:, :3, 3], axis=-1).max()
     # the angle from the skew part of R^T R_ref: linear in small angles, so
     # f32 rounding of the matrices does not put a ~3e-4 rad floor under it
@@ -1290,7 +1435,7 @@ def kitti_errors(pipe, ref, mode):
     dR = np.einsum("kji,kjl->kil", X[:, :3, :3], X_ref[:, :3, :3])
     w = 0.5 * np.stack([dR[:, 2, 1] - dR[:, 1, 2], dR[:, 0, 2] - dR[:, 2, 0], dR[:, 1, 0] - dR[:, 0, 1]], -1)
     rot = np.arcsin(np.clip(np.linalg.norm(w, axis=-1), 0.0, 1.0)).max()
-    ref_m = {tuple(int(v) for v in k): H for k, H in zip(ref[f"{mode}_motion_key"], ref[f"{mode}_motion_H"])}
+    ref_m = {tuple(int(v) for v in k): H for k, H in zip(ref[f"{run}_motion_key"], ref[f"{run}_motion_H"])}
     got_m = pipe.backend.matured_motion
     common = sorted(set(ref_m) & set(got_m))
     overlap = len(common) / max(len(set(ref_m) | set(got_m)), 1)
@@ -1301,15 +1446,21 @@ def kitti_errors(pipe, ref, mode):
 
 
 def compare_kitti(pipe, ref, mode):
-    """kitti_errors held to the mode's KITTI_REF_BOUNDS and the key overlap
-    to KITTI_MOTION_OVERLAP -> the readings."""
-    err = kitti_errors(pipe, ref, mode)
+    """kitti_errors against each JAX seed's run of `mode` in `ref`; the
+    nearest run (the least largest reading / bound) held to the mode's
+    KITTI_REF_BOUNDS and the key overlap to KITTI_MOTION_OVERLAP -> its
+    readings, with `run` its seed and `seed0` the readings against seed 0."""
+    runs = {int(ref["seeds"][0]): mode}
+    runs.update({int(sd): f"{mode}_seed{int(sd)}" for sd in ref["seeds"][1:] if f"{mode}_seed{int(sd)}_X" in ref})
+    bounds = KITTI_REF_BOUNDS[mode]
+    errs = {sd: kitti_errors(pipe, ref, mode, run) for sd, run in runs.items()}
+    seed, err = min(errs.items(), key=lambda kv: max(kv[1][k] / b for k, b in bounds.items()))
     if err["overlap"] < KITTI_MOTION_OVERLAP:
         raise AssertionError(f"{mode}: matured motions share {err['overlap']:.4f} of their (frame, object) keys")
-    bounds = KITTI_REF_BOUNDS[mode]
     if not all(err[k] <= b for k, b in bounds.items()):
-        raise AssertionError(f"{mode}: vs JAX reference, readings {err} against bounds {bounds}")
-    return err
+        raise AssertionError(f"{mode}: vs the nearest JAX run (seed {seed}), readings {err} against bounds "
+                             f"{bounds}; vs each seed: {errs}")
+    return {**err, "run": seed, "seed0": errs[int(ref["seeds"][0])]}
 
 
 def check_kitti_summary(summary, ref, mode):
@@ -1317,15 +1468,17 @@ def check_kitti_summary(summary, ref, mode):
     margins -> the per-field (lo, hi) ranges."""
     fields = [str(f) for f in ref["summary_fields"]]
     seeds = ref["summary"][[str(m) for m in ref["modes"]].index(mode)]
-    ranges = {}
+    ranges, outside = {}, []
     for name, margin in KITTI_RANGE_MARGIN.items():
         col = seeds[:, fields.index(name)]
         mid = 0.5 * (col.min() + col.max())
         lo, hi = col.min() - margin * mid, col.max() + margin * mid
         ranges[name] = (lo, hi)
         if not lo <= summary[name] <= hi:
-            raise AssertionError(f"{mode}: {name} {summary[name]} outside [{lo}, {hi}] "
-                                 f"(JAX seeds {col.tolist()}, margin {margin})")
+            outside.append(f"{name} {summary[name]} outside [{lo}, {hi}] (JAX seeds {col.tolist()}, "
+                           f"margin {margin})")
+    if outside:
+        raise AssertionError(f"{mode}: " + "; ".join(outside))
     return ranges
 
 
@@ -1393,10 +1546,12 @@ def run_pipeline_path(torch, seed, ref_path, device="cuda", smi=""):
             ranges = check_kitti_summary(summary, ref, mode)
             fields = [str(f) for f in ref["spread_fields"]]
             spread = ref["seed_spread"][KITTI_MODES.index(mode), 1:].max(axis=0)
-            line += (f"; vs JAX ref over {err['n_motions']} matured motions (key overlap "
-                     f"{err['overlap']:.4f}), reading / bound / JAX seeds 1, 2 vs 0: "
-                     + ", ".join(f"{k} {err[k]:.2e} / {b:.0e} / {spread[fields.index(k)]:.2e}"
-                                 for k, b in KITTI_REF_BOUNDS[mode].items())
+            seeds = [int(sd) for sd in ref["seeds"]]
+            line += (f"; vs the nearest JAX run, seed {err['run']} of {seeds[0]}-{seeds[-1]}, over "
+                     f"{err['n_motions']} matured motions (key overlap {err['overlap']:.4f}), reading / "
+                     f"bound / vs seed {seeds[0]} / JAX seeds {seeds[1]}-{seeds[-1]} vs {seeds[0]}: "
+                     + ", ".join(f"{k} {err[k]:.2e} / {b:.0e} / {err['seed0'][k]:.2e} / "
+                                 f"{spread[fields.index(k)]:.2e}" for k, b in KITTI_REF_BOUNDS[mode].items())
                      + "; evaluator inside the JAX seed ranges "
                      + ", ".join(f"{k} [{lo:.6g}, {hi:.6g}]" for k, (lo, hi) in ranges.items()))
             say(line)
@@ -1419,7 +1574,7 @@ def run_pipeline_path(torch, seed, ref_path, device="cuda", smi=""):
         # ---- (c) the real-io configuration, timed after a warm-up -------------
         cfg = kitti_real_io_config()
         ds = create_dataset(0, KITTI_FIXTURE, device=device, pad_to_multiple=32)
-        n = min(PIPE_FRAMES, len(ds))
+        n = min(REAL_IO_FRAMES, len(ds))
         warm = cfg.backend.max_frames + 2
         out = os.path.join(tmp, "real_io")
         from dynosam_tpu_torch.run_dynosam import build_pipeline
@@ -1530,9 +1685,9 @@ def forms_kitti_readings(torch, seed, name, ref, out_dir, device="cuda"):
     from dynosam_tpu_torch.eval.evaluator import DatasetEvaluator, summarize
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
 
-    cfg = kitti_accuracy_config("incremental", PIPE_FRAMES, FORM_KITTI[name])
+    cfg = kitti_accuracy_config("incremental", FORM_KITTI_FRAMES, FORM_KITTI[name])
     st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
-    pipe, n, dt, sync = kitti_run(torch, cfg, out_dir, device, seed)
+    pipe, n, dt, sync = kitti_run(torch, cfg, out_dir, device, seed, frames=FORM_KITTI_FRAMES)
     k1, k1_map = _k1_counts(st)
     if torch.device(device).type == "cuda" and (k1, k1_map) != (n, 0):
         raise AssertionError(f"forms kitti {name}: fused K1 launched {k1} times and the map entry {k1_map} "
@@ -1602,17 +1757,42 @@ def _stack_inputs(torch, frames):
                                       for k in f0.tensors()})
 
 
-def batched_readings(torch, seed, ref, B, device="cuda"):
-    """make_batched_pipeline at bench_config over B sequences -> (launches,
-    readings, final state, per-frame host seconds, host-sync sites, device
-    ops per advancing frame and the fused K1's device ms per launch on the
-    path, each None off the card)."""
+def profile_frames(torch, step, state, frames):
+    """The step over `frames` again from `state` under torch.profiler (on
+    the card) -> (device ops per frame, device busy ms per frame (the sum of
+    the kernels' times), the fused K1's device ms per launch or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fr in frames:
+            state, _ = step(state, fr)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / len(frames)
+    k1 = [e.time_range.elapsed_us() for e in kernels if "shi_tomasi_cell_kernel" in e.name]
+    return len(kernels) / len(frames), busy, (statistics.mean(k1) / 1e3 if k1 else None)
+
+
+def batched_readings(torch, seed, ref, B, device="cuda", form=None):
+    """make_batched_pipeline at bench_config (with formulation `form` of
+    FORM_BENCH, or the bench's decoupled hybrid) over B sequences ->
+    (launches, readings, final state, per-frame host seconds, host-sync
+    sites, device ops per advancing frame, device busy ms per advancing
+    frame and the fused K1's device ms per launch on the path, the last
+    three None off the card). WCME's and WCPE's motions are compared where
+    settled only (see FORM_COV_REL). The sequences of
+    BATCHED_REF_EXCLUDED[form] are held to the ground truth only: their
+    readings against the JAX reference go to `excluded_ref` (sequence ->
+    (m, rad, motion m)) and into no maximum."""
     from dynosam_tpu_torch.bench_config import bench_config, bench_scene
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
     from dynosam_tpu_torch.parallel.batched import make_batched_pipeline
     from dynosam_tpu_torch.utils import lie
 
     cfg, intr = bench_config()
+    if form is not None:
+        cfg = cfg.with_overrides(FORM_BENCH[form])
     scene = bench_scene(intr, BATCHED_FRAMES + max(BATCHED_SIZES) - 1, device=device)
     frames = scene.frames()
     stacked = [_stack_inputs(torch, frames[k:k + B]) for k in range(BATCHED_FRAMES)]
@@ -1636,7 +1816,9 @@ def batched_readings(torch, seed, ref, B, device="cuda"):
     # _drive's own per-frame synchronize() calls are not the program's
     sites = {k: v for k, v in sync.sites.items() if not k.startswith("chip_smoke.py")}
 
-    rd = {"gt_m": 0.0, "gt_rad": 0.0, "ref_m": 0.0, "ref_rad": 0.0, "motion_m": 0.0, "n_motions": 0}
+    rd = {"gt_m": 0.0, "gt_rad": 0.0, "ref_m": 0.0, "ref_rad": 0.0, "motion_m": 0.0, "n_motions": 0,
+          "excluded_ref": {}}
+    excluded = BATCHED_REF_EXCLUDED.get(form, ())
     X_gt = scene.scn.X_gt
     for b in range(B):
         # sequence b starts at scene frame b: its world is that camera
@@ -1645,27 +1827,20 @@ def batched_readings(torch, seed, ref, B, device="cuda"):
         rot, trans = rot_trans_err(torch, lie, torch.stack([o["X_world_cam"] for o in seq]), gt)
         rd["gt_m"], rd["gt_rad"] = max(rd["gt_m"], float(trans.max())), max(rd["gt_rad"], float(rot.max()))
         ref_b = {k: ref[k][:, b] for k in ("X_world_cam", "object_ids", "object_motions", "object_motion_valid")}
-        tr, rr, n_mot, mot = compare_to_reference(torch, lie, seq, ref_b, device, bounds=(float("inf"),) * 3)
+        tr, rr, n_mot, mot = compare_to_reference(torch, lie, seq, ref_b, device, bounds=(float("inf"),) * 3,
+                                                  settled_only=form in ("wcme", "wcpe"))
+        if b in excluded:
+            rd["excluded_ref"][b] = (tr, rr, mot)
+            continue
         rd["ref_m"], rd["ref_rad"] = max(rd["ref_m"], tr), max(rd["ref_rad"], rr)
         rd["motion_m"], rd["n_motions"] = max(rd["motion_m"], mot), rd["n_motions"] + n_mot
 
     # device operations per advancing frame: the last two frames again, from
     # the state before them, under the profiler (not counted as launches)
-    ops = k1_ms = None
+    ops = busy = k1_ms = None
     if device == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-
-        state = held["before_last2"]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for fr in stacked[-2:]:
-                state, _ = step(state, fr)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        ops = len(kernels) / 2
-        k1 = [e.time_range.elapsed_us() for e in kernels if "shi_tomasi_cell_kernel" in e.name]
-        k1_ms = statistics.mean(k1) / 1e3 if k1 else None
-    return launches, rd, held, times, sites, ops, k1_ms
+        ops, busy, k1_ms = profile_frames(torch, step, held["before_last2"], stacked[-2:])
+    return launches, rd, held, times, sites, ops, busy, k1_ms
 
 
 def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
@@ -1681,7 +1856,7 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
     ref = np.load(ref_path)
     paths, ops, lines, finals = {}, {}, [], {}
     for B in BATCHED_SIZES:
-        launches, rd, held, times, sites, ops[B], k1_ms = batched_readings(torch, seed, ref, B, device)
+        launches, rd, held, times, sites, ops[B], _, k1_ms = batched_readings(torch, seed, ref, B, device)
         checks = {"gt_m": GT_TRANS_M, "gt_rad": GT_ROT_RAD, "ref_m": REF_TRANS_M, "ref_rad": REF_ROT_RAD,
                   "motion_m": REF_MOTION_TRANS_M}
         over = {k: (rd[k], v) for k, v in checks.items() if not rd[k] <= v}
@@ -1727,6 +1902,36 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
         + (f"{ratio:.3f}" if ratio is not None else "n/a") + f" (bound {BATCHED_OPS_RATIO}); "
         f"chunked_linearize P={CHUNK_P} vs linearize on the B=1 final window: S {rel['S']:.2e}, rhs "
         f"{rel['rhs']:.2e} of the largest entry (bound {CHUNK_REL})")
+
+    # every other formulation at B=8, each held to its own JAX reference
+    for form in FORM_BENCH:
+        B = BATCHED_FORMS_B
+        ref = np.load(os.path.join(os.path.dirname(ref_path), f"bench_batched_{form}_ref_b{B}_20f.npz"))
+        t = time.perf_counter()
+        launches, rd, _, times, sites, ops_f, busy, k1_ms = batched_readings(torch, seed, ref, B, device, form)
+        over = {k: (rd[k], v) for k, v in BATCHED_FORM_BOUNDS[form].items() if not rd[k] <= v}
+        excl = "".join(f"; sequence {b} (held to the ground truth only) vs JAX ref {m:.2e} m / {r:.2e} rad, "
+                       f"motions {mo:.2e} m" for b, (m, r, mo) in rd["excluded_ref"].items())
+        if over:
+            raise AssertionError(f"batched {form} B={B}: readings over their bounds (reading, bound): {over}")
+        steady = statistics.median(times[10:])
+        idle = None if busy is None else 1.0 - busy / (steady * 1e3)
+        n_sync = sum(sites.values())
+        say(f"batched {form}: make_batched_pipeline at bench_config with {FORM_BENCH[form]}, B={B}, "
+            f"{BATCHED_FRAMES} frames per sequence, on {device} ({smi}): fused K1 launches {launches['K1']}, "
+            f"map entry {launches['K1 map']}; camera vs GT max {rd['gt_m']:.2e} m / {rd['gt_rad']:.2e} rad; "
+            f"vs JAX ref max {rd['ref_m']:.2e} m / {rd['ref_rad']:.2e} rad; {rd['n_motions']} object motions"
+            f"{' (settled: valid the frame before too)' if form != 'joint' else ''} vs JAX ref max "
+            f"{rd['motion_m']:.2e} m{excl}; first frame {times[0] * 1e3:.1f} ms, median advancing frames 11-"
+            f"{BATCHED_FRAMES} {steady * 1e3:.2f} ms = {B / steady:.2f} frames/s aggregate, {1 / steady:.2f} "
+            f"per sequence; device ops per advancing frame {ops_f if ops_f is not None else 'n/a'}, device "
+            f"busy {f'{busy:.2f}' if busy is not None else 'n/a'} ms per advancing frame, idle "
+            f"{f'{idle:.1%}' if idle is not None else 'n/a'} of the step; K1b "
+            f"{f'{k1_ms:.4f}' if k1_ms is not None else 'n/a'} ms per launch; host syncs "
+            f"{n_sync / BATCHED_FRAMES:.1f}/frame (sites: "
+            f"{', '.join(f'{k} x{v}' for k, v in sorted(sites.items(), key=lambda kv: -kv[1])) or 'none'}); "
+            f"{time.perf_counter() - t:.1f} s")
+        paths[f"batched_{form}_b{B}"] = launches
     return paths
 
 
@@ -1886,6 +2091,151 @@ def datasets_readings(torch, ref, device="cuda", names=None):
     return out
 
 
+def tooling_readings(torch, seed, out_dir, device="cuda"):
+    """Phase 13's runs without the bounds -> (launches per run, readings,
+    the phase's line). (a) `python -m dynosam_tpu_torch.run_dynosam --viz`
+    (its main(), in this process) over TOOLING_FRAMES fixture frames; (b)
+    the same frames through build_pipeline, the packets saved and replayed
+    through PacketReplayProvider into a fresh RegularBackend; (c)
+    graph_tools on the replayed final window; (d) one detector frame through
+    --use_detector --detector_weights, a state dict written here from the
+    port's own scale-n, 80-class network under ultralytics' names, and the
+    same frame through an engine holding that network directly."""
+    import numpy as np
+
+    from dynosam_tpu_torch import jpeg, native
+    from dynosam_tpu_torch import run_dynosam as trun
+    from dynosam_tpu_torch.backend import graph_tools, hybrid
+    from dynosam_tpu_torch.backend.backend import RegularBackend
+    from dynosam_tpu_torch.frontend import serialization
+    from dynosam_tpu_torch.nn import weights, yolov8
+    from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
+    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.pipeline import viz
+
+    flags = os.path.join(ROOT, "params", "backend.flags")
+    base = ["--dataset_type", "0", "--dataset_path", KITTI_FIXTURE, "--flags", flags, "--device", device]
+    rd, launches = {}, {}
+
+    def zero():
+        st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+        mc.mask_combine.launches = mc.mask_label.launches = 0
+
+    def counts():
+        return {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches,
+                "K2": mc.mask_combine.launches, "K2 label": mc.mask_label.launches}
+
+    # (a) the entry point with --viz
+    viz_out = os.path.join(out_dir, "viz_run")
+    zero()
+    t = time.perf_counter()
+    trun.main(base + ["--frames", str(TOOLING_FRAMES), "--output_path", viz_out, "--viz"])
+    rd["viz_s"] = time.perf_counter() - t
+    launches["viz"] = counts()
+    vdir = os.path.join(viz_out, "viz")
+    pngs = sorted(f for f in os.listdir(vdir) if f.startswith("tracking_") and f.endswith(".png"))
+    imgs = [native.read_png(os.path.join(vdir, f), color=True) for f in pngs]
+    traj = native.read_png(os.path.join(vdir, "trajectory_topdown.png"), color=True)
+    avi = viz.read_avi_frames(os.path.join(vdir, "tracking.avi"))
+    rd["pngs"], rd["avi_frames"], rd["traj_shape"] = len(pngs), len(avi), traj.shape
+    decoded = [jpeg.decode_jpeg(f) for f in avi]
+    rd["avi_is_png_jpeg"] = all(np.array_equal(d, jpeg.decode_jpeg(jpeg.encode_jpeg(img, 95)))
+                                for d, img in zip(decoded, imgs))
+    rd["avi_mean_levels"] = max((float(np.abs(d.astype(np.int32) - img).mean()) for d, img in zip(decoded, imgs)),
+                                default=float("inf"))
+
+    # (b) packets saved and replayed into a fresh backend
+    cfg = trun.build_config(None, [flags])
+    intr, frame_it, gt_it, n = trun.open_dataset(0, KITTI_FIXTURE, TOOLING_FRAMES, cfg.backend.max_objects, device)
+    zero()
+    pipe = trun.build_pipeline(cfg, intr, os.path.join(out_dir, "replay_src"), device=device, seed=seed)
+    packets, first_rgb = [], None
+    for inputs, gt in zip(frame_it, gt_it):
+        first_rgb = inputs.rgb if first_rgb is None else first_rgb
+        pipe.process_frame(inputs, gt)
+        packets.append(pipe.last_packet)
+    pipe.finish()
+    launches["replay_source"] = counts()
+    path = os.path.join(out_dir, "packets.npz")
+    serialization.save_packets(path, packets)
+    backend = RegularBackend(pipe.cfg.backend, intr, device=device)
+    replayed = [backend.step(p).X_world_cam for p in serialization.PacketReplayProvider(path, device=device)]
+    rd["replayed"] = len(replayed)
+    rd["replay_m"] = max(float(np.abs(a - o.X_world_cam).max()) for a, o in zip(replayed, pipe.outputs))
+
+    # (c) graph tools on the replayed final window
+    g = backend.state
+    doc = graph_tools.export_graph_json(g, pipe.cfg.backend, os.path.join(out_dir, "graph.json"), hybrid=True)
+    S = hybrid.linearize(g, pipe.cfg.backend, 0.0).S
+    stats = graph_tools.sparsity_stats(S)
+    graph_tools.save_sparsity_png(S, os.path.join(out_dir, "sparsity.png"))
+    rd["graph"] = (doc["frames"], g.num_frames, doc["factors"], stats)
+    rd["graph_errors_finite"] = all(np.isfinite(v) for v in doc["errors"].values())
+
+    # (d) the detector from an ultralytics-named state dict
+    torch.manual_seed(seed)
+    model = yolov8.YoloV8Seg(num_classes=80, scale="n").eval()
+    wpath = os.path.join(out_dir, "yolov8n-seg-sd.pt")
+    torch.save(weights.ultralytics_state_dict(model), wpath)
+    zero()
+    trun.main(base + ["--frames", "1", "--output_path", os.path.join(out_dir, "det_run"), "--use_detector",
+                      "--detector_weights", wpath])
+    launches["detector_weights"] = counts()
+    hw = (intr.height, intr.width)
+    rgb = first_rgb.to(device)
+    la, da = YoloV8DetectorEngine(weights.load_ultralytics_weights(wpath, device=device), input_hw=hw,
+                                  device=device).detect(rgb)
+    lb, db = YoloV8DetectorEngine(model, input_hw=hw, device=device).detect(rgb)
+    rd["det_valid"] = (int(da.valid.sum()), int(db.valid.sum()))
+    rd["det_equal"] = bool(torch.equal(da.valid, db.valid) and torch.equal(la, lb))
+    rd["det_box_px"] = float((da.boxes - db.boxes)[da.valid].abs().max()) if bool(da.valid.any()) else 0.0
+    line = (f"tooling: run_dynosam --viz over {TOOLING_FRAMES} fixture frames on {device} in {rd['viz_s']:.1f} s "
+            f"({rd['pngs']} tracking PNGs, trajectory plot {rd['traj_shape']}, AVI of {rd['avi_frames']} "
+            f"Motion-JPEG frames, {'each' if rd['avi_is_png_jpeg'] else 'NOT each'} its PNG's JPEG, "
+            f"within {rd['avi_mean_levels']:.2f} grey levels of the PNGs on average), "
+            f"launches {launches['viz']}; {len(packets)} packets saved and replayed into a fresh "
+            f"RegularBackend: {rd['replayed']} camera poses within {rd['replay_m']:.2e} of the pipeline's; "
+            f"graph_tools on the final window: {doc['frames']} frames, factors {doc['factors']}, sparsity "
+            f"{stats['nnz']} of {stats['rows']}x{stats['cols']} ({stats['fill']:.3f}); --use_detector "
+            f"--detector_weights (scale n, 80 classes, ultralytics names) on one frame: launches "
+            f"{launches['detector_weights']}, {rd['det_valid'][0]} valid detections, labels and validity "
+            f"{'equal to' if rd['det_equal'] else 'NOT equal to'} the network loaded directly, boxes within "
+            f"{rd['det_box_px']:.2e} px")
+    return launches, rd, line
+
+
+def run_tooling_path(torch, seed, device="cuda"):
+    """Phase 13: the tooling modules through the entry point, held to their
+    checks -> {path: launches}."""
+    import shutil
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="smoke_tooling_")
+    try:
+        launches, rd, line = tooling_readings(torch, seed, out_dir, device)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    want = {"viz": {"K1": TOOLING_FRAMES, "K1 map": 0, "K2": 0, "K2 label": 0},
+            "replay_source": {"K1": TOOLING_FRAMES, "K1 map": 0, "K2": 0, "K2 label": 0},
+            "detector_weights": {"K1": 1, "K1 map": 0, "K2": 0, "K2 label": 1}}
+    if torch.device(device).type == "cuda" and launches != want:
+        raise AssertionError(f"tooling: launches {launches}, expected {want}")
+    frames, fill, factors, stats = rd["graph"]
+    fails = [why for why, bad in (
+        ("tracking PNGs", rd["pngs"] != TOOLING_FRAMES), ("AVI frames", rd["avi_frames"] != TOOLING_FRAMES),
+        ("trajectory plot", rd["traj_shape"] != (512, 512, 3)),
+        ("AVI vs PNGs", not (rd["avi_is_png_jpeg"] and rd["avi_mean_levels"] <= TOOLING_JPEG_MEAN_LEVELS)),
+        ("replayed poses", rd["replayed"] != TOOLING_FRAMES or not rd["replay_m"] <= TOOLING_REPLAY_M),
+        ("graph export", frames != fill or factors["dynamic_point"] <= 0 or not rd["graph_errors_finite"]),
+        ("sparsity", not 0 < stats["nnz"] < stats["rows"] * stats["cols"]),
+        ("detector", not rd["det_equal"] or not rd["det_box_px"] <= TOOLING_DET_BOX_PX)) if bad]
+    if fails:
+        raise AssertionError(f"tooling: {', '.join(fails)} failed ({rd})")
+    say(line)
+    return launches
+
+
 def run_datasets_path(torch, seed, ref_path, device="cuda", smi=""):
     """Phase 12: the seven on-disk formats, each written by the port's
     writers at its dataset's frame size and run from disk through
@@ -1975,9 +2325,11 @@ def main():
     k1 = timed("3 (K1)", check_k1, torch, args.seed)
     k2 = timed("4 (K2)", check_k2, torch, args.seed, built[K2_V3_SOURCE][0])
 
-    # ---- 5-12. the main paths, counts zeroed just before each ----------------
+    # ---- 5-13. the main paths, counts zeroed just before each ----------------
     bench_launches = timed("5 (bench)", run_bench_path, torch, args.seed,
                            os.path.join(testdata, "bench_ref_20f.npz"))
+    pipelined_launches = timed("5b (pipelined)", run_pipelined_path, torch, args.seed,
+                               os.path.join(testdata, "bench_pipelined_ref_20f.npz"))
     klt_launches = timed("6 (klt)", run_klt_path, torch, args.seed, os.path.join(testdata, "bench_klt_ref_20f.npz"))
     stereo_launches = timed("7 (stereo + IMU)", run_klt_path, torch, args.seed,
                             os.path.join(testdata, "stereo_imu_ref_12f.npz"), stereo_imu=True)
@@ -1986,17 +2338,19 @@ def main():
     heldout_launches = timed("8b (held-out)", run_heldout_path, torch,
                              os.path.join(testdata, "det_heldout_ref_48.npz"))
     pipe_launches, _ = timed("9 (pipeline)", run_pipeline_path, torch, args.seed,
-                             os.path.join(testdata, "kitti_ref_60f.npz"), smi=smi)
+                             os.path.join(testdata, f"kitti_ref_{PIPE_FRAMES}f.npz"), smi=smi)
     forms_launches = timed("10 (formulations)", run_forms_path, torch, args.seed, testdata)
     batched_launches = timed("11 (batched)", run_batched_path, torch, args.seed,
                              os.path.join(testdata, "bench_batched_ref_b8_20f.npz"), smi=smi)
     dataset_launches = timed("12 (datasets)", run_datasets_path, torch, args.seed,
                              os.path.join(testdata, "datasets_ref_12f.npz"), smi=smi)
+    tooling_launches = timed("13 (tooling)", run_tooling_path, torch, args.seed)
 
-    # ---- 13. results ------------------------------------------------------------
-    paths = {"bench": bench_launches, "klt": klt_launches, "stereo_imu": stereo_launches,
-             "detector": det_launches, "heldout": heldout_launches, "pipeline": pipe_launches,
-             **forms_launches, **batched_launches, "datasets": dataset_launches}
+    # ---- 14. results ------------------------------------------------------------
+    paths = {"bench": bench_launches, "pipelined": pipelined_launches, "klt": klt_launches,
+             "stereo_imu": stereo_launches, "detector": det_launches, "heldout": heldout_launches,
+             "pipeline": pipe_launches, **forms_launches, **batched_launches, "datasets": dataset_launches,
+             **{f"tooling_{k}": v for k, v in tooling_launches.items()}}
     batched = {p for p in paths if p.startswith("batched_")}
 
     def row(name, kid, source, replaces, check, only=None, **extra):

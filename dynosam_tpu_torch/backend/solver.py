@@ -13,10 +13,10 @@ Tangent layout of the reduced system (D = 6F + 6JF):
   pose f      -> dx[6f : 6f+6]
   motion j,f  -> dx[6F + 6(jF + f) : +6]
 
-The helpers the hybrid formulation uses, and the accept/reject loop, also
-take a GraphState with a leading batch axis of sequences (the batched step):
-the reduced systems are then (B, D, D), and the damping, the errors and the
-accept/reject decisions are per sequence, as under the reference's vmap.
+Every function here also takes a GraphState with a leading batch axis of
+sequences (the batched step): the reduced systems are then (B, D, D), and
+the damping, the errors, the accept/reject and the GN scan's finiteness
+decisions are per sequence, as under the reference's vmap.
 """
 
 from __future__ import annotations
@@ -239,35 +239,51 @@ def lm_accept_reject(
 
 def _dyn_ptp_residuals(state: GraphState):
     Xinv = lie.inverse(state.X)
-    y = lie.transform_points(Xinv[None, :], state.md)
+    y = lie.transform_points(Xinv[..., None, :, :, :], state.md)
     return y - state.d_z, y  # (Ld, F, 3)
 
 
+def _shift_prev(x, axis):
+    """out[..., f, ...] = x[..., f-1, ...] along `axis`, with f = 0 keeping
+    x[..., 0, ...] (the odometry / ternary / smoothing chains' previous
+    slot)."""
+    n = x.shape[axis]
+    return torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], dim=axis)
+
+
 def _ternary_terms(state: GraphState, onehot):
-    Hj = lie.einsum("lj,jfab->lfab", onehot, state.H)   # (Ld, F, 4, 4)
-    m_prev = torch.cat([state.md[:, :1], state.md[:, :-1]], dim=1)
+    Hj = lie.einsum("...lj,...jfab->...lfab", onehot, state.H)   # (Ld, F, 4, 4)
+    m_prev = _shift_prev(state.md, -2)
     r = state.md - lie.transform_points(Hj, m_prev)
     return r, m_prev, Hj
 
 
 def _ternary_mask(state: GraphState, onehot):
     v = state.d_valid
-    prev_v = torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], dim=1)
-    Hv = lie.einsum("lj,jf->lf", onehot, state.H_valid.to(onehot.dtype)) > 0.5
-    in_window = torch.arange(state.F, device=v.device)[None, :] < state.num_frames
-    return v & prev_v & Hv & in_window
+    Hv = lie.einsum("...lj,...jf->...lf", onehot, state.H_valid.to(onehot.dtype)) > 0.5
+    in_window = torch.arange(state.F, device=v.device) < state.num_frames
+    return v & _shift_frame_down(v, -1) & Hv & in_window
 
 
 def _smooth_mask(state: GraphState, cfg: BackendParams):
     if not cfg.use_smoothing_factor:
         return torch.zeros_like(state.H_valid)
-    prev = torch.cat([torch.zeros_like(state.H_valid[:, :1]), state.H_valid[:, :-1]], dim=1)
-    return state.H_valid & prev
+    return state.H_valid & _shift_frame_down(state.H_valid, -1)
+
+
+def _smooth_terms(state: GraphState):
+    """Residuals of the WCME smoothing chain between H_{j,f-1} and H_{j,f}
+    and the pair (H_prev, identity) they were taken at."""
+    H_prev = _shift_prev(state.H, -3)
+    eye4 = torch.eye(4, dtype=state.X.dtype, device=state.X.device).expand(state.H.shape)
+    return factors.between_residual(H_prev, state.H, eye4), H_prev, eye4
 
 
 def total_error(state: GraphState, cfg: BackendParams):
-    """True robust cost over all factors (the LM accept/reject metric)."""
+    """True robust cost over all factors (the LM accept/reject metric); per
+    sequence over a batch."""
     dtype, dev = state.X.dtype, state.X.device
+    nb = len(state.batch_shape)
     sig = _sigmas(cfg, dtype, dev)
     k = cfg.noise.robust_k_huber
     use_rob = cfg.noise.use_robust_kernel
@@ -279,32 +295,30 @@ def total_error(state: GraphState, cfg: BackendParams):
     r_s, _ = _static_residuals(state)
     gate = _static_gate(state, cfg)
     e = torch.linalg.norm(r_s / state.s_sig, dim=-1)
-    err = torch.sum(torch.where(state.s_valid & gate[None, :], rho(e), 0.0))
+    err = _sum_per_seq(torch.where(state.s_valid & gate[..., None, :], rho(e), 0.0), nb)
 
     r_d, _ = _dyn_ptp_residuals(state)
     e = torch.linalg.norm(r_d / state.d_sig, dim=-1)
-    err = err + torch.sum(torch.where(state.d_valid & (state.d_obj >= 0)[:, None], rho(e), 0.0))
+    err = err + _sum_per_seq(torch.where(state.d_valid & (state.d_obj >= 0)[..., None], rho(e), 0.0), nb)
 
     r_t, _, _ = _ternary_terms(state, onehot)
     e = torch.linalg.norm(r_t, dim=-1) / sig["ternary"]
-    err = err + torch.sum(torch.where(_ternary_mask(state, onehot), rho(e), 0.0))
+    err = err + _sum_per_seq(torch.where(_ternary_mask(state, onehot), rho(e), 0.0), nb)
 
     if cfg.use_vo_factor:
-        X_prev = torch.cat([state.X[:1], state.X[:-1]], dim=0)
+        X_prev = _shift_prev(state.X, -3)
         r_o = factors.between_residual(X_prev, state.X, state.odom) / sig["odom"]
-        err = err + torch.sum(torch.where(_odom_mask(state)[:, None], 0.5 * r_o * r_o, 0.0))
+        err = err + _sum_per_seq(torch.where(_odom_mask(state)[..., None], 0.5 * r_o * r_o, 0.0), nb)
 
-    H_prev = torch.cat([state.H[:, :1], state.H[:, :-1]], dim=1)
-    eye4 = torch.eye(4, dtype=dtype, device=dev).expand(state.H.shape)
-    r_sm = factors.between_residual(H_prev, state.H, eye4) / sig["smooth"]
-    err = err + torch.sum(torch.where(_smooth_mask(state, cfg)[:, :, None], 0.5 * r_sm * r_sm, 0.0))
+    r_sm = _smooth_terms(state)[0] / sig["smooth"]
+    err = err + _sum_per_seq(torch.where(_smooth_mask(state, cfg)[..., None], 0.5 * r_sm * r_sm, 0.0), nb)
 
     gauge_on = (~state.prior_valid).to(dtype)
-    r_p = factors.prior_residual(state.X[0], state.X0_prior) / sig["prior0"]
-    err = err + gauge_on * torch.sum(0.5 * r_p * r_p)
+    r_p = factors.prior_residual(state.X[..., 0, :, :], state.X0_prior) / sig["prior0"]
+    err = err + gauge_on * _sum_per_seq(0.5 * r_p * r_p, nb)
 
-    r_mp = state.prior_b + state.prior_L @ _prior_dx(state)
-    return err + torch.where(state.prior_valid, torch.sum(0.5 * r_mp * r_mp), 0.0)
+    r_mp = state.prior_b + lie.mv(state.prior_L, _prior_dx(state))
+    return err + torch.where(state.prior_valid, _sum_per_seq(0.5 * r_mp * r_mp, nb), 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -313,12 +327,12 @@ def total_error(state: GraphState, cfg: BackendParams):
 
 def _embed_same_frame(blk, F):
     """blk (Ld, F, A, B) -> (Ld, F, A, F, B) nonzero at [f, :, f, :]."""
-    return lie.einsum("lfab,fg->lfagb", blk, _eye_k(F, 0, blk.dtype, blk.device))
+    return lie.einsum("...lfab,fg->...lfagb", blk, _eye_k(F, 0, blk.dtype, blk.device))
 
 
 def _embed_prev_frame(blk, F):
     """blk (Ld, F, A, B) placed at [f, :, f-1, :]."""
-    return lie.einsum("lfab,gf->lfagb", blk, _eye_k(F, 1, blk.dtype, blk.device))
+    return lie.einsum("...lfab,gf->...lfagb", blk, _eye_k(F, 1, blk.dtype, blk.device))
 
 
 def _shift_frame_down(x, axis):
@@ -432,14 +446,15 @@ def linearize(state: GraphState, cfg: BackendParams, lam) -> _Linearization:
     F, J, Ld = state.F, state.J, state.Ld
     D = state.D
     n = 6 * F
+    lead = state.batch_shape
     dtype, dev = state.X.dtype, state.X.device
     sig = _sigmas(cfg, dtype, dev)
     k_rob = cfg.noise.robust_k_huber
     use_rob = cfg.noise.use_robust_kernel
     onehot = _object_onehot(state, dtype)
 
-    S = torch.zeros((D, D), dtype=dtype, device=dev)
-    rhs = torch.zeros((D,), dtype=dtype, device=dev)
+    S = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    rhs = torch.zeros(lead + (D,), dtype=dtype, device=dev)
     R = lie.rotation(state.X)
     Rt = R.transpose(-1, -2)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
@@ -449,9 +464,9 @@ def linearize(state: GraphState, cfg: BackendParams, lam) -> _Linearization:
 
     # ================= dynamic landmark chains ===========================
     r_d, y_d = _dyn_ptp_residuals(state)
-    has_obj_f = torch.sum(onehot, dim=1)                       # (Ld,) 1.0 if assigned
+    has_obj_f = torch.sum(onehot, dim=-1)                      # (Ld,) 1.0 if assigned
     e_d = torch.linalg.norm(r_d / state.d_sig, dim=-1)
-    iw_d = (state.d_valid.to(dtype) * has_obj_f[:, None])[..., None] * _irls_w(
+    iw_d = (state.d_valid.to(dtype) * has_obj_f[..., None])[..., None] * _irls_w(
         e_d, k_rob, use_rob
     )[..., None] / (state.d_sig ** 2)                          # (Ld, F, 3)
 
@@ -466,86 +481,83 @@ def linearize(state: GraphState, cfg: BackendParams, lam) -> _Linearization:
     Jx_d = torch.cat([hat_yd, -eye3.expand(hat_yd.shape)], dim=-1)   # (Ld, F, 3, 6)
 
     # ---- chain blocks (block-tridiagonal, never materialised densely) ----
-    w_t_next = torch.cat([w_t[:, 1:], torch.zeros_like(w_t[:, :1])], dim=1)
-    Pd_ptp = lie.einsum("fab,lfb,fcb->lfac", R, iw_d, R)
-    diag_scalar = w_t + w_t_next + _EPS_REG + lam
+    Pd_ptp = lie.einsum("...fab,...lfb,...fcb->...lfac", R, iw_d, R)
+    diag_scalar = w_t + _shift_frame_up(w_t, -1) + _EPS_REG + _per_seq(lam, 2)
     Pd = Pd_ptp + diag_scalar[..., None, None] * eye3            # (Ld, F, 3, 3)
     # block (f-1, f) = -w_t[f] RH[f]^T  =>  upper[f'] = block (f', f'+1)
-    off = -RH.transpose(-1, -2) * w_t[..., None, None]
-    Pu = torch.cat([off[:, 1:], torch.zeros_like(off[:, :1])], dim=1)
+    Pu = _shift_frame_up(-RH.transpose(-1, -2) * w_t[..., None, None], -3)
 
-    g_d = lie.einsum("fab,lfb->lfa", R, iw_d * r_d)
+    g_d = lie.einsum("...fab,...lfb->...lfa", R, iw_d * r_d)
     g_ter_curr = r_t * w_t[..., None]
-    g_ter_prev = -lie.einsum("lfba,lfb->lfa", RH, r_t * w_t[..., None])
-    g_d = g_d + g_ter_curr + _shift_frame_up(g_ter_prev, axis=1)
+    g_ter_prev = -lie.einsum("...lfba,...lfb->...lfa", RH, r_t * w_t[..., None])
+    g_d = g_d + g_ter_curr + _shift_frame_up(g_ter_prev, -2)
 
-    Bx_blk = lie.einsum("lfba,lfb,fbc->lfac", Jx_d, iw_d, Rt)    # (Ld, F, 6, 3)
+    Bx_blk = lie.einsum("...lfba,...lfb,...fbc->...lfac", Jx_d, iw_d, Rt)    # (Ld, F, 6, 3)
     JHT = J_H.transpose(-1, -2)
     Bh_curr = JHT * w_t[..., None, None]
-    Bh_prev = -lie.einsum("lfab,lfbc->lfac", JHT * w_t[..., None, None], RH)
+    Bh_prev = -lie.einsum("...lfab,...lfbc->...lfac", JHT * w_t[..., None, None], RH)
 
     # ---- direct reduced-system contributions ----------------------------
-    Hxx_d = lie.einsum("lfab,lfa,lfac->fbc", Jx_d, iw_d, Jx_d)
-    gx_d = lie.einsum("lfab,lfa->fb", Jx_d, iw_d * r_d)
-    S[:n, :n] += _block_diag_embed(Hxx_d)
-    rhs[:n] -= gx_d.reshape(-1)
+    Hxx_d = lie.einsum("...lfab,...lfa,...lfac->...fbc", Jx_d, iw_d, Jx_d)
+    gx_d = lie.einsum("...lfab,...lfa->...fb", Jx_d, iw_d * r_d)
+    S[..., :n, :n] += _block_diag_embed(Hxx_d)
+    rhs[..., :n] -= gx_d.reshape(lead + (-1,))
 
-    Hhh_blk = lie.einsum("lfab,lf,lfac->lfbc", J_H, w_t, J_H)    # (Ld, F, 6, 6)
-    gh_blk = lie.einsum("lfab,lf,lfa->lfb", J_H, w_t, r_t)
-    Hhh = lie.einsum("lfbc,lj->jfbc", Hhh_blk, onehot)            # (J, F, 6, 6)
-    gh = lie.einsum("lfb,lj->jfb", gh_blk, onehot)
+    Hhh_blk = lie.einsum("...lfab,...lf,...lfac->...lfbc", J_H, w_t, J_H)    # (Ld, F, 6, 6)
+    gh_blk = lie.einsum("...lfab,...lf,...lfa->...lfb", J_H, w_t, r_t)
+    Hhh = lie.einsum("...lfbc,...lj->...jfbc", Hhh_blk, onehot)            # (J, F, 6, 6)
+    gh = lie.einsum("...lfb,...lj->...jfb", gh_blk, onehot)
 
     # ---- chain Schur via the block-Thomas inverse -------------------------
     Dp_inv, Wm = bt.factorize(Pd, Pu)
     Pinv = bt.full_inverse(Pd, Pu)                                # (Ld, F, 3, F, 3)
 
     # pose-pose correction
-    T = lie.einsum("lfai,lfigj->lfagj", Bx_blk, Pinv)             # (Ld, F, 6, F, 3)
-    S_xx_corr = lie.einsum("lfagj,lgcj->fagc", T, Bx_blk)
+    T = lie.einsum("...lfai,...lfigj->...lfagj", Bx_blk, Pinv)             # (Ld, F, 6, F, 3)
+    S_xx_corr = lie.einsum("...lfagj,...lgcj->...fagc", T, Bx_blk)
     # pose-motion correction (motion column g couples points g and g-1)
-    T_colprev = _shift_frame_down(T, axis=3)
-    Sxh = lie.einsum("lfagj,lgcj->lfagc", T, Bh_curr) + lie.einsum(
-        "lfagj,lgcj->lfagc", T_colprev, Bh_prev
+    T_colprev = _shift_frame_down(T, -2)
+    Sxh = lie.einsum("...lfagj,...lgcj->...lfagc", T, Bh_curr) + lie.einsum(
+        "...lfagj,...lgcj->...lfagc", T_colprev, Bh_prev
     )
-    S_xh_obj = lie.einsum("lfagc,lj->jfagc", Sxh, onehot)         # (J, F, 6, F, 6)
+    S_xh_obj = lie.einsum("...lfagc,...lj->...jfagc", Sxh, onehot)         # (J, F, 6, F, 6)
     # motion-motion correction
-    Vc = lie.einsum("lfci,lfigj->lfcgj", Bh_curr, Pinv)
-    Vp = lie.einsum("lfci,lfigj->lfcgj", Bh_prev, _shift_frame_down(Pinv, axis=1))
+    Vc = lie.einsum("...lfci,...lfigj->...lfcgj", Bh_curr, Pinv)
+    Vp = lie.einsum("...lfci,...lfigj->...lfcgj", Bh_prev, _shift_frame_down(Pinv, -4))
     V = Vc + Vp
-    V_colprev = _shift_frame_down(V, axis=3)
-    Shh = lie.einsum("lfcgj,lgdj->lfcgd", V, Bh_curr) + lie.einsum(
-        "lfcgj,lgdj->lfcgd", V_colprev, Bh_prev
+    V_colprev = _shift_frame_down(V, -2)
+    Shh = lie.einsum("...lfcgj,...lgdj->...lfcgd", V, Bh_curr) + lie.einsum(
+        "...lfcgj,...lgdj->...lfcgd", V_colprev, Bh_prev
     )
-    S_hh_obj = lie.einsum("lfcgd,lj->jfcgd", Shh, onehot)
+    S_hh_obj = lie.einsum("...lfcgd,...lj->...jfcgd", Shh, onehot)
 
     # rhs corrections
-    Pinv_g = lie.einsum("lfigj,lgj->lfi", Pinv, g_d)
-    rhs_x_corr = lie.einsum("lfai,lfi->fa", Bx_blk, Pinv_g)
-    Pg_prev = _shift_frame_down(Pinv_g, axis=1)
-    rhs_h_blk = lie.einsum("lfci,lfi->lfc", Bh_curr, Pinv_g) + lie.einsum(
-        "lfci,lfi->lfc", Bh_prev, Pg_prev
+    Pinv_g = lie.einsum("...lfigj,...lgj->...lfi", Pinv, g_d)
+    rhs_x_corr = lie.einsum("...lfai,...lfi->...fa", Bx_blk, Pinv_g)
+    Pg_prev = _shift_frame_down(Pinv_g, -2)
+    rhs_h_blk = lie.einsum("...lfci,...lfi->...lfc", Bh_curr, Pinv_g) + lie.einsum(
+        "...lfci,...lfi->...lfc", Bh_prev, Pg_prev
     )
-    rhs_h_corr = lie.einsum("lfc,lj->jfc", rhs_h_blk, onehot)     # (J, F, 6)
+    rhs_h_corr = lie.einsum("...lfc,...lj->...jfc", rhs_h_blk, onehot)     # (J, F, 6)
 
-    S[:n, :n] -= S_xx_corr.reshape(n, n)
-    rhs[:n] += rhs_x_corr.reshape(-1)
+    S[..., :n, :n] -= S_xx_corr.reshape(lead + (n, n))
+    rhs[..., :n] += rhs_x_corr.reshape(lead + (-1,))
 
     # ================= smoothing between (per object, batched) ============
-    H_prev = torch.cat([state.H[:, :1], state.H[:, :-1]], dim=1)
-    eye4 = torch.eye(4, dtype=dtype, device=dev).expand(state.H.shape)
-    r_m = factors.between_residual(H_prev, state.H, eye4)         # (J, F, 6)
+    r_m, H_prev, eye4 = _smooth_terms(state)                      # (J, F, 6)
     J_Am, J_Bm = factors.between_jacobians(H_prev, state.H, eye4, r=r_m)
     w_m = _smooth_mask(state, cfg).to(dtype)[..., None] / sig["smooth"] ** 2
     sm_block, sm_g = _chain_se3_blocks(r_m, J_Am, J_Bm, w_m)      # (J, F, 6, F, 6)
 
     # assemble the motion region: block-diagonal over objects
-    motion_diag = _block_diag_embed(Hhh) - S_hh_obj.reshape(J, n, n) + sm_block.reshape(J, n, n)
+    motion_diag = (_block_diag_embed(Hhh) - S_hh_obj.reshape(lead + (J, n, n))
+                   + sm_block.reshape(lead + (J, n, n)))
     eyeJ = torch.eye(J, dtype=dtype, device=dev)
-    S[n:, n:] += lie.einsum("jab,jk->jakb", motion_diag, eyeJ).reshape(J * n, J * n)
-    cross_flat = (-S_xh_obj.reshape(J, n, n)).transpose(0, 1).reshape(n, J * n)
-    S[:n, n:] += cross_flat
-    S[n:, :n] += cross_flat.T
-    rhs[n:] += ((-gh - sm_g).reshape(J, n) + rhs_h_corr.reshape(J, n)).reshape(-1)
+    S[..., n:, n:] += lie.einsum("...jab,jk->...jakb", motion_diag, eyeJ).reshape(lead + (J * n, J * n))
+    cross_flat = (-S_xh_obj.reshape(lead + (J, n, n))).transpose(-3, -2).reshape(lead + (n, J * n))
+    S[..., :n, n:] += cross_flat
+    S[..., n:, :n] += cross_flat.mT
+    rhs[..., n:] += ((-gh - sm_g).reshape(lead + (J, n)) + rhs_h_corr.reshape(lead + (J, n))).reshape(lead + (-1,))
 
     # ================= odometry, gauge prior, marginal prior ==============
     _fixed_terms(state, cfg, S, rhs, sig)
@@ -562,21 +574,22 @@ def linearize(state: GraphState, cfg: BackendParams, lam) -> _Linearization:
 
 def _apply_update(state: GraphState, lin: _Linearization, dx):
     F, J = state.F, state.J
-    dX = dx[: 6 * F].reshape(F, 6)
-    dH = dx[6 * F:].reshape(J, F, 6)
+    lead = state.batch_shape
+    dX = dx[..., : 6 * F].reshape(lead + (F, 6))
+    dH = dx[..., 6 * F:].reshape(lead + (J, F, 6))
 
     X_new = lie.retract(state.X, dX)
     H_new = lie.retract(state.H, dH)
 
-    At_dx = lie.einsum("flab,fa->lb", lin.A_s, dX)
-    ms_new = state.ms + lie.einsum("lab,lb->la", lin.Hpp_inv_s, -lin.g_s - At_dx)
+    At_dx = lie.einsum("...flab,...fa->...lb", lin.A_s, dX)
+    ms_new = state.ms + lie.einsum("...lab,...lb->...la", lin.Hpp_inv_s, -lin.g_s - At_dx)
 
     # chain backsub: dp = P^{-1} (-g - Bx^T dx - Bh^T dh)
-    dh_l = lie.einsum("lj,jfc->lfc", lin.onehot, dH)              # (Ld, F, 6)
-    bx_term = lie.einsum("lfai,fa->lfi", lin.Bx_blk, dX)
-    bh_term = lie.einsum("lfai,lfa->lfi", lin.Bh_curr, dh_l)
+    dh_l = lie.einsum("...lj,...jfc->...lfc", lin.onehot, dH)              # (Ld, F, 6)
+    bx_term = lie.einsum("...lfai,...fa->...lfi", lin.Bx_blk, dX)
+    bh_term = lie.einsum("...lfai,...lfa->...lfi", lin.Bh_curr, dh_l)
     # Bh_prev couples motion f to point f-1: point p receives from motion p+1
-    bh_prev_term = _shift_frame_up(lie.einsum("lfai,lfa->lfi", lin.Bh_prev, dh_l), axis=1)
+    bh_prev_term = _shift_frame_up(lie.einsum("...lfai,...lfa->...lfi", lin.Bh_prev, dh_l), -2)
     rhs_blk = -(lin.g_d + bx_term + bh_term + bh_prev_term)
     dmd = bt.solve_factored(lin.Dp_inv, lin.Wm, lin.Pu, rhs_blk[..., None])[..., 0]
     return dataclasses.replace(state, X=X_new, H=H_new, ms=ms_new, md=state.md + dmd)
@@ -606,13 +619,16 @@ def gn_scan(state, cfg, linearize_fn, apply_fn, solve_fn):
     op.max_iterations steps. A non-finite step, NaN from a failed Cholesky
     included, keeps the state and escalates the damping for the retry; a
     good one relaxes it toward the floor. Both decisions stay on the
-    device."""
+    device, and over a batch each is per sequence."""
     op = cfg.optimizer
-    lam = torch.full((), op.lm_initial_lambda, dtype=state.X.dtype, device=state.X.device)
+    lead = state.batch_shape
+    lam = torch.full(lead, op.lm_initial_lambda, dtype=state.X.dtype, device=state.X.device)
     for _ in range(op.max_iterations):
         lin = linearize_fn(state, cfg, lam)
         cand = apply_fn(state, lin, _clip_step(solve_fn(lin), op.gn_max_step))
-        ok = torch.isfinite(cand.X).all() & torch.isfinite(cand.H).all()
+        # per sequence: one sequence's failed solve keeps only its own state
+        ok = (torch.isfinite(cand.X).flatten(len(lead)).all(-1)
+              & torch.isfinite(cand.H).flatten(len(lead)).all(-1))
         state = _select(ok, cand, state)
         lam = damping_update(ok, lam, op, op.lm_initial_lambda)
     return state

@@ -15,6 +15,9 @@ Hessian block tridiagonal. Cross blocks are assembled densely per tracklet.
 State reuse: GraphState.H holds L_{j,k}; H_valid marks existing pose
 variables; md holds per-frame dynamic points (as in WCME). F2F motions for
 output: H_k = L_k L_{k-1}^{-1}.
+
+Every function also takes a GraphState with a leading batch axis of
+sequences (the batched step), as solver.py's WCME does.
 """
 
 from __future__ import annotations
@@ -39,12 +42,16 @@ from dynosam_tpu_torch.backend.solver import (
     _irls_w,
     _object_onehot,
     _odom_mask,
+    _per_seq,
     _prior_dx,
+    _shift_frame_down,
     _shift_frame_up,
+    _shift_prev,
     _sigmas,
     _static_gate,
     _static_residuals,
     _static_terms,
+    _sum_per_seq,
     chol_solve,
     gate_dx_by_type,
     gn_scan,
@@ -53,7 +60,7 @@ from dynosam_tpu_torch.backend.solver import (
 from dynosam_tpu_torch.backend import factors
 from dynosam_tpu_torch.config import BackendParams
 from dynosam_tpu_torch.cv import camera as cam
-from dynosam_tpu_torch.frontend.types import VisionPacket, first_true
+from dynosam_tpu_torch.frontend.types import VisionPacket, first_true, rows
 from dynosam_tpu_torch.ops import block_tridiag as bt
 from dynosam_tpu_torch.utils import lie
 
@@ -72,6 +79,7 @@ def update_from_packet_wcpe(
     L_{j,f} = H_f2f(packet) L_{j,f-1}; new objects anchor at their point
     centroid with identity rotation."""
     f = state.num_frames
+    nb = len(state.batch_shape)
     prev_obj_ids = state.obj_ids
     base = update_from_packet(state, packet, intr, cfg)
     dtype, dev = base.X.dtype, base.X.device
@@ -79,32 +87,33 @@ def update_from_packet_wcpe(
 
     existed = (prev_obj_ids > 0) & (base.obj_ids > 0)
 
-    d_obs_valid = base.d_valid[:, f]
+    d_obs_valid = base.d_valid[..., f]
     dt = packet.dynamic_tracks
-    zd_world = lie.transform_points(base.X[f], cam.backproject(dt.uv, dt.depth, intr).to(dtype))
+    zd_world = lie.transform_points(base.X[..., f, None, :, :],
+                                    cam.backproject(dt.uv, dt.depth, intr).to(dtype))
     onehot = (
-        (base.d_obj[:, None] == torch.arange(J, device=dev)[None, :]) & d_obs_valid[:, None]
+        (base.d_obj[..., :, None] == torch.arange(J, device=dev)) & d_obs_valid[..., :, None]
     ).to(dtype)
-    counts = torch.sum(onehot, dim=0)
-    centroid = lie.einsum("lj,lc->jc", onehot, zd_world) / torch.clamp(counts[:, None], min=1.0)
+    counts = torch.sum(onehot, dim=-2)
+    centroid = lie.einsum("...lj,...lc->...jc", onehot, zd_world) / torch.clamp(counts[..., None], min=1.0)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    L_new = lie.make_pose(eye3.expand(J, 3, 3), centroid)
+    L_new = lie.make_pose(eye3.expand(centroid.shape[:-1] + (3, 3)), centroid)
 
-    eq = base.obj_ids[:, None] == packet.object_ids[None, :]
+    eq = base.obj_ids[..., :, None] == packet.object_ids[..., None, :]
     pkt_ok = packet.object_valid & (packet.object_ids > 0)
-    hit = torch.any(eq & pkt_ok[None, :], dim=1)
+    hit = torch.any(eq & pkt_ok[..., None, :], dim=-1)
     # the first matching packet slot (0 where none; the where discards it)
-    idx = first_true(eq & pkt_ok[None, :], 1)
+    idx = first_true(eq & pkt_ok[..., None, :], -1)
     eye4 = torch.eye(4, dtype=dtype, device=dev)
-    H_f2f = torch.where((hit & existed)[:, None, None], packet.object_motions[idx].to(dtype), eye4)
-    L_prev = base.H[:, max(f - 1, 0)]
-    L_init = torch.where((existed & (f > 0))[:, None, None], lie.compose(H_f2f, L_prev), L_new)
+    H_f2f = torch.where((hit & existed)[..., None, None], packet.object_motions[rows(idx, nb)].to(dtype), eye4)
+    L_prev = base.H[..., max(f - 1, 0), :, :]
+    L_init = torch.where((existed & (f > 0))[..., None, None], lie.compose(H_f2f, L_prev), L_new)
     H = base.H.clone()
-    H[:, f] = L_init
+    H[..., f, :, :] = L_init
     # an L variable exists where the object has enough observations this frame
     min_obs = max(cfg.min_dynamic_observations, 1)
     H_valid = base.H_valid.clone()
-    H_valid[:, f] = (counts >= min_obs) & (base.obj_ids > 0)
+    H_valid[..., f] = (counts >= min_obs) & (base.obj_ids > 0)
     return dataclasses.replace(base, H=H, H_valid=H_valid)
 
 
@@ -116,13 +125,13 @@ def _pose_chain_terms(state: GraphState, onehot):
     """Motion-pose residuals r_f = m_f - G_f m_{f-1}, G_f = L_f L_{f-1}^{-1}
     -> (r (Ld, F, 3), RG (Ld, F, 3, 3), J_L (Ld, F, 3, 6)), J_L the
     Jacobian w.r.t. L_f (and -J_L w.r.t. L_{f-1})."""
-    Lj = lie.einsum("lj,jfab->lfab", onehot, state.H)       # (Ld, F, 4, 4)
-    assigned = torch.sum(onehot, dim=1) > 0.5
+    Lj = lie.einsum("...lj,...jfab->...lfab", onehot, state.H)       # (Ld, F, 4, 4)
+    assigned = torch.sum(onehot, dim=-1) > 0.5
     eye4 = torch.eye(4, dtype=state.X.dtype, device=state.X.device)
-    Lj = torch.where(assigned[:, None, None, None], Lj, eye4)
-    L_prev = torch.cat([Lj[:, :1], Lj[:, :-1]], dim=1)
+    Lj = torch.where(assigned[..., None, None, None], Lj, eye4)
+    L_prev = _shift_prev(Lj, -3)
     G = lie.mm(Lj, lie.inverse(L_prev))
-    m_prev = torch.cat([state.md[:, :1], state.md[:, :-1]], dim=1)
+    m_prev = _shift_prev(state.md, -2)
     r = state.md - lie.transform_points(G, m_prev)
     # u = L_{f-1}^{-1} m_{f-1}: the point in the object frame
     u = lie.transform_points(lie.inverse(L_prev), m_prev)
@@ -133,24 +142,22 @@ def _pose_chain_terms(state: GraphState, onehot):
 
 def _pose_chain_mask(state: GraphState, onehot):
     v = state.d_valid
-    prev_v = torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], dim=1)
-    Lv = lie.einsum("lj,jf->lf", onehot, state.H_valid.to(onehot.dtype)) > 0.5
-    Lv_prev = torch.cat([torch.zeros_like(Lv[:, :1]), Lv[:, :-1]], dim=1)
-    in_window = torch.arange(state.F, device=v.device)[None, :] < state.num_frames
-    return v & prev_v & Lv & Lv_prev & in_window
+    Lv = lie.einsum("...lj,...jf->...lf", onehot, state.H_valid.to(onehot.dtype)) > 0.5
+    in_window = torch.arange(state.F, device=v.device) < state.num_frames
+    return v & _shift_frame_down(v, -1) & Lv & _shift_frame_down(Lv, -1) & in_window
 
 
 def _smooth_triple_mask_wcpe(state: GraphState, cfg: BackendParams):
     if not cfg.use_smoothing_factor:
         return torch.zeros_like(state.H_valid)
     Hv = state.H_valid
-    prev1 = torch.cat([torch.zeros_like(Hv[:, :1]), Hv[:, :-1]], dim=1)
-    prev2 = torch.cat([torch.zeros_like(Hv[:, :2]), Hv[:, :-2]], dim=1)
-    return Hv & prev1 & prev2
+    prev1 = _shift_frame_down(Hv, -1)
+    return Hv & prev1 & _shift_frame_down(prev1, -1)
 
 
 def total_error(state: GraphState, cfg: BackendParams):
     dtype, dev = state.X.dtype, state.X.device
+    nb = len(state.batch_shape)
     sig = _sigmas(cfg, dtype, dev)
     k = cfg.noise.robust_k_huber
     use_rob = cfg.noise.use_robust_kernel
@@ -162,31 +169,31 @@ def total_error(state: GraphState, cfg: BackendParams):
     r_s, _ = _static_residuals(state)
     gate = _static_gate(state, cfg)
     e = torch.linalg.norm(r_s / state.s_sig, dim=-1)
-    err = torch.sum(torch.where(state.s_valid & gate[None, :], rho(e), 0.0))
+    err = _sum_per_seq(torch.where(state.s_valid & gate[..., None, :], rho(e), 0.0), nb)
 
     r_d, _ = _dyn_ptp_residuals(state)
     e = torch.linalg.norm(r_d / state.d_sig, dim=-1)
-    err = err + torch.sum(torch.where(state.d_valid & (state.d_obj >= 0)[:, None], rho(e), 0.0))
+    err = err + _sum_per_seq(torch.where(state.d_valid & (state.d_obj >= 0)[..., None], rho(e), 0.0), nb)
 
     r_t, _, _ = _pose_chain_terms(state, onehot)
     e = torch.linalg.norm(r_t, dim=-1) / sig["ternary"]
-    err = err + torch.sum(torch.where(_pose_chain_mask(state, onehot), rho(e), 0.0))
+    err = err + _sum_per_seq(torch.where(_pose_chain_mask(state, onehot), rho(e), 0.0), nb)
 
     r_sm, _, _, _ = _smooth_triple_terms(state)
     sm_mask = _smooth_triple_mask_wcpe(state, cfg)
-    err = err + torch.sum(torch.where(sm_mask[..., None], 0.5 * (r_sm / sig["smooth"]) ** 2, 0.0))
+    err = err + _sum_per_seq(torch.where(sm_mask[..., None], 0.5 * (r_sm / sig["smooth"]) ** 2, 0.0), nb)
 
     if cfg.use_vo_factor:
-        X_prev = torch.cat([state.X[:1], state.X[:-1]], dim=0)
+        X_prev = _shift_prev(state.X, -3)
         r_o = factors.between_residual(X_prev, state.X, state.odom) / sig["odom"]
-        err = err + torch.sum(torch.where(_odom_mask(state)[:, None], 0.5 * r_o * r_o, 0.0))
+        err = err + _sum_per_seq(torch.where(_odom_mask(state)[..., None], 0.5 * r_o * r_o, 0.0), nb)
 
     gauge_on = (~state.prior_valid).to(dtype)
-    r_p = factors.prior_residual(state.X[0], state.X0_prior) / sig["prior0"]
-    err = err + gauge_on * torch.sum(0.5 * r_p * r_p)
+    r_p = factors.prior_residual(state.X[..., 0, :, :], state.X0_prior) / sig["prior0"]
+    err = err + gauge_on * _sum_per_seq(0.5 * r_p * r_p, nb)
 
-    r_mp = state.prior_b + state.prior_L @ _prior_dx(state)
-    return err + torch.where(state.prior_valid, torch.sum(0.5 * r_mp * r_mp), 0.0)
+    r_mp = state.prior_b + lie.mv(state.prior_L, _prior_dx(state))
+    return err + torch.where(state.prior_valid, _sum_per_seq(0.5 * r_mp * r_mp, nb), 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -212,27 +219,28 @@ class _WcpeLin(NamedTuple):
 def _embed_row_prev(blk, F):
     """blk (Ld, F, A, B) placed at (row f-1, col f)."""
     E = _eye_k(F, 1, blk.dtype, blk.device)   # E[g, f] = 1 iff g = f-1
-    return lie.einsum("lfab,gf,fh->lgahb", blk, E, _eye_k(F, 0, blk.dtype, blk.device))
+    return lie.einsum("...lfab,gf,fh->...lgahb", blk, E, _eye_k(F, 0, blk.dtype, blk.device))
 
 
 def _embed_row_col_prev(blk, F):
     """blk (Ld, F, A, B) placed at (row f-1, col f-1)."""
     E = _eye_k(F, 1, blk.dtype, blk.device)
-    return lie.einsum("lfab,gf,hf->lgahb", blk, E, E)
+    return lie.einsum("...lfab,gf,hf->...lgahb", blk, E, E)
 
 
 def linearize(state: GraphState, cfg: BackendParams, lam) -> _WcpeLin:
     F, J, Ld = state.F, state.J, state.Ld
     D = state.D
     n = 6 * F
+    lead = state.batch_shape
     dtype, dev = state.X.dtype, state.X.device
     sig = _sigmas(cfg, dtype, dev)
     k_rob = cfg.noise.robust_k_huber
     use_rob = cfg.noise.use_robust_kernel
     onehot = _object_onehot(state, dtype)
 
-    S = torch.zeros((D, D), dtype=dtype, device=dev)
-    rhs = torch.zeros((D,), dtype=dtype, device=dev)
+    S = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    rhs = torch.zeros(lead + (D,), dtype=dtype, device=dev)
     R = lie.rotation(state.X)
     Rt = R.transpose(-1, -2)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
@@ -242,9 +250,9 @@ def linearize(state: GraphState, cfg: BackendParams, lam) -> _WcpeLin:
 
     # ---- dynamic PTP + pose-chain factors --------------------------------
     r_d, y_d = _dyn_ptp_residuals(state)
-    has_obj_f = torch.sum(onehot, dim=1)
+    has_obj_f = torch.sum(onehot, dim=-1)
     e_d = torch.linalg.norm(r_d / state.d_sig, dim=-1)
-    iw_d = (state.d_valid.to(dtype) * has_obj_f[:, None])[..., None] * _irls_w(
+    iw_d = (state.d_valid.to(dtype) * has_obj_f[..., None])[..., None] * _irls_w(
         e_d, k_rob, use_rob
     )[..., None] / (state.d_sig ** 2)
 
@@ -257,53 +265,51 @@ def linearize(state: GraphState, cfg: BackendParams, lam) -> _WcpeLin:
     Jx_d = torch.cat([hat_yd, -eye3.expand(hat_yd.shape)], dim=-1)
 
     # chain Hessian (WCME's structure: J_prev = -RG, J_curr = I)
-    w_t_next = torch.cat([w_t[:, 1:], torch.zeros_like(w_t[:, :1])], dim=1)
-    Pd_ptp = lie.einsum("fab,lfb,fcb->lfac", R, iw_d, R)
-    diag_scalar = w_t + w_t_next + _EPS_REG + lam
+    Pd_ptp = lie.einsum("...fab,...lfb,...fcb->...lfac", R, iw_d, R)
+    diag_scalar = w_t + _shift_frame_up(w_t, -1) + _EPS_REG + _per_seq(lam, 2)
     Pd = Pd_ptp + diag_scalar[..., None, None] * eye3
-    off = -RG.transpose(-1, -2) * w_t[..., None, None]
-    Pu = torch.cat([off[:, 1:], torch.zeros_like(off[:, :1])], dim=1)
+    Pu = _shift_frame_up(-RG.transpose(-1, -2) * w_t[..., None, None], -3)
 
-    g_d = lie.einsum("fab,lfb->lfa", R, iw_d * r_d)
+    g_d = lie.einsum("...fab,...lfb->...lfa", R, iw_d * r_d)
     g_ter_curr = r_t * w_t[..., None]
-    g_ter_prev = -lie.einsum("lfba,lfb->lfa", RG, r_t * w_t[..., None])
-    g_d = g_d + g_ter_curr + _shift_frame_up(g_ter_prev, axis=1)
+    g_ter_prev = -lie.einsum("...lfba,...lfb->...lfa", RG, r_t * w_t[..., None])
+    g_d = g_d + g_ter_curr + _shift_frame_up(g_ter_prev, -2)
 
     # cross blocks, dense per tracklet
-    Bx_blk = lie.einsum("lfba,lfb,fbc->lfac", Jx_d, iw_d, Rt)
-    Bx = _embed_same_frame(Bx_blk, F).reshape(Ld, n, 3 * F)
+    Bx_blk = lie.einsum("...lfba,...lfb,...fbc->...lfac", Jx_d, iw_d, Rt)
+    Bx = _embed_same_frame(Bx_blk, F).reshape(lead + (Ld, n, 3 * F))
 
     JLT = J_L.transpose(-1, -2)                              # (Ld, F, 6, 3)
     Bl_curr = JLT * w_t[..., None, None]                     # J_L^T W J_curr
-    Bl_prev = -lie.einsum("lfab,lfbc->lfac", JLT * w_t[..., None, None], RG)
+    Bl_prev = -lie.einsum("...lfab,...lfbc->...lfac", JLT * w_t[..., None, None], RG)
     # rows L_f from factor f; rows L_{f-1} get the negations
     Bl = (
         _embed_same_frame(Bl_curr, F)
         + _embed_prev_frame(Bl_prev, F)
         + _embed_row_prev(-Bl_curr, F)           # (row f-1, col f)
         + _embed_row_col_prev(-Bl_prev, F)       # (row f-1, col f-1)
-    ).reshape(Ld, n, 3 * F)
+    ).reshape(lead + (Ld, n, 3 * F))
 
     # direct reduced blocks
-    Hxx_d = lie.einsum("lfab,lfa,lfac->fbc", Jx_d, iw_d, Jx_d)
-    gx_d = lie.einsum("lfab,lfa->fb", Jx_d, iw_d * r_d)
-    S[:n, :n] += _block_diag_embed(Hxx_d)
-    rhs[:n] -= gx_d.reshape(-1)
+    Hxx_d = lie.einsum("...lfab,...lfa,...lfac->...fbc", Jx_d, iw_d, Jx_d)
+    gx_d = lie.einsum("...lfab,...lfa->...fb", Jx_d, iw_d * r_d)
+    S[..., :n, :n] += _block_diag_embed(Hxx_d)
+    rhs[..., :n] -= gx_d.reshape(lead + (-1,))
 
     # pose-pose direct blocks (per object, tridiagonal via +-J_L)
-    HLL = lie.einsum("lfab,lf,lfac->lfbc", J_L, w_t, J_L)    # (Ld, F, 6, 6)
-    gL = lie.einsum("lfab,lf,lfa->lfb", J_L, w_t, r_t)
+    HLL = lie.einsum("...lfab,...lf,...lfac->...lfbc", J_L, w_t, J_L)    # (Ld, F, 6, 6)
+    gL = lie.einsum("...lfab,...lf,...lfa->...lfb", J_L, w_t, r_t)
     eyeF = _eye_k(F, 0, dtype, dev)
     E1 = _eye_k(F, 1, dtype, dev)
     blocks_l = (
-        lie.einsum("lfab,fg,fh->lgahb", HLL, eyeF, eyeF)            # (f, f)
-        + lie.einsum("lfab,gf,hf->lgahb", HLL, E1, E1)              # (f-1, f-1)
-        - lie.einsum("lfab,gf,fh->lgahb", HLL, E1, eyeF)            # (f-1, f)
-        - lie.einsum("lfab,fg,hf->lgahb", HLL, eyeF, E1)            # (f, f-1)
+        lie.einsum("...lfab,fg,fh->...lgahb", HLL, eyeF, eyeF)            # (f, f)
+        + lie.einsum("...lfab,gf,hf->...lgahb", HLL, E1, E1)              # (f-1, f-1)
+        - lie.einsum("...lfab,gf,fh->...lgahb", HLL, E1, eyeF)            # (f-1, f)
+        - lie.einsum("...lfab,fg,hf->...lgahb", HLL, eyeF, E1)            # (f, f-1)
     )
-    g_l = lie.einsum("lfb,fg->lgb", gL, eyeF) - lie.einsum("lfb,gf->lgb", gL, E1)
-    HLL_obj = lie.einsum("lgahb,lj->jgahb", blocks_l, onehot)
-    gL_obj = lie.einsum("lgb,lj->jgb", g_l, onehot)
+    g_l = lie.einsum("...lfb,fg->...lgb", gL, eyeF) - lie.einsum("...lfb,gf->...lgb", gL, E1)
+    HLL_obj = lie.einsum("...lgahb,...lj->...jgahb", blocks_l, onehot)
+    gL_obj = lie.einsum("...lgb,...lj->...jgb", g_l, onehot)
 
     # smoothing ternary on L (the hybrid module's algebra)
     r_sm, J_A, J_B, J_C = _smooth_triple_terms(state)
@@ -313,44 +319,44 @@ def linearize(state: GraphState, cfg: BackendParams, lam) -> _WcpeLin:
     JCw = J_C.transpose(-1, -2) * w_sm[..., None, :]
     E2 = _eye_k(F, 2, dtype, dev)
     sm_blocks = (
-        lie.einsum("jfab,gf,hf->jgahb", lie.mm(JAw, J_A), E2, E2)
-        + lie.einsum("jfab,gf,hf->jgahb", lie.mm(JBw, J_B), E1, E1)
-        + lie.einsum("jfab,fg,fh->jgahb", lie.mm(JCw, J_C), eyeF, eyeF)
-        + _sym2(lie.einsum("jfab,gf,hf->jgahb", lie.mm(JAw, J_B), E2, E1))
-        + _sym2(lie.einsum("jfab,gf,fh->jgahb", lie.mm(JAw, J_C), E2, eyeF))
-        + _sym2(lie.einsum("jfab,gf,fh->jgahb", lie.mm(JBw, J_C), E1, eyeF))
+        lie.einsum("...jfab,gf,hf->...jgahb", lie.mm(JAw, J_A), E2, E2)
+        + lie.einsum("...jfab,gf,hf->...jgahb", lie.mm(JBw, J_B), E1, E1)
+        + lie.einsum("...jfab,fg,fh->...jgahb", lie.mm(JCw, J_C), eyeF, eyeF)
+        + _sym2(lie.einsum("...jfab,gf,hf->...jgahb", lie.mm(JAw, J_B), E2, E1))
+        + _sym2(lie.einsum("...jfab,gf,fh->...jgahb", lie.mm(JAw, J_C), E2, eyeF))
+        + _sym2(lie.einsum("...jfab,gf,fh->...jgahb", lie.mm(JBw, J_C), E1, eyeF))
     )
     g_sm = (
-        lie.einsum("jfab,jfb,gf->jga", JAw, r_sm, E2)
-        + lie.einsum("jfab,jfb,gf->jga", JBw, r_sm, E1)
-        + lie.einsum("jfab,jfb->jfa", JCw, r_sm)
+        lie.einsum("...jfab,...jfb,gf->...jga", JAw, r_sm, E2)
+        + lie.einsum("...jfab,...jfb,gf->...jga", JBw, r_sm, E1)
+        + lie.einsum("...jfab,...jfb->...jfa", JCw, r_sm)
     )
 
     # ---- chain Schur ------------------------------------------------------
     Dp_inv, Wm = bt.factorize(Pd, Pu)
-    Pinv = bt.full_inverse(Pd, Pu).reshape(Ld, 3 * F, 3 * F)
-    g_df = g_d.reshape(Ld, 3 * F)
+    Pinv = bt.full_inverse(Pd, Pu).reshape(lead + (Ld, 3 * F, 3 * F))
+    g_df = g_d.reshape(lead + (Ld, 3 * F))
 
-    PinvBxT = lie.einsum("lij,lbj->lib", Pinv, Bx)
-    PinvBlT = lie.einsum("lij,lbj->lib", Pinv, Bl)
-    Pinv_g = lie.einsum("lij,lj->li", Pinv, g_df)
+    PinvBxT = lie.einsum("...lij,...lbj->...lib", Pinv, Bx)
+    PinvBlT = lie.einsum("...lij,...lbj->...lib", Pinv, Bl)
+    Pinv_g = lie.einsum("...lij,...lj->...li", Pinv, g_df)
 
-    Sxx_c = lie.einsum("lai,lib->ab", Bx, PinvBxT)
-    Sxl_c = lie.einsum("lai,lib,lj->jab", Bx, PinvBlT, onehot)
-    Sll_c = lie.einsum("lai,lib,lj->jab", Bl, PinvBlT, onehot)
-    rx_c = lie.einsum("lai,li->a", Bx, Pinv_g)
-    rl_c = lie.einsum("lai,li,lj->ja", Bl, Pinv_g, onehot)
+    Sxx_c = lie.einsum("...lai,...lib->...ab", Bx, PinvBxT)
+    Sxl_c = lie.einsum("...lai,...lib,...lj->...jab", Bx, PinvBlT, onehot)
+    Sll_c = lie.einsum("...lai,...lib,...lj->...jab", Bl, PinvBlT, onehot)
+    rx_c = lie.einsum("...lai,...li->...a", Bx, Pinv_g)
+    rl_c = lie.einsum("...lai,...li,...lj->...ja", Bl, Pinv_g, onehot)
 
-    S[:n, :n] -= Sxx_c
-    rhs[:n] += rx_c
+    S[..., :n, :n] -= Sxx_c
+    rhs[..., :n] += rx_c
 
-    motion_diag = HLL_obj.reshape(J, n, n) + sm_blocks.reshape(J, n, n) - Sll_c
+    motion_diag = HLL_obj.reshape(lead + (J, n, n)) + sm_blocks.reshape(lead + (J, n, n)) - Sll_c
     eyeJ = torch.eye(J, dtype=dtype, device=dev)
-    S[n:, n:] += lie.einsum("jab,jk->jakb", motion_diag, eyeJ).reshape(J * n, J * n)
-    cross_flat = (-Sxl_c).transpose(0, 1).reshape(n, J * n)
-    S[:n, n:] += cross_flat
-    S[n:, :n] += cross_flat.T
-    rhs[n:] += ((-gL_obj - g_sm).reshape(J, n) + rl_c).reshape(-1)
+    S[..., n:, n:] += lie.einsum("...jab,jk->...jakb", motion_diag, eyeJ).reshape(lead + (J * n, J * n))
+    cross_flat = (-Sxl_c).transpose(-3, -2).reshape(lead + (n, J * n))
+    S[..., :n, n:] += cross_flat
+    S[..., n:, :n] += cross_flat.mT
+    rhs[..., n:] += ((-gL_obj - g_sm).reshape(lead + (J, n)) + rl_c).reshape(lead + (-1,))
 
     # ---- odometry / gauge / marginal prior -------------------------------
     _fixed_terms(state, cfg, S, rhs, sig)
@@ -366,21 +372,22 @@ def linearize(state: GraphState, cfg: BackendParams, lam) -> _WcpeLin:
 
 def _apply_update(state: GraphState, lin: _WcpeLin, dx):
     F, J = state.F, state.J
-    dX = dx[: 6 * F].reshape(F, 6)
-    dL = dx[6 * F:].reshape(J, F, 6)
+    lead = state.batch_shape
+    dX = dx[..., : 6 * F].reshape(lead + (F, 6))
+    dL = dx[..., 6 * F:].reshape(lead + (J, F, 6))
 
     X_new = lie.retract(state.X, dX)
     L_new = lie.retract(state.H, dL)
 
-    At_dx = lie.einsum("flab,fa->lb", lin.A_s, dX)
-    ms_new = state.ms + lie.einsum("lab,lb->la", lin.Hpp_inv_s, -lin.g_s - At_dx)
+    At_dx = lie.einsum("...flab,...fa->...lb", lin.A_s, dX)
+    ms_new = state.ms + lie.einsum("...lab,...lb->...la", lin.Hpp_inv_s, -lin.g_s - At_dx)
 
-    dl_l = lie.einsum("lj,jfc->lfc", lin.onehot, dL).reshape(state.Ld, 6 * F)
+    dl_l = lie.einsum("...lj,...jfc->...lfc", lin.onehot, dL).reshape(lead + (state.Ld, 6 * F))
     rhs_blk = -(
         lin.g_d
-        + lie.einsum("lai,a->li", lin.Bx, dx[: 6 * F])
-        + lie.einsum("lai,la->li", lin.Bl, dl_l)
-    ).reshape(state.Ld, F, 3)
+        + lie.einsum("...lai,...a->...li", lin.Bx, dx[..., : 6 * F])
+        + lie.einsum("...lai,...la->...li", lin.Bl, dl_l)
+    ).reshape(lead + (state.Ld, F, 3))
     dmd = bt.solve_factored(lin.Dp_inv, lin.Wm, lin.Pu, rhs_blk[..., None])[..., 0]
     return dataclasses.replace(state, X=X_new, H=L_new, ms=ms_new, md=state.md + dmd)
 
@@ -401,4 +408,4 @@ def optimize(state: GraphState, cfg: BackendParams) -> GraphState:
 
 def f2f_motion(state: GraphState, f):
     """F2F world motions H_k = L_k L_{k-1}^{-1} at slot f (an int). (J, 4, 4)."""
-    return lie.mm(state.H[:, f], lie.inverse(state.H[:, max(f - 1, 0)]))
+    return lie.mm(state.H[..., f, :, :], lie.inverse(state.H[..., max(f - 1, 0), :, :]))

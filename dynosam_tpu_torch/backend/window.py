@@ -25,10 +25,10 @@ The reference places blocks with constant one-hot matrices contracted on the
 MXU (a TPU layout choice, window.py:398-399); here they are index
 operations, which add the same values in the same places.
 
-`advance_hybrid` also takes a GraphState with a leading batch axis of
-sequences (the batched step). Its one host read then covers the batch: the
-sequences whose factorisation broke down take the eigh path, the others the
-Cholesky path, merged per sequence.
+All three advances also take a GraphState with a leading batch axis of
+sequences (the batched step). Their one host read then covers the batch:
+the sequences whose factorisation broke down take the eigh path, the others
+the Cholesky path, merged per sequence.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from dynosam_tpu_torch.backend import hybrid as hyb
 from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.backend import wcpe as wp
 from dynosam_tpu_torch.backend.solver import _EPS_REG, _object_onehot, _per_seq, _prior_dx, _sigmas
+from dynosam_tpu_torch.frontend.types import rows
 from dynosam_tpu_torch.ops.block_tridiag import inv3
 from dynosam_tpu_torch.utils import lie
 
@@ -111,36 +112,38 @@ def _departing_information(state: GraphState, cfg: BackendParams):
     """WCME: dense (D, D) Hessian and (D,) gradient of the departing factor
     set, with the departing dynamic points m_{:,0} Schur-eliminated and the
     coupled m_{:,1} held fixed."""
-    F, J, Ld = state.F, state.J, state.Ld
+    F, J = state.F, state.J
     D = state.D
+    lead = state.batch_shape
+    nb = len(lead)
     dtype, dev = state.X.dtype, state.X.device
     sig = _sigmas(cfg, dtype, dev)
 
-    M = torch.zeros((D, D), dtype=dtype, device=dev)
-    g = torch.zeros((D,), dtype=dtype, device=dev)
+    M = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    g = torch.zeros(lead + (D,), dtype=dtype, device=dev)
 
     # ---- per tracklet: PTP(X_0, m_0) + ternary(m_0, m_1, H_{j,1}) --------
-    X0 = state.X[0]
+    X0 = state.X[..., 0, :, :]
     R0 = lie.rotation(X0)
-    m0 = state.md[:, 0]                                  # (Ld, 3)
-    m1 = state.md[:, 1]
-    z0 = state.d_z[:, 0]
+    m0 = state.md[..., 0, :]                             # (Ld, 3)
+    m1 = state.md[..., 1, :]
+    z0 = state.d_z[..., 0, :]
     has_obj = state.d_obj >= 0
-    iw_ptp = (state.d_valid[:, 0] & has_obj).to(dtype)[:, None] / (state.d_sig[:, 0] ** 2)
+    iw_ptp = (state.d_valid[..., 0] & has_obj).to(dtype)[..., None] / (state.d_sig[..., 0, :] ** 2)
 
     j_idx = torch.clamp(state.d_obj, 0, J - 1).long()
-    H1 = state.H[j_idx, 1]                               # (Ld, 4, 4)
+    H1 = state.H[..., 1, :, :][rows(j_idx, nb)]          # (Ld, 4, 4)
     # the ternary (0, 1) mask, solver._ternary_mask at f = 1
-    Hv1 = state.H_valid[j_idx, 1]
-    w_ter = (state.d_valid[:, 0] & state.d_valid[:, 1] & Hv1 & has_obj).to(dtype) / (sig["ternary"] ** 2)
+    Hv1 = state.H_valid[..., 1][rows(j_idx, nb)]
+    w_ter = (state.d_valid[..., 0] & state.d_valid[..., 1] & Hv1 & has_obj).to(dtype) / (sig["ternary"] ** 2)
 
     # PTP residual and Jacobians at slot 0
-    y0 = lie.transform_points(lie.inverse(X0), m0)
+    y0 = lie.transform_points(lie.inverse(X0)[..., None, :, :], m0)
     r_ptp = y0 - z0
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     hat_y0 = lie.hat(y0)
     Jx0 = torch.cat([hat_y0, -eye3.expand(hat_y0.shape)], dim=-1)      # (Ld, 3, 6)
-    Jp_ptp = R0.T                                        # (3, 3), the same for all tracklets
+    Jp_ptp = R0.mT                                       # (3, 3), the same for all tracklets
 
     # ternary residual and Jacobians with m1 fixed
     r_ter = m1 - lie.transform_points(H1, m0)
@@ -149,36 +152,43 @@ def _departing_information(state: GraphState, cfg: BackendParams):
     JH_ter = torch.cat([lie.mm(RH, lie.hat(m0)), -RH], dim=-1)        # (Ld, 3, 6)
 
     # per-tracklet elimination of m_0: Hpp = R0 diag(iw) R0^T + w_ter I + eps
-    hpp = lie.einsum("ab,lb,cb->lac", R0, iw_ptp, R0) + (w_ter + _EPS_REG)[:, None, None] * eye3
+    hpp = lie.einsum("...ab,...lb,...cb->...lac", R0, iw_ptp, R0) + (w_ter + _EPS_REG)[..., None, None] * eye3
     inv_hpp = inv3(hpp)                                  # (Ld, 3, 3)
-    g_m0 = lie.einsum("ab,lb->la", R0, iw_ptp * r_ptp) + w_ter[:, None] * lie.einsum(
-        "lba,lb->la", Jm0_ter, r_ter
+    g_m0 = lie.einsum("...ab,...lb->...la", R0, iw_ptp * r_ptp) + w_ter[..., None] * lie.einsum(
+        "...lba,...lb->...la", Jm0_ter, r_ter
     )
     # cross blocks (variable row, m0 column): X0 from PTP, H1 from the ternary
-    C_x0 = lie.einsum("lba,lb,bc->lac", Jx0, iw_ptp, Jp_ptp)           # (Ld, 6, 3)
-    C_h1 = w_ter[:, None, None] * lie.einsum("lba,lbc->lac", JH_ter, Jm0_ter)
+    C_x0 = lie.einsum("...lba,...lb,...bc->...lac", Jx0, iw_ptp, Jp_ptp)           # (Ld, 6, 3)
+    C_h1 = w_ter[..., None, None] * lie.einsum("...lba,...lbc->...lac", JH_ter, Jm0_ter)
 
     # direct blocks
-    H_x0x0 = lie.einsum("lba,lb,lbc->ac", Jx0, iw_ptp, Jx0)            # (6, 6)
-    g_x0 = lie.einsum("lba,lb->a", Jx0, iw_ptp * r_ptp)
-    H_h1h1 = lie.einsum("lba,l,lbc->lac", JH_ter, w_ter, JH_ter)       # (Ld, 6, 6)
-    g_h1 = lie.einsum("lba,l,lb->la", JH_ter, w_ter, r_ter)
+    H_x0x0 = lie.einsum("...lba,...lb,...lbc->...ac", Jx0, iw_ptp, Jx0)            # (6, 6)
+    g_x0 = lie.einsum("...lba,...lb->...a", Jx0, iw_ptp * r_ptp)
+    H_h1h1 = lie.einsum("...lba,...l,...lbc->...lac", JH_ter, w_ter, JH_ter)       # (Ld, 6, 6)
+    g_h1 = lie.einsum("...lba,...l,...lb->...la", JH_ter, w_ter, r_ter)
 
     # Schur corrections after eliminating m0
-    S_x0x0 = lie.einsum("lab,lbc,ldc->ad", C_x0, inv_hpp, C_x0)
-    S_x0h1 = lie.einsum("lab,lbc,ldc->lad", C_x0, inv_hpp, C_h1)       # (Ld, 6, 6)
-    S_h1h1 = lie.einsum("lab,lbc,ldc->lad", C_h1, inv_hpp, C_h1)
-    gs_x0 = lie.einsum("lab,lbc,lc->a", C_x0, inv_hpp, g_m0)
-    gs_h1 = lie.einsum("lab,lbc,lc->la", C_h1, inv_hpp, g_m0)
+    S_x0x0 = lie.einsum("...lab,...lbc,...ldc->...ad", C_x0, inv_hpp, C_x0)
+    S_x0h1 = lie.einsum("...lab,...lbc,...ldc->...lad", C_x0, inv_hpp, C_h1)       # (Ld, 6, 6)
+    S_h1h1 = lie.einsum("...lab,...lbc,...ldc->...lad", C_h1, inv_hpp, C_h1)
+    gs_x0 = lie.einsum("...lab,...lbc,...lc->...a", C_x0, inv_hpp, g_m0)
+    gs_h1 = lie.einsum("...lab,...lbc,...lc->...la", C_h1, inv_hpp, g_m0)
 
-    M[:6, :6] += H_x0x0 - S_x0x0
-    g[:6] += g_x0 - gs_x0
+    M[..., :6, :6] += H_x0x0 - S_x0x0
+    g[..., :6] += g_x0 - gs_x0
 
     # per-object sums; row J collects the unassigned tracklets and is dropped
+    # (over a batch, sequence b's rows are b (J + 1) .. b (J + 1) + J of one
+    # flat table)
     seg = torch.where(has_obj, state.d_obj, J).long()
+    if nb:
+        seg = seg + (J + 1) * torch.arange(seg.shape[0], device=dev)[:, None]
 
     def segment_sum(x):
-        return torch.zeros((J + 1,) + x.shape[1:], dtype=x.dtype, device=dev).index_add_(0, seg, x)[:J]
+        tail = x.shape[nb + 1:]
+        out = torch.zeros((seg.numel() // state.Ld * (J + 1),) + tail, dtype=x.dtype, device=dev)
+        out.index_add_(0, seg.reshape(-1), x.reshape((-1,) + tail))
+        return out.reshape(lead + (J + 1,) + tail).narrow(nb, 0, J)
 
     H_h1h1_obj = segment_sum(H_h1h1 - S_h1h1)            # (J, 6, 6)
     g_h1_obj = segment_sum(g_h1 - gs_h1)
@@ -186,10 +196,10 @@ def _departing_information(state: GraphState, cfg: BackendParams):
 
     S0, S1 = (_slot_index(F, J, f, dev) for f in range(2))   # H_{:,0}, H_{:,1}
     _place_blocks(M, g, S1, S1, H_h1h1_obj, g_h1_obj)
-    cross = torch.zeros((6, D), dtype=dtype, device=dev)
-    cross[:, S1.reshape(-1)] = (-S_x0h1_obj).permute(1, 0, 2).reshape(6, 6 * J)
-    M[:6, :] += cross
-    M[:, :6] += cross.T
+    cross = torch.zeros(lead + (6, D), dtype=dtype, device=dev)
+    cross[..., S1.reshape(-1)] = (-S_x0h1_obj).transpose(-3, -2).reshape(lead + (6, 6 * J))
+    M[..., :6, :] += cross
+    M[..., :, :6] += cross.mT
 
     # ---- odometry (0, 1) ---------------------------------------------------
     if cfg.use_vo_factor:
@@ -197,15 +207,16 @@ def _departing_information(state: GraphState, cfg: BackendParams):
 
     # ---- smoothing (H_{j,0}, H_{j,1}) --------------------------------------
     if cfg.use_smoothing_factor:
-        sm_mask = (state.H_valid[:, 0] & state.H_valid[:, 1]).to(dtype)
-        eye4 = torch.eye(4, dtype=dtype, device=dev).expand(J, 4, 4)
-        r_m = factors.between_residual(state.H[:, 0], state.H[:, 1], eye4)
-        J_Am, J_Bm = factors.between_jacobians(state.H[:, 0], state.H[:, 1], eye4)
-        w_sm = sm_mask[:, None] / sig["smooth"] ** 2     # (J, 6)
-        JAw = J_Am.transpose(-1, -2) * w_sm[:, None, :]
-        JBw = J_Bm.transpose(-1, -2) * w_sm[:, None, :]
-        _place_blocks(M, g, S0, S0, lie.mm(JAw, J_Am), lie.einsum("jab,jb->ja", JAw, r_m))
-        _place_blocks(M, g, S1, S1, lie.mm(JBw, J_Bm), lie.einsum("jab,jb->ja", JBw, r_m))
+        sm_mask = (state.H_valid[..., 0] & state.H_valid[..., 1]).to(dtype)
+        H0, H1 = state.H[..., 0, :, :], state.H[..., 1, :, :]
+        eye4 = torch.eye(4, dtype=dtype, device=dev).expand(H0.shape)
+        r_m = factors.between_residual(H0, H1, eye4)
+        J_Am, J_Bm = factors.between_jacobians(H0, H1, eye4)
+        w_sm = sm_mask[..., None] / sig["smooth"] ** 2   # (J, 6)
+        JAw = J_Am.transpose(-1, -2) * w_sm[..., None, :]
+        JBw = J_Bm.transpose(-1, -2) * w_sm[..., None, :]
+        _place_blocks(M, g, S0, S0, lie.mm(JAw, J_Am), lie.einsum("...jab,...jb->...ja", JAw, r_m))
+        _place_blocks(M, g, S1, S1, lie.mm(JBw, J_Bm), lie.einsum("...jab,...jb->...ja", JBw, r_m))
         _place_blocks(M, g, S0, S1, lie.mm(JAw, J_Bm))
         _place_blocks(M, g, S1, S0, lie.mm(JAw, J_Bm).transpose(-1, -2))
 
@@ -519,20 +530,21 @@ def _departing_information_wcpe(state: GraphState, cfg: BackendParams):
     dtype, dev = state.X.dtype, state.X.device
     sig = _sigmas(cfg, dtype, dev)
 
-    M = torch.zeros((D, D), dtype=dtype, device=dev)
-    g = torch.zeros((D,), dtype=dtype, device=dev)
+    lead = state.batch_shape
+    M = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    g = torch.zeros(lead + (D,), dtype=dtype, device=dev)
 
     onehot = _object_onehot(state, dtype)
     r_t, _, J_L = wp._pose_chain_terms(state, onehot)
     mask = wp._pose_chain_mask(state, onehot)
-    w = mask[:, 1].to(dtype) / (sig["ternary"] ** 2)          # the factor at f = 1
+    w = mask[..., 1].to(dtype) / (sig["ternary"] ** 2)        # the factor at f = 1
 
-    JL1 = J_L[:, 1]                                           # (Ld, 3, 6)
-    r1 = r_t[:, 1]
-    H11 = lie.einsum("lba,l,lbc->lac", JL1, w, JL1)           # (Ld, 6, 6)
-    g1 = lie.einsum("lba,l,lb->la", JL1, w, r1)
-    H11_obj = lie.einsum("lac,lj->jac", H11, onehot)
-    g1_obj = lie.einsum("la,lj->ja", g1, onehot)
+    JL1 = J_L[..., 1, :, :]                                   # (Ld, 3, 6)
+    r1 = r_t[..., 1, :]
+    H11 = lie.einsum("...lba,...l,...lbc->...lac", JL1, w, JL1)           # (Ld, 6, 6)
+    g1 = lie.einsum("...lba,...l,...lb->...la", JL1, w, r1)
+    H11_obj = lie.einsum("...lac,...lj->...jac", H11, onehot)
+    g1_obj = lie.einsum("...la,...lj->...ja", g1, onehot)
 
     # J_{L_0} = -J_{L_1}: blocks (0,0) = H, (1,1) = H, (0,1) = (1,0) = -H
     S0, S1 = (_slot_index(F, J, f, dev) for f in range(2))

@@ -152,8 +152,8 @@ def frontend_step(
                or (params.use_stereo_track and inputs.right is not None)
                or (params.use_imu and inputs.imu_samples is not None)):
         raise NotImplementedError(
-            "frontend_step with a batch axis (ROADMAP item 17) runs the provided flow only: KLT, "
-            "mask propagation, stereo and the IMU are not batched yet"
+            "frontend_step with a batch axis runs the provided flow only: KLT, mask propagation, "
+            "stereo and the IMU are not batched yet (ROADMAP item 21)"
         )
     # KLT mode: equalize the new frame once and carry it as prev_gray; the
     # LK pair is equalized, detection stays on the raw gray

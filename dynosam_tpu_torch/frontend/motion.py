@@ -95,7 +95,7 @@ def solve_camera_pose(
     data = {"p_w": pts_world, "uv": uv_k, "p_c": pts_cam_k}
     if nb and R_known is not None:
         raise NotImplementedError("the known-rotation camera solve (IMU prior) is not batched yet "
-                                  "(ROADMAP item 17)")
+                                  "(ROADMAP item 21)")
 
     if R_known is None:
         def solve_fn(s):

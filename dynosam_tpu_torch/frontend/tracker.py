@@ -172,8 +172,8 @@ def track_frame(
     not_first = ~first_frame[..., None]
     if nb and not (tp.prefer_provided_optical_flow and tp.prefer_provided_object_detection):
         raise NotImplementedError(
-            "track_frame with a batch axis (ROADMAP item 17) runs the provided flow and object "
-            "ids only: KLT and the ByteTrack relabelling are not batched yet"
+            "track_frame with a batch axis runs the provided flow and object ids only: KLT and "
+            "the ByteTrack relabelling are not batched yet (ROADMAP item 21)"
         )
 
     def in_bounds(uv):

@@ -1,5 +1,6 @@
-"""Read the committed flax YOLOv8-seg checkpoint and map it onto the port's
-module (nn/yolov8.py).
+"""Read the committed flax YOLOv8-seg checkpoint, or an ultralytics
+YOLOv8-seg state_dict (`load_ultralytics_weights`), and map it onto the
+port's module (nn/yolov8.py).
 
 The checkpoint (`dynosam_tpu/nn/checkpoints/yolov8t_seg_synth.msgpack`) is
 what `flax.serialization.to_bytes` wrote: a msgpack map of maps whose leaves
@@ -19,6 +20,7 @@ weight/bias/running_mean/running_var.
 from __future__ import annotations
 
 import json
+import os
 import struct
 
 import numpy as np
@@ -161,3 +163,86 @@ def load_flax_checkpoint(path: str):
             sd[k] = v
     model.load_state_dict(sd, strict=True)
     return model.eval(), meta
+
+
+# ---------------------------------------------------------------------------
+# ultralytics YOLOv8-seg state dicts
+# ---------------------------------------------------------------------------
+
+# the port's module name -> ultralytics layer index (yolov8-seg.yaml: 0-9
+# backbone, 12 / 15 FPN C2f, 16-21 PAN, 22 the Segment head)
+_BLOCK_MAP = {
+    "b0": 0, "b1": 1, "b2": 2, "b3": 3, "b4": 4,
+    "b5": 5, "b6": 6, "b7": 7, "b8": 8, "b9": 9,
+    "n12": 12, "n15": 15, "n16": 16, "n18": 18, "n19": 19, "n21": 21,
+}
+_HEAD = "model.22"
+# the Segment head's branches: the port's box / cls / m -> ultralytics' cv2 / cv3 / cv4
+_BRANCHES = {"box": "cv2", "cls": "cv3", "m": "cv4"}
+
+
+def _ultralytics_names(model) -> dict:
+    """{ultralytics state_dict name: the port's state_dict name} of every
+    tensor of the port's YoloV8Seg, BatchNorm counters included. The two
+    networks' tensors have the same layout (both are torch modules; the
+    proto upsample is a ConvTranspose2d in both), so the map is by name
+    only."""
+    names = {}
+    for ours in model.state_dict():
+        head, rest = ours.split(".", 1)
+        if head in _BLOCK_MAP:
+            parts = rest.split(".")
+            if parts[0].startswith("m") and parts[0][1:].isdigit():   # C2f bottleneck m{i}
+                parts = ["m", parts[0][1:]] + parts[1:]
+            names[f"model.{_BLOCK_MAP[head]}." + ".".join(parts)] = ours
+        elif head == "proto":
+            names[f"{_HEAD}.proto.{rest}"] = ours
+        else:                                     # box{l}_{k}, cls{l}_{k}, m{l}_{k}
+            branch, lvl, k = head[:-3], head[-3], head[-1]
+            names[f"{_HEAD}.{_BRANCHES[branch]}.{lvl}.{k}.{rest}"] = ours
+    return names
+
+
+def ultralytics_state_dict(model) -> dict:
+    """The port's YoloV8Seg weights under ultralytics' names (what
+    `model.model.state_dict()` of an ultralytics YOLOv8-seg holds), plus
+    the head's fixed DFL convolution."""
+    sd = model.state_dict()
+    out = {u: sd[ours].detach().clone() for u, ours in _ultralytics_names(model).items()}
+    out[f"{_HEAD}.dfl.conv.weight"] = torch.arange(model.reg_max, dtype=torch.float32).view(1, -1, 1, 1)
+    return out
+
+
+def load_ultralytics_weights(state_dict_or_path, num_classes: int = 80, scale: str = "n", device="cuda"):
+    """A YoloV8Seg (eval mode, on `device`) holding an ultralytics
+    YOLOv8-seg state_dict: a dict of tensors or arrays, or the path of a
+    `torch.save`d one (read with weights_only=True). A full ultralytics .pt
+    pickles its Model class and cannot be read without that package:
+    export `torch.save(model.model.state_dict(), path)` first. Names with
+    the wrapping Model's `model.model.` prefix are accepted. The DFL
+    convolution's fixed weight is not a parameter of the port's head and
+    is ignored. Every tensor of the network must be present, with its
+    shape."""
+    from dynosam_tpu_torch.nn import yolov8
+
+    sd = state_dict_or_path
+    if isinstance(sd, (str, bytes, os.PathLike)):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+    if any(k.startswith("model.model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    model = yolov8.YoloV8Seg(num_classes=num_classes, scale=scale)
+    ours = model.state_dict()
+    mapped = {}
+    for u, name in _ultralytics_names(model).items():
+        if u not in sd:
+            if name.endswith("num_batches_tracked"):
+                mapped[name] = ours[name]
+                continue
+            raise KeyError(f"ultralytics tensor {u} (the port's {name}) is missing")
+        v = sd[u]
+        v = v.detach() if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        if tuple(v.shape) != tuple(ours[name].shape):
+            raise ValueError(f"{u}: shape {tuple(v.shape)}, the port's {name} is {tuple(ours[name].shape)}")
+        mapped[name] = v.to(ours[name].dtype)
+    model.load_state_dict(mapped, strict=True)
+    return model.eval().to(device)

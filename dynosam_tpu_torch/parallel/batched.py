@@ -1,13 +1,15 @@
 """The fused per-frame SLAM step and its multi-sequence batch (port of
-`init_pipeline_state`, the sequential route of `make_fused_step` and
-`make_batched_pipeline` in dynosam_tpu/parallel/batched.py).
+`init_pipeline_state`, `make_fused_step` and `make_batched_pipeline` in
+dynosam_tpu/parallel/batched.py).
 
 One call runs frontend(k) -> window advance when the window is full ->
 backend ingestion -> the formulation's optimizer on the window through k,
-and returns the new state and the frame's outputs. The formulation is
-backend_updater_enum: 0 WCME, 1 WCPE, 2 or 3 hybrid (decoupled or joint).
-The window fill is the host integer `GraphState.num_frames`, so the
-reference's `lax.cond` on it (batched.py:108-112) is a Python branch here.
+and returns the new state and the frame's outputs; the pipelined step
+optimizes the window through k-1 before the advance and ingestion. The
+formulation is backend_updater_enum: 0 WCME, 1 WCPE, 2 or 3 hybrid
+(decoupled or joint). The window fill is the host integer
+`GraphState.num_frames`, so the reference's `lax.cond` on it
+(batched.py:108-112) is a Python branch here.
 
 `make_batched_pipeline` steps B sequences as one program: every module on
 the path takes a leading batch axis, so each operation runs once for the
@@ -71,41 +73,65 @@ def _incremental(cfg: DynoConfig) -> DynoConfig:
     return dataclasses.replace(cfg, backend=bcfg)
 
 
+def _formulation(bcfg):
+    """(advance, ingestion, optimizer) of backend_updater_enum: 0 WCME,
+    1 WCPE, 2 or 3 hybrid (decoupled or joint)."""
+    enum = bcfg.backend_updater_enum
+    if enum in (2, 3):
+        return window_mod.advance_hybrid, graph_mod.update_from_packet_hybrid, hybrid_mod.optimize
+    if enum == 1:
+        return window_mod.advance_wcpe, wcpe_mod.update_from_packet_wcpe, wcpe_mod.optimize
+    if enum == 0:
+        return window_mod.advance, graph_mod.update_from_packet, solver.optimize
+    raise ValueError(f"backend_updater_enum={enum}: 0, 1, 2 or 3")
+
+
+def _backend_step(cfg: DynoConfig, pipelined: bool):
+    """backend(g, packet, intr) -> g: the window advance when the window
+    is full, the packet's ingestion and the formulation's optimizer, in the
+    sequential order (optimize the window through the packet's frame) or,
+    pipelined, the reference's order: optimize the window through the
+    previous frame, then advance and ingest."""
+    bcfg = cfg.backend
+    advance_fn, update_fn, optimize_fn = _formulation(bcfg)
+
+    def advance_if_full(g):
+        return advance_fn(g, bcfg) if g.num_frames >= bcfg.max_frames else g
+
+    if pipelined:
+        def backend(g, packet, intr):
+            g = advance_if_full(optimize_fn(g, bcfg))
+            return update_fn(g, packet, intr, bcfg)
+    else:
+        def backend(g, packet, intr):
+            g = update_fn(advance_if_full(g), packet, intr, bcfg)
+            return optimize_fn(g, bcfg)
+    return backend
+
+
 def make_fused_step(
     cfg: DynoConfig,
     intr: cam.CameraIntrinsics,
     generator: Optional[torch.Generator] = None,
+    pipelined: bool = False,
 ):
     """Returns step(state, inputs) -> (state, outputs). RANSAC draws from
-    `generator`, which must live on the frames' device."""
+    `generator`, which must live on the frames' device.
+
+    pipelined=True is the reference's software-pipelined step: frontend(k),
+    then the optimizer on the window through frame k-1 (which does not
+    depend on frame k's images), then the advance if the window is full,
+    then frame k's ingestion; its outputs are read before frame k's window
+    is optimized. The default is the sequential order."""
     cfg = _incremental(cfg)
-    bcfg = cfg.backend
-    enum = bcfg.backend_updater_enum
-    if enum not in (0, 1, 2, 3):
-        raise ValueError(f"backend_updater_enum={enum}: 0, 1, 2 or 3")
-    F = bcfg.max_frames
-    if enum in (2, 3):
-        advance_fn = window_mod.advance_hybrid
-        update_fn = graph_mod.update_from_packet_hybrid
-        optimize_fn = hybrid_mod.optimize
-    elif enum == 1:
-        advance_fn = window_mod.advance_wcpe
-        update_fn = wcpe_mod.update_from_packet_wcpe
-        optimize_fn = wcpe_mod.optimize
-    else:
-        advance_fn = window_mod.advance
-        update_fn = graph_mod.update_from_packet
-        optimize_fn = solver.optimize
+    enum = cfg.backend.backend_updater_enum
+    backend = _backend_step(cfg, pipelined)
 
     def step(state: PipelineState, inputs: FrameInputs):
         fe_state, packet = frontend_step(
             state.frontend, inputs, intr, cfg.frontend, generator
         )
-        g = state.graph
-        if g.num_frames >= F:
-            g = advance_fn(g, cfg.backend)
-        g = update_fn(g, packet, intr, cfg.backend)
-        g = optimize_fn(g, cfg.backend)
+        g = backend(state.graph, packet, intr)
         return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet, enum)
 
     return step
@@ -124,9 +150,9 @@ def _outputs(g: GraphState, packet, enum: int):
         H_ok = g.H_valid[..., latest] & (g.H_valid[..., prev] | (g.kf_slot == prev)) & (latest > 0)
     elif enum == 1:
         H_out = wcpe_mod.f2f_motion(g, latest)
-        H_ok = g.H_valid[:, latest] & g.H_valid[:, prev] & (latest > 0)
+        H_ok = g.H_valid[..., latest] & g.H_valid[..., prev] & (latest > 0)
     else:
-        H_out, H_ok = g.H[:, latest], g.H_valid[:, latest]
+        H_out, H_ok = g.H[..., latest, :, :], g.H_valid[..., latest]
     return {
         "X_world_cam": g.X[..., latest, :, :],
         "object_ids": g.obj_ids,
@@ -146,16 +172,11 @@ def _map_tensors(fn, obj):
 
 
 def _refuse_unbatched(cfg: DynoConfig):
-    """NotImplementedError for a configuration the batched modules do not
-    run yet: they cover the provided-flow frontend and the decoupled hybrid
-    backend."""
-    bcfg, fp = cfg.backend, cfg.frontend
+    """NotImplementedError for a frontend mode the batched modules do not
+    run yet (ROADMAP item 21); every backend formulation runs batched."""
+    fp = cfg.frontend
     tp = fp.tracker
     why = []
-    if bcfg.backend_updater_enum not in (2, 3):
-        why.append(f"backend_updater_enum={bcfg.backend_updater_enum} (WCME 0 and WCPE 1)")
-    elif not bcfg.decoupled_object_solve:
-        why.append("the joint hybrid solve (decoupled_object_solve off)")
     if not tp.prefer_provided_optical_flow:
         why.append("KLT tracking")
     if not tp.prefer_provided_object_detection:
@@ -164,8 +185,8 @@ def _refuse_unbatched(cfg: DynoConfig):
         why.append("the IMU")
     if why:
         raise NotImplementedError(
-            "make_batched_pipeline: " + ", ".join(why) + " not batched yet (ROADMAP item 17 "
-            "batched the provided-flow frontend and the decoupled hybrid backend)"
+            "make_batched_pipeline: " + ", ".join(why) + " not batched yet (ROADMAP item 21: "
+            "the batched frontend runs the provided flow only)"
         )
 
 
@@ -185,14 +206,20 @@ def make_batched_pipeline(
     draws the whole batch's uniforms from the one `generator` (on the
     frames' device). The sequences step in lockstep, so the window fill
     stays one host integer, `GraphState.num_frames`, as the reference's
-    sequences advance together under vmap.
+    sequences advance together under vmap. Every formulation runs batched
+    (backend_updater_enum 0 WCME, 1 WCPE, 2 or 3 hybrid, decoupled or
+    joint), dispatched as make_fused_step dispatches.
 
     The reference's `mesh=` argument, which shards the sequence axis over a
-    device mesh, has no counterpart on one GPU and is not taken. Stereo,
-    the IMU, KLT, mask propagation, the detector and the backends other
-    than the decoupled hybrid raise NotImplementedError."""
+    device mesh, has no counterpart on one GPU and is not taken. KLT, the
+    IMU and the detector's ByteTrack relabelling raise NotImplementedError
+    here, and the step raises it on frames carrying a right image (stereo)
+    (ROADMAP item 21); mask propagation never runs, as the reference's
+    batch is built without an image shape."""
     cfg = _incremental(cfg)
     _refuse_unbatched(cfg)
+    enum = cfg.backend.backend_updater_enum
+    backend = _backend_step(cfg, pipelined=False)
 
     def init_fn(B: int, device="cuda") -> PipelineState:
         one = init_pipeline_state(cfg, device)
@@ -206,11 +233,7 @@ def make_batched_pipeline(
                 f"{tuple(inputs.rgb.shape)} must share one leading batch axis"
             )
         fe_state, packet = frontend_step(states.frontend, inputs, intr, cfg.frontend, generator)
-        g = states.graph
-        if g.num_frames >= cfg.backend.max_frames:
-            g = window_mod.advance_hybrid(g, cfg.backend)
-        g = graph_mod.update_from_packet_hybrid(g, packet, intr, cfg.backend)
-        g = hybrid_mod.optimize_decoupled(g, cfg.backend)
-        return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet, 3)
+        g = backend(states.graph, packet, intr)
+        return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet, enum)
 
     return step, init_fn

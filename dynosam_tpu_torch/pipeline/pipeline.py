@@ -24,7 +24,7 @@ import dataclasses
 import os
 import queue
 import threading
-from typing import Iterable, Iterator, List, Optional
+from typing import Callable, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -256,7 +256,10 @@ class DynoPipeline:
         self,
         frames: Iterable[FrameInputs],
         gts: Optional[Iterable[Optional[GroundTruthFrame]]] = None,
+        on_frame: Optional[Callable[[FrameInputs, VisionPacket], None]] = None,
     ) -> List[BackendOutput]:
+        """Process every frame, then finish. `on_frame(inputs, packet)`, when
+        given, is called after each frame with its frontend packet."""
         it: Iterator = _timed_decode(frames)
         if self.cfg.pipeline.parallel_run:
             it = _prefetch(it, self.cfg.pipeline.data_provider_prefetch, self.device)
@@ -265,6 +268,8 @@ class DynoPipeline:
         for inputs in it:
             gt = next(gts_it) if gts_it is not None else None
             self.process_frame(inputs, gt)
+            if on_frame is not None:
+                on_frame(inputs, self.last_packet)
         t.stop()
         self.finish()
         return self.outputs

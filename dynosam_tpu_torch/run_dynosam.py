@@ -20,6 +20,13 @@ Examples:
   python -m dynosam_tpu_torch.run_dynosam --dataset_type 100 --frames 16 \\
       --params_path params/default.yaml --override opt_window_size=12
 
+  # tracking images, the trajectory plot and a Motion-JPEG AVI under
+  # <output_path>/viz; the detector from an ultralytics YOLOv8-seg
+  # state_dict (torch.save(model.model.state_dict(), "yolov8n-seg-sd.pt"))
+  python -m dynosam_tpu_torch.run_dynosam --dataset_type 0 \\
+      --dataset_path tests/fixtures/kitti_fixture --viz \\
+      --use_detector --detector_weights yolov8n-seg-sd.pt
+
 With no --flags or --params_path the configuration is the reference's
 default (WCME, sliding window); params/backend.flags selects the hybrid
 backend.
@@ -81,8 +88,12 @@ def open_dataset(dataset_type: int, dataset_path: Optional[str], frames: Optiona
 
 
 def build_pipeline(cfg: DynoConfig, intr, output_path: str, name: str = "dynosam_tpu",
-                   use_detector: bool = False, device="cuda", seed: int = 0):
-    """The DynoPipeline of a run, logging under `output_path`."""
+                   use_detector: bool = False, device="cuda", seed: int = 0,
+                   detector_weights: Optional[str] = None):
+    """The DynoPipeline of a run, logging under `output_path`. The detector
+    is the committed checkpoint's, or with `detector_weights` an
+    ultralytics YOLOv8-seg state_dict (80 classes, scale n, as the
+    reference's loader defaults)."""
     from dynosam_tpu_torch.pipeline.pipeline import DynoPipeline
 
     os.makedirs(output_path, exist_ok=True)
@@ -90,7 +101,12 @@ def build_pipeline(cfg: DynoConfig, intr, output_path: str, name: str = "dynosam
     if use_detector:
         from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
 
-        detector = YoloV8DetectorEngine(input_hw=(intr.height, intr.width), device=device)
+        model = None
+        if detector_weights:
+            from dynosam_tpu_torch.nn.weights import load_ultralytics_weights
+
+            model = load_ultralytics_weights(detector_weights, device=device)
+        detector = YoloV8DetectorEngine(model, input_hw=(intr.height, intr.width), device=device)
         cfg = cfg.with_overrides({"frontend.tracker.prefer_provided_object_detection": False})
     return DynoPipeline(cfg, intr, output_path=output_path, module_name=name,
                         detector=detector, device=device, seed=seed)
@@ -98,17 +114,36 @@ def build_pipeline(cfg: DynoConfig, intr, output_path: str, name: str = "dynosam
 
 def run(cfg: DynoConfig, dataset_type: int, dataset_path: Optional[str], output_path: str,
         frames: Optional[int] = None, name: str = "dynosam_tpu", use_detector: bool = False,
-        device="cuda", dataset_kwargs: Optional[dict] = None):
+        device="cuda", dataset_kwargs: Optional[dict] = None, viz: bool = False,
+        detector_weights: Optional[str] = None):
     """Run the pipeline over a dataset, writing the CSV logs and statistics
-    under `output_path` -> (pipeline, frames processed, wall seconds)."""
+    under `output_path` -> (pipeline, frames processed, wall seconds).
+
+    With `viz`, every frame's tracking image goes to `output_path`/viz as
+    it is processed, then the trajectory plot and the Motion-JPEG AVI of
+    the tracking images (pipeline/viz.py; the reference draws tracking
+    images only for its synthetic scene)."""
     intr, frame_it, gt_it, n = open_dataset(
         dataset_type, dataset_path, frames, cfg.backend.max_objects, device, dataset_kwargs
     )
     pipe = build_pipeline(cfg, intr, output_path, name=name, use_detector=use_detector,
-                          device=device)
+                          device=device, detector_weights=detector_weights)
+    writer = on_frame = None
+    if viz:
+        from dynosam_tpu_torch.pipeline.viz import DisplayWriter
+
+        writer = DisplayWriter(output_path)
+        on_frame = lambda inputs, packet: writer.write_tracking(inputs.rgb, packet)  # noqa: E731
     t0 = time.perf_counter()
-    pipe.run(frame_it, gt_it)
-    return pipe, n, time.perf_counter() - t0
+    pipe.run(frame_it, gt_it, on_frame=on_frame)
+    dt = time.perf_counter() - t0
+    if not viz:
+        return pipe, n, dt
+    writer.write_trajectory(pipe.trajectory, None)
+    video = writer.write_video()
+    if video:
+        print(f"wrote {video}")
+    return pipe, n, dt
 
 
 def main(argv=None):
@@ -128,27 +163,23 @@ def main(argv=None):
     ap.add_argument("--name", default="dynosam_tpu", help="module/log prefix")
     ap.add_argument("--frames", type=int, default=None, help="limit frames")
     ap.add_argument("--run_analysis", action="store_true")
-    ap.add_argument("--viz", action="store_true", help="dump tracking images")
+    ap.add_argument("--viz", action="store_true",
+                    help="dump tracking images, the trajectory plot and a Motion-JPEG AVI to "
+                    "<output_path>/viz")
     ap.add_argument("--use_detector", action="store_true",
                     help="run the YOLOv8-seg engine (the committed checkpoint) instead of "
                     "dataset masks (prefer_provided_object_detection=false)")
     ap.add_argument("--detector_weights", default=None,
-                    help="ultralytics state_dict .pt for the detector")
+                    help="ultralytics YOLOv8-seg state_dict .pt for the detector (with --use_detector)")
     ap.add_argument("--device", default="cuda", help="torch device of the pipeline")
     args = ap.parse_args(argv)
-    if args.viz:
-        raise NotImplementedError("--viz: pipeline/viz.py is not ported (ROADMAP.md queue 1, item 18)")
-    if args.detector_weights:
-        raise NotImplementedError(
-            "--detector_weights: load_ultralytics_weights is not ported (ROADMAP.md queue 1, item 18)"
-        )
 
     from dynosam_tpu_torch.utils.stats import Statistics
 
     cfg = build_config(args.params_path, args.flags, args.override)
     pipe, n, dt = run(cfg, args.dataset_type, args.dataset_path, args.output_path,
                       frames=args.frames, name=args.name, use_detector=args.use_detector,
-                      device=args.device,
+                      device=args.device, viz=args.viz, detector_weights=args.detector_weights,
                       dataset_kwargs={k: _parse_value(v) for k, v in
                                       (o.split("=", 1) for o in args.dataset_option)})
     print(f"processed {n} frames in {dt:.2f}s ({n / dt:.1f} FPS incl. host I/O) on {pipe.device}")

@@ -13,18 +13,22 @@ dynosam_tpu_torch/testdata/:
     then the fused step runs on it with ByteTrack relabelling. Per frame: the
     detection table (det_boxes, det_scores, det_classes, det_valid), the
     label image as uint8, and the fused step's outputs as above.
-  * kitti_ref_60f.npz — the host pipeline (DynoPipeline -> RegularBackend,
-    CSV logs, DatasetEvaluator) over the 60 frames of
+  * kitti_ref_30f.npz — the host pipeline (DynoPipeline -> RegularBackend,
+    CSV logs, DatasetEvaluator) over the first 30 of the 60 frames of
     tests/fixtures/kitti_fixture in the three hybrid modes at ACCURACY.md's
     on-disk configuration (dynosam_tpu_torch.bench_config.kitti_accuracy_config).
-    Per mode, RANSAC seed 0: the mature camera poses `<mode>_X` (60, 4, 4)
+    Per mode, RANSAC seed 0: the mature camera poses `<mode>_X` (30, 4, 4)
     and the matured object motions `<mode>_motion_key` (N, 2) [frame id,
     object id] with `<mode>_motion_H` (N, 4, 4). `summary` (mode, seed,
-    field) holds the evaluator's numbers under seeds 0, 1 and 2, and
+    field) holds the evaluator's numbers under seeds 0-5, and
     `seed_spread` (mode, seed, field of `spread_fields`) how far each seed
     lands from seed 0: its poses (largest translation, m, and rotation,
     rad) and its matured motions on the shared keys (largest and median
-    translation, m).
+    translation, m). The other seeds' runs are kept too, as
+    `<mode>_seed<s>_X`, `_motion_key` and `_motion_H`: where an LM
+    accept/reject decision lies within f32 rounding, seeds take either
+    branch (full-batch seed 3 at frame 26's warm start, sliding-window seed
+    5 at frame 29), and the port must land on one of the runs.
   * bench_klt_ref_20f.npz — the KLT path: the fused step at bench_config()
     tracking by KLT on CLAHE-equalized frames (prefer_provided_optical_flow
     False) over the first 20 frames of bench.make_frames(world_texture=True).
@@ -45,7 +49,7 @@ dynosam_tpu_torch/testdata/:
   * kitti_forms_ref_60f.npz (--only forms) — the host pipeline over the 60
     fixture frames in incremental mode with the WCME and WCPE backends at
     ACCURACY.md's on-disk configuration (scripts/accuracy_report.py
-    run_config_dataset), RANSAC seeds 0, 1 and 2, keys as kitti_ref_60f.npz
+    run_config_dataset), RANSAC seeds 0, 1 and 2, keys as kitti_ref_30f.npz
     with the formulation ("wcme", "wcpe") in place of the mode. This part
     builds its configurations from the JAX package alone.
   * bench_batched_ref_b8_20f.npz (--only batched) — the batched step
@@ -53,6 +57,14 @@ dynosam_tpu_torch/testdata/:
     keys) at bench.bench_config() over B=8 sequences of one 27-frame bench
     scene, sequence b taking frames b .. b+19: the window fills and then
     advances 10 times. Keys as bench_ref_20f.npz, each (frames, B, ...).
+  * bench_batched_{wcme,wcpe,joint}_ref_b8_20f.npz (--only batched_forms) —
+    the same batched run with the WCME (backend_updater_enum 0) and WCPE
+    (1) backends and the joint hybrid solve (decoupled_object_solve off),
+    keys as bench_batched_ref_b8_20f.npz.
+  * bench_pipelined_ref_20f.npz (--only pipelined) — the pipelined fused
+    step (make_fused_step(..., pipelined=True), jitted) at
+    bench.bench_config() over the 20 bench frames, keys as
+    bench_ref_20f.npz.
 
   * datasets_ref_12f.npz (--only datasets) — the host pipeline at the port's
     real-io configuration (bench_config.kitti_real_io_config(): hybrid
@@ -64,7 +76,7 @@ dynosam_tpu_torch/testdata/:
     bench_config.dataset_frames(name) frames (12; VIODE and Aria 10),
     RANSAC seed 0. Per format `<name>_X` (frames, 4, 4) mature
     camera poses and `<name>_motion_key` / `<name>_motion_H` the matured
-    object motions, as kitti_ref_60f.npz.
+    object motions, as kitti_ref_30f.npz.
   * det_heldout_ref_48.npz (--only heldout) — the committed detector
     checkpoint's held-out evaluation (scripts/train_detector.py eval_iou:
     48 scenes of random_scene from np.random.default_rng(10_000), the JAX
@@ -75,7 +87,7 @@ dynosam_tpu_torch/testdata/:
     missed_rate; and the checkpoint's sidecar numbers as json_*.
 
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
-    [--only bench|detector|kitti|klt|stereo_imu|forms|batched|datasets|heldout]
+    [--only bench|detector|kitti|klt|stereo_imu|forms|batched|batched_forms|pipelined|datasets|heldout]
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
 after it; the forms files' CPU time is in CHANGES.md)
@@ -104,11 +116,13 @@ STEREO_IMU_FRAMES = 12
 STEREO_IMU_OUT = os.path.join(TESTDATA, "stereo_imu_ref_12f.npz")
 IMU_SAMPLES = 32
 DEPTH_CORRUPTION = 1.15
-KITTI_OUT = os.path.join(TESTDATA, "kitti_ref_60f.npz")
+KITTI_FRAMES = 30             # the three hybrid modes (chip_smoke.py phase 9)
+KITTI_OUT = os.path.join(TESTDATA, f"kitti_ref_{KITTI_FRAMES}f.npz")
 KITTI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "kitti_fixture")
-KITTI_FRAMES = 60
+KITTI_FORMS_FRAMES = 60       # the WCME / WCPE fixture runs (phase 10)
 KITTI_MODES = ("incremental", "sliding_window", "full_batch")
 KITTI_SEEDS = (0, 1, 2)
+KITTI_30F_SEEDS = (0, 1, 2, 3, 4, 5)
 KITTI_SUMMARY_FIELDS = ("ate_unaligned_m", "ate_rot_rad", "ame_rms_m", "ame_median_m", "n_motions")
 KITTI_SPREAD_FIELDS = ("pose_m", "pose_rad", "motion_max_m", "motion_median_m")
 KEYS = ("X_world_cam", "object_ids", "object_motions", "object_motion_valid")
@@ -118,6 +132,7 @@ FORMS_KITTI = {"wcme": 0, "wcpe": 1}
 KITTI_FORMS_OUT = os.path.join(TESTDATA, "kitti_forms_ref_60f.npz")
 BATCHED_B = 8
 BATCHED_OUT = os.path.join(TESTDATA, "bench_batched_ref_b8_20f.npz")
+PIPELINED_OUT = os.path.join(TESTDATA, "bench_pipelined_ref_20f.npz")
 DATASETS_OUT = os.path.join(TESTDATA, "datasets_ref_12f.npz")
 HELDOUT_OUT = os.path.join(TESTDATA, "det_heldout_ref_48.npz")
 HELDOUT_SCENES = 48
@@ -163,19 +178,37 @@ def bench_reference():
     _save(BENCH_OUT, _run(step, init_pipeline_state(cfg), frames), t0)
 
 
-def batched_reference():
+def pipelined_reference():
+    import jax
+
+    import bench
+    from dynosam_tpu.parallel.batched import init_pipeline_state, make_fused_step
+
+    t0 = time.time()
+    cfg, intr = bench.bench_config()
+    frames = bench.make_frames(intr, num_frames=BENCH_FRAMES)
+    step = jax.jit(make_fused_step(cfg, intr, pipelined=True))
+    _save(PIPELINED_OUT, _run(step, init_pipeline_state(cfg), frames), t0)
+
+
+def batched_reference(forms=False):
+    """The batched step over B=8 sequences: the bench's hybrid backend, or
+    with `forms` each of FORMS_BENCH in its own file."""
     import jax
     import jax.numpy as jnp
 
     import bench
     from dynosam_tpu.parallel.batched import make_batched_pipeline
 
-    t0 = time.time()
-    cfg, intr = bench.bench_config()
+    cfg0, intr = bench.bench_config()
     frames = bench.make_frames(intr, num_frames=BENCH_FRAMES + BATCHED_B - 1)
-    step, init = make_batched_pipeline(cfg, intr)
     stacked = [jax.tree.map(lambda *x: jnp.stack(x), *frames[k:k + BATCHED_B]) for k in range(BENCH_FRAMES)]
-    _save(BATCHED_OUT, _run(step, init(BATCHED_B), stacked), t0)
+    runs = ([(os.path.join(TESTDATA, f"bench_batched_{name}_ref_b8_20f.npz"), cfg0.with_overrides(over))
+             for name, over in FORMS_BENCH.items()] if forms else [(BATCHED_OUT, cfg0)])
+    for path, cfg in runs:
+        t0 = time.time()
+        step, init = make_batched_pipeline(cfg, intr)
+        _save(path, _run(step, init(BATCHED_B), stacked), t0)
 
 
 def _klt_cfg(**overrides):
@@ -403,10 +436,10 @@ def _rot_angle(R, R_ref):
     return np.arcsin(np.clip(np.linalg.norm(w, axis=-1), 0.0, 1.0))
 
 
-def _kitti_runs(runs, out_path, t0):
-    """The host pipeline over the fixture for each (name, JAX DynoConfig) of
-    `runs` under KITTI_SEEDS -> out_path, the keys of kitti_ref_60f.npz
-    with `name` in place of the mode."""
+def _kitti_runs(runs, out_path, t0, frames, seeds=KITTI_SEEDS):
+    """The host pipeline over the first `frames` fixture frames for each
+    (name, JAX DynoConfig) of `runs` under `seeds` -> out_path, the keys
+    of kitti_ref_30f.npz with `name` in place of the mode."""
     import shutil
     import tempfile
 
@@ -418,16 +451,23 @@ def _kitti_runs(runs, out_path, t0):
     from dynosam_tpu.pipeline.pipeline import DynoPipeline
 
     ds = KittiDataProvider(KITTI_FIXTURE)
-    n = min(KITTI_FRAMES, len(ds))
+    n = min(frames, len(ds))
     frames = [ds.frame(k) for k in range(n)]
     gts = [ds.ground_truth(k) for k in range(n)]
     names = [name for name, _ in runs]
-    out = {"modes": np.array(names), "seeds": np.array(KITTI_SEEDS),
+    out = {"modes": np.array(names), "seeds": np.array(seeds),
            "summary_fields": np.array(KITTI_SUMMARY_FIELDS), "spread_fields": np.array(KITTI_SPREAD_FIELDS)}
-    summary = np.zeros((len(runs), len(KITTI_SEEDS), len(KITTI_SUMMARY_FIELDS)))
-    spread = np.zeros((len(runs), len(KITTI_SEEDS), len(KITTI_SPREAD_FIELDS)))
+    summary = np.zeros((len(runs), len(seeds), len(KITTI_SUMMARY_FIELDS)))
+    spread = np.zeros((len(runs), len(seeds), len(KITTI_SPREAD_FIELDS)))
+
+    def keep(prefix, X, motions):
+        keys = sorted(motions)
+        out[f"{prefix}_X"] = X
+        out[f"{prefix}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
+        out[f"{prefix}_motion_H"] = np.stack([motions[k] for k in keys])
+
     for i, (name, jcfg) in enumerate(runs):
-        for s, seed in enumerate(KITTI_SEEDS):
+        for s, seed in enumerate(seeds):
             tmp = tempfile.mkdtemp(prefix="kitti_ref_")
             try:
                 pipe = DynoPipeline(jcfg, ds.intrinsics(), output_path=tmp)
@@ -442,22 +482,20 @@ def _kitti_runs(runs, out_path, t0):
             print(f"  {name} seed {seed}: {summary[i, s].tolist()} ({time.time() - t0:.0f} s)", flush=True)
             X = np.stack(pipe.trajectory).astype(np.float32)
             motions = {k: np.asarray(v, np.float32) for k, v in pipe.backend.matured_motion.items()}
-            if seed == 0:
-                keys = sorted(motions)
-                out[f"{name}_X"] = X
-                out[f"{name}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
-                out[f"{name}_motion_H"] = np.stack([motions[k] for k in keys])
+            if s == 0:
+                keep(name, X, motions)
                 X0, motions0 = X, motions
-            else:
-                # how far another seed lands from seed 0: poses (m, rad),
-                # matured motions on the shared keys (largest, median m)
-                common = sorted(set(motions) & set(motions0))
-                mot = [np.linalg.norm(motions[k][:3, 3] - motions0[k][:3, 3]) for k in common]
-                spread[i, s] = [
-                    np.linalg.norm(X[:, :3, 3] - X0[:, :3, 3], axis=-1).max(),
-                    _rot_angle(X[:, :3, :3], X0[:, :3, :3]).max(),
-                    max(mot), float(np.median(mot)),
-                ]
+                continue
+            keep(f"{name}_seed{seed}", X, motions)
+            # how far another seed lands from seed 0: poses (m, rad),
+            # matured motions on the shared keys (largest, median m)
+            common = sorted(set(motions) & set(motions0))
+            mot = [np.linalg.norm(motions[k][:3, 3] - motions0[k][:3, 3]) for k in common]
+            spread[i, s] = [
+                np.linalg.norm(X[:, :3, 3] - X0[:, :3, 3], axis=-1).max(),
+                _rot_angle(X[:, :3, :3], X0[:, :3, :3]).max(),
+                max(mot), float(np.median(mot)),
+            ]
     out["summary"] = summary
     out["seed_spread"] = spread
     _save(out_path, out, t0)
@@ -465,10 +503,11 @@ def _kitti_runs(runs, out_path, t0):
 
 def kitti_reference():
     """The host pipeline (DynoPipeline -> RegularBackend -> CSV logs ->
-    DatasetEvaluator) over the committed 60-frame dyno-KITTI fixture, in the
-    three hybrid modes at ACCURACY.md's on-disk configuration, under RANSAC
-    seeds 0, 1 and 2. Seed 0's mature camera poses and matured object
-    motions are kept; every seed's evaluator summary sets the ranges."""
+    DatasetEvaluator) over the first 30 frames of the committed dyno-KITTI
+    fixture, in the three hybrid modes at ACCURACY.md's on-disk
+    configuration, under RANSAC seeds 0-5. Every seed's mature camera
+    poses and matured object motions are kept (the port must land on one of
+    the runs), and every seed's evaluator summary sets the ranges."""
     from dynosam_tpu.config import DynoConfig
     from dynosam_tpu_torch.bench_config import kitti_accuracy_config
 
@@ -476,7 +515,7 @@ def kitti_reference():
     # the port's config of the same values, read by the JAX package
     runs = [(mode, DynoConfig.from_dict(dataclasses.asdict(kitti_accuracy_config(mode, KITTI_FRAMES))))
             for mode in KITTI_MODES]
-    _kitti_runs(runs, KITTI_OUT, t0)
+    _kitti_runs(runs, KITTI_OUT, t0, KITTI_FRAMES, seeds=KITTI_30F_SEEDS)
 
 
 def _jax_kitti_config(formulation: int):
@@ -523,7 +562,8 @@ def forms_reference():
             arrays.update(cov_X=np.asarray(cov_X), cov_H=np.asarray(cov_H))
         _save(os.path.join(TESTDATA, f"bench_{name}_ref_20f.npz"), arrays, t0)
     t0 = time.time()
-    _kitti_runs([(name, _jax_kitti_config(f)) for name, f in FORMS_KITTI.items()], KITTI_FORMS_OUT, t0)
+    _kitti_runs([(name, _jax_kitti_config(f)) for name, f in FORMS_KITTI.items()], KITTI_FORMS_OUT, t0,
+                KITTI_FORMS_FRAMES)
 
 
 def datasets_reference():
@@ -588,12 +628,12 @@ def datasets_reference():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "datasets",
-                                       "heldout"],
+    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched",
+                                       "batched_forms", "pipelined", "datasets", "heldout"],
                     action="append", help="write only these files (default: all)")
     args = ap.parse_args()
-    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "datasets",
-                         "heldout"]
+    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "batched_forms",
+                         "pipelined", "datasets", "heldout"]
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -609,6 +649,10 @@ def main():
         forms_reference()
     if "batched" in todo:
         batched_reference()
+    if "batched_forms" in todo:
+        batched_reference(forms=True)
+    if "pipelined" in todo:
+        pipelined_reference()
     if "datasets" in todo:
         datasets_reference()
     if "heldout" in todo:

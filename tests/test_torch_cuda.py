@@ -254,6 +254,51 @@ def test_fused_step_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4)
 
 
+@pytest.mark.parametrize("over", [{"backend.backend_updater_enum": 0}, {"backend.backend_updater_enum": 1},
+                                  {"backend.decoupled_object_solve": False}], ids=["wcme", "wcpe", "joint"])
+def test_batched_forms_on_the_card_match_the_cpu(cuda, over):
+    """make_batched_pipeline with WCME, WCPE and the joint hybrid solve at
+    B=2 (sequence b on frames b..b+4, a 3-frame window advanced twice) on
+    the card against the same code on the CPU: the batched K1 entry
+    launches once per frame for both sequences, the map entry never, and
+    the camera poses agree at the unbatched fused step's bound (1e-4)."""
+    import dataclasses
+
+    from dynosam_tpu_torch.parallel.batched import make_batched_pipeline
+
+    cfg = DynoConfig(
+        frontend=FrontendParams(max_objects=4, tracker=TrackerParams(
+            max_features_per_frame=128, min_features_per_frame=64,
+            max_dynamic_features_per_frame=128, detection_cell_size=8,
+            min_corner_response=1e-6)),
+        backend=BackendParams(
+            optimization_mode=2, backend_updater_enum=3, max_frames=3, max_objects=4,
+            max_static_landmarks=128, max_dynamic_landmarks=128,
+            optimizer=OptimizerParams(max_iterations=2)),
+    ).with_overrides(over)
+    B, N = 2, 5
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        scene = default_dense_scenario(num_frames=N + B - 1, device=dev)
+        step, init = make_batched_pipeline(cfg, scene.intr, torch.Generator(device=dev).manual_seed(0))
+        state = init(B, dev)
+        launches = (st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches)
+        xs = []
+        for k in range(N):
+            frames = [scene.frame(k + b) for b in range(B)]
+            stacked = dataclasses.replace(frames[0], **{name: torch.stack([getattr(f, name) for f in frames])
+                                                        for name in frames[0].tensors()})
+            state, out = step(state, stacked)
+            xs.append(out["X_world_cam"].cpu().numpy())
+        outs[dev] = np.stack(xs)
+        assert bool(state.graph.prior_valid.all())
+        if dev == "cuda":
+            assert (st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches) == (
+                launches[0] + N, launches[1])
+    # noise-free scene: RANSAC's outcome does not depend on the draws
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4)
+
+
 def test_tracker_batch_launches_the_batched_entry_once(cuda):
     """The tracker's detection at B=8 (bench width, cell 16) is one launch
     of the kernel's blockIdx.z entry, and its per-cell results equal eight

@@ -298,13 +298,29 @@ def test_chunked_optimize(runs, chunk_state):
 
 
 def test_unbatched_configurations_raise(runs):
-    """The batched step refuses what its modules do not batch yet."""
+    """The batched step refuses the frontend modes its modules do not batch
+    yet, naming ROADMAP item 21: KLT, the detector's ByteTrack relabelling
+    and the IMU when it is built; stereo (frames carrying a right image)
+    and mask propagation (a state carrying the previous mask) when a
+    batched frontend step meets them. Every backend formulation runs."""
     cfg = runs["tcfg"]
-    intr = runs["td"].intr
-    for over in ({"backend.backend_updater_enum": 0}, {"backend.backend_updater_enum": 1},
-                 {"backend.decoupled_object_solve": False},
-                 {"frontend.tracker.prefer_provided_optical_flow": False},
+    td = runs["td"]
+    for over in ({"frontend.tracker.prefer_provided_optical_flow": False},
                  {"frontend.tracker.prefer_provided_object_detection": False},
                  {"frontend.use_imu": True}):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            tbatched.make_batched_pipeline(cfg.with_overrides(over), intr)
+        with pytest.raises(NotImplementedError, match="item 21"):
+            tbatched.make_batched_pipeline(cfg.with_overrides(over), td.intr)
+    for over in ({"backend.backend_updater_enum": 0}, {"backend.backend_updater_enum": 1},
+                 {"backend.decoupled_object_solve": False}):
+        tbatched.make_batched_pipeline(cfg.with_overrides(over), td.intr)
+
+    from dynosam_tpu_torch.frontend.frontend import empty_frontend_state, frontend_step
+
+    frames = _stack_frames([td.frame(0), td.frame(1)])
+    one = empty_frontend_state(cfg.frontend, "cpu", image_shape=tuple(frames.rgb.shape[1:3]))
+    batched = tbatched._map_tensors(lambda x: x.expand((2,) + x.shape).clone(), one)
+    with pytest.raises(NotImplementedError, match="item 21"):    # mask propagation
+        frontend_step(batched, frames, td.intr, cfg.frontend)
+    state = runs["tinit"](2, "cpu").frontend
+    with pytest.raises(NotImplementedError, match="item 21"):    # stereo
+        frontend_step(state, dataclasses.replace(frames, right=frames.rgb), td.intr, cfg.frontend)

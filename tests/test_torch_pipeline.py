@@ -276,12 +276,12 @@ def test_static_only_backend_drops_the_objects(providers):
     assert int(st.s_valid.sum()) > 100
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise():
     """What still raises: marginal covariances on WCME and WCPE (the
-    reference exports them for the hybrid formulations only), --viz and
-    --detector_weights (item 18). The other dataset types are ported (item
-    19): ClusterSlam's reader fails on the KITTI fixture for want of its
-    own files.
+    reference exports them for the hybrid formulations only). --viz and
+    --detector_weights run (tests/test_torch_tooling.py). The other dataset
+    types are ported (item 19): ClusterSlam's reader fails on the KITTI
+    fixture for want of its own files.
     Every formulation builds a RegularBackend, and the entry point runs the
     reference's default configuration (WCME) on 2 frames and writes its
     logs."""
@@ -295,11 +295,6 @@ def test_unported_options_raise(tmp_path):
     assert cov_X.shape == (6, 6, 6) and cov_H.shape == (4, 6, 6, 6)
     with pytest.raises(FileNotFoundError, match="optical_flow"):
         trun.open_dataset(2, FIXTURE, 2, 4, "cpu")
-    base = ["--dataset_type", "0", "--dataset_path", FIXTURE, "--device", "cpu", "--frames", "2",
-            "--output_path", str(tmp_path / "x")]
-    for extra in (["--viz"], ["--detector_weights", "w.pt"]):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            trun.main(base + extra)
 
 
 def test_entry_point_runs_the_default_configuration(tmp_path):

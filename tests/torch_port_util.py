@@ -261,13 +261,15 @@ def xla_cholesky(monkeypatch):
     """Make the port's torch.linalg.cholesky_ex factor with XLA's Cholesky
     (through JAX on the CPU), so both sides pass or fail the same
     factorisations: a system at the edge of f32 positive definiteness
-    passes one implementation and fails another."""
+    passes one implementation and fails another. A batch of matrices gets
+    one status per matrix."""
     import jax.numpy as jnp
 
     def cholesky_ex(a, *args, **kw):
         L = np.asarray(jnp.linalg.cholesky(jnp.asarray(a.numpy())))
-        ok = bool(np.isfinite(L).all())
-        return torch.from_numpy(np.array(L)), torch.tensor(0 if ok else 1, dtype=torch.int32)
+        # per matrix of a batch, as torch reports it
+        ok = np.isfinite(L).reshape(L.shape[:-2] + (-1,)).all(-1)
+        return torch.from_numpy(np.array(L)), torch.from_numpy(np.where(ok, 0, 1).astype(np.int32))
 
     monkeypatch.setattr(torch.linalg, "cholesky_ex", cholesky_ex)
 
