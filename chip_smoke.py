@@ -45,12 +45,13 @@ Phases, each printing one line; any failure raises and exits non-zero:
      held to the renderer's ground truth
      and poses + object motions to the JAX reference
      dynosam_tpu_torch/testdata/bench_ref_20f.npz;
-  5b. pipelined path: the same 20 frames through make_fused_step(...,
-     pipelined=True) (the optimizer on the window through the previous frame
-     before the advance and the frame's ingestion, the reference's
-     pipelined order), K1 once per frame, held at the bench path's bounds to
-     the ground truth and to bench_pipelined_ref_20f.npz; device ops, busy
-     time and idle share per advancing frame (torch.profiler over two);
+  5b. pipelined path: the first 12 of those frames (two advancing) through
+     make_fused_step(..., pipelined=True) (the optimizer on the window
+     through the previous frame before the advance and the frame's
+     ingestion, the reference's pipelined order), K1 once per frame, held at
+     the bench path's bounds to the ground truth and to the first 12 frames
+     of bench_pipelined_ref_20f.npz; device ops, busy time and idle share per
+     advancing frame (torch.profiler over two);
   6. KLT path: the fused step at bench_klt_config() (tracking by pyramidal
      KLT with the forward-backward check on CLAHE-equalized frames) over 20
      frames of the world-textured bench scene rendered on the card (the
@@ -146,7 +147,26 @@ Phases, each printing one line; any failure raises and exits non-zero:
      phase writes from the port's own scale-n, 80-class network under
      ultralytics' names (K2's entry B once, detections equal to the same
      network held directly);
-  14. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
+  14. batched modes: make_batched_pipeline at B=8 over 14 frames per
+     sequence (sequence b on scene frames b .. b+13, the window advancing 4
+     times) in the two frontend modes that the reference's vmapped step
+     runs besides the provided ids: (a) bench_config.batched_bytetrack_config()
+     on the bench frames whose mask labels are permuted per frame and per
+     sequence (bench_config.label_permutations, seed 0), ByteTrack
+     restoring identity: object ids equal to
+     bench_batched_bytetrack_ref_b8_14f.npz's in every sequence and frame
+     and each ground-truth object keeping one id; (b)
+     batched_stereo_imu_config() (in-loop stereo, the IMU rotation prior, on
+     the provided flow) on stereo_imu_frame()'s world-textured frames:
+     camera poses and settled motions held to
+     bench_batched_stereo_imu_ref_b8_14f.npz and the static tracks' median
+     relative depth error to the uncorrupted depth. Both: K1b once per frame
+     for all 8 sequences, the map entry never, camera poses to the ground
+     truth, valid track counts to the reference, and ms per advancing
+     frame, aggregate frames/s, device ops, busy time and idle share per
+     advancing frame (torch.profiler over the last frame), K1b's device ms
+     and host syncs with their sites;
+  15. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
      K2 entry A, K2 entry B), with each one's bound (the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates), loop-timed `ms` / `plain_ms` / `library_ms`
@@ -260,6 +280,10 @@ KITTI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "kitti_fixture")
 # and phase 10's fixture runs take all 60
 PIPE_FRAMES = 30
 REAL_IO_FRAMES = 60
+# phase 5b: the pipelined step over the first PIPELINED_FRAMES bench frames
+# (two advancing frames), held to the first PIPELINED_FRAMES of
+# bench_pipelined_ref_20f.npz
+PIPELINED_FRAMES = 12
 FORM_KITTI_FRAMES = 60
 KITTI_MODES = ("incremental", "sliding_window", "full_batch")
 DRAIN_EVERY = 16              # deferred run: drains after frames 16, 32, 48 and at the end
@@ -391,6 +415,40 @@ BATCHED_FORM_BOUNDS = {
 }
 CHUNK_P = 4
 CHUNK_REL = 1e-4
+# batched modes phase: make_batched_pipeline at B=8 over 14 frames (the
+# window fills, then advances 4 times) in the two frontend modes of
+# bench_config, each held to its JAX reference file:
+# bench_batched_bytetrack_ref_b8_14f.npz (the bench frames with each mask's
+# labels permuted per frame and sequence, ByteTrack restoring identity) and
+# bench_batched_stereo_imu_ref_b8_14f.npz (stereo + IMU rotation prior on
+# the provided flow, world-textured, right image, 1.15x depth). ByteTrack's
+# object ids must equal the reference's in every sequence and frame and
+# ground-truth object carry one id in each frame (an object that leaves the
+# view or whose box jumps below the match IoU gets a new id, in the
+# reference too: the phase prints those changes); stereo + IMU's motions
+# are compared where settled. Readings, largest over the 8 sequences, torch
+# on the CPU (4 threads) / the H100:
+#   bytetrack   GT 3.2e-3 / 3.2e-3 m (the reference's own 3.2e-3); JAX ref
+#               1.4e-5 / 2.0e-5 m, 1.7e-7 / 4.9e-7 rad; motions 2.0e-4 /
+#               1.5e-4 m over 119; counts equal; ids equal
+#   stereo_imu  GT 0.578 / 0.578 m (the reference's own 0.578: its 1.15x
+#               depth leaves a scale drift that stereo repairs only in part),
+#               the port 2.4e-3 m past it on the card; JAX ref 1.4e-2 /
+#               4.2e-3 m, 1.1e-4 / 6.4e-4 rad; settled motions 9.9e-3 /
+#               6.4e-3 m over 101; counts within 0 / 0.25%; depth median
+#               relative error 0.077% / 0.077%
+# The bytetrack bounds sit ~5x above the larger reading (the ground truth
+# at the bench path's bounds); stereo_imu's ~3.5-4x, the ground truth past
+# the reference's own error at GT_TRANS_M / GT_ROT_RAD as phase 7's.
+BATCHED_MODES = ("bytetrack", "stereo_imu")
+BATCHED_MODES_B = 8
+BATCHED_MODES_FRAMES = 14
+BATCHED_MODE_BOUNDS = {
+    "bytetrack": {"gt_m": GT_TRANS_M, "gt_rad": GT_ROT_RAD, "ref_m": 1e-4, "ref_rad": 3e-6,
+                  "motion_m": 1e-3, "count_rel": 0.01},
+    "stereo_imu": {"gt_excess_m": GT_TRANS_M, "gt_excess_rad": GT_ROT_RAD, "ref_m": 0.05, "ref_rad": 2.5e-3,
+                   "motion_m": 0.04, "count_rel": 0.01, "depth_relerr": STEREO_DEPTH_RELERR},
+}
 # tooling phase: the entry point with --viz over the first TOOLING_FRAMES
 # fixture frames; each Motion-JPEG frame is its PNG's own JPEG (quality 95)
 # bit for bit, within TOOLING_JPEG_MEAN_LEVELS grey levels of the PNG on
@@ -1063,7 +1121,7 @@ def run_bench_path(torch, seed, ref_path, device="cuda"):
 
 def pipelined_readings(torch, seed, ref_path, device="cuda"):
     """The pipelined fused step (make_fused_step(..., pipelined=True)) at
-    bench_config over the bench frames -> (launches, readings against the
+    bench_config over the first PIPELINED_FRAMES bench frames -> (launches, readings against the
     ground truth and the JAX reference, per-frame host seconds, device ops
     and busy ms per advancing frame (None off the card))."""
     import numpy as np
@@ -1074,26 +1132,27 @@ def pipelined_readings(torch, seed, ref_path, device="cuda"):
     from dynosam_tpu_torch.utils import lie
 
     cfg, intr = bench_config()
-    scene = bench_scene(intr, BENCH_FRAMES, device=device)
+    scene = bench_scene(intr, PIPELINED_FRAMES, device=device)
     frames, X_gt = scene.frames(), scene.scn.X_gt
     step = make_fused_step(cfg, intr, torch.Generator(device=device).manual_seed(seed), pipelined=True)
     held = {"n": 0}
 
     def after(state):
         held["n"] += 1
-        if held["n"] == BENCH_FRAMES - 2:
+        if held["n"] == PIPELINED_FRAMES - 2:
             held["before_last2"] = state
 
     st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
     outs, times = _drive(torch, step, init_pipeline_state(cfg, device), frames, device, after=after)
     launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
-    if device == "cuda" and (launches["K1"], launches["K1 map"]) != (BENCH_FRAMES, 0):
+    if device == "cuda" and (launches["K1"], launches["K1 map"]) != (PIPELINED_FRAMES, 0):
         raise AssertionError(f"pipelined: fused K1 launched {launches['K1']} times and the map entry "
-                             f"{launches['K1 map']} times over {BENCH_FRAMES} frames")
+                             f"{launches['K1 map']} times over {PIPELINED_FRAMES} frames")
     rot, trans = rot_trans_err(torch, lie, torch.stack([o["X_world_cam"] for o in outs]), X_gt)
     rd = {"gt_m": float(trans.max()), "gt_rad": float(rot.max())}
     rd["ref_m"], rd["ref_rad"], rd["n_motions"], rd["motion_m"] = compare_to_reference(
-        torch, lie, outs, np.load(ref_path), device, bounds=(np.inf,) * 3)
+        torch, lie, outs, {k: v[:PIPELINED_FRAMES] for k, v in np.load(ref_path).items()}, device,
+        bounds=(np.inf,) * 3)
     ops = busy = None
     if device == "cuda":
         ops, busy, _ = profile_frames(torch, step, held["before_last2"], frames[-2:])
@@ -1111,11 +1170,11 @@ def run_pipelined_path(torch, seed, ref_path, device="cuda"):
         raise AssertionError(f"pipelined: readings over their bounds (reading, bound): {over}")
     steady = statistics.median(times[10:])
     idle = None if busy is None else 1.0 - busy / (steady * 1e3)
-    say(f"pipelined path: make_fused_step(pipelined=True) over {BENCH_FRAMES} frames of bench_config on "
+    say(f"pipelined path: make_fused_step(pipelined=True) over {PIPELINED_FRAMES} frames of bench_config on "
         f"{device}, fused K1 launches {launches['K1']}, map entry {launches['K1 map']}; camera vs GT max "
         f"{rd['gt_m']:.2e} m / {rd['gt_rad']:.2e} rad; vs JAX ref max {rd['ref_m']:.2e} m / "
         f"{rd['ref_rad']:.2e} rad; {rd['n_motions']} object motions vs JAX ref max {rd['motion_m']:.2e} m; "
-        f"first frame {times[0] * 1e3:.1f} ms, median advancing frames 11-{BENCH_FRAMES} "
+        f"first frame {times[0] * 1e3:.1f} ms, median advancing frames 11-{PIPELINED_FRAMES} "
         f"{steady * 1e3:.2f} ms; device ops per advancing frame {ops if ops is not None else 'n/a'}, device "
         f"busy {f'{busy:.2f}' if busy is not None else 'n/a'} ms, idle "
         f"{f'{idle:.1%}' if idle is not None else 'n/a'} of the step")
@@ -1935,6 +1994,201 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
     return paths
 
 
+def batched_modes_readings(torch, seed, ref, mode, device="cuda"):
+    """make_batched_pipeline over BATCHED_MODES_B sequences in frontend mode
+    `mode` of BATCHED_MODES (bench_config.batched_{mode}_config()), sequence
+    b on scene frames b .. b+BATCHED_MODES_FRAMES-1 -> (launches, readings
+    against the ground truth and the JAX reference, per-frame host seconds,
+    host-sync sites, device ops and busy ms per advancing frame and K1b's
+    device ms per launch, the last three None off the card)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dynosam_tpu_torch import bench_config as bc
+    from dynosam_tpu_torch.ops import interp
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.parallel.batched import make_batched_pipeline
+    from dynosam_tpu_torch.utils import lie
+
+    B, n = BATCHED_MODES_B, BATCHED_MODES_FRAMES
+    t0 = time.perf_counter()
+    if mode == "bytetrack":
+        cfg, intr = bc.batched_bytetrack_config()
+        scene = bc.bench_scene(intr, n + B - 1, device=device)
+        frames = scene.frames()
+        lut = bc.label_permutations(0, n, B, 2 * cfg.frontend.max_objects)
+        if not np.array_equal(lut, ref["label_lut"]):
+            raise AssertionError("bytetrack: label permutations differ from the reference file's")
+        lut_t = torch.as_tensor(lut, device=device)
+
+        def seq_frame(k, b):
+            fr = frames[k + b]
+            return dataclasses.replace(fr, mask=lut_t[k, b][fr.mask.long()])
+    else:
+        cfg, intr = bc.batched_stereo_imu_config()
+        scene = bc.bench_scene(intr, n + B - 1, device=device, world_texture=True)
+        frames = [bc.stereo_imu_frame(scene, k, IMU_SAMPLES) for k in range(n + B - 1)]
+
+        def seq_frame(k, b):
+            return frames[k + b]
+    stacked = [_stack_inputs(torch, [seq_frame(k, b) for b in range(B)]) for k in range(n)]
+    step, init = make_batched_pipeline(cfg, intr, torch.Generator(device=device).manual_seed(seed))
+    held = {"n": 0}
+
+    def after(state):
+        held["n"] += 1
+        if held["n"] == n - 1:
+            held["before_last"] = state
+        trk = state.frontend.tracker
+        return {"n_static": trk.s_valid.sum(-1), "n_dynamic": trk.d_valid.sum(-1), "s_uv": trk.s_uv.clone(),
+                "s_depth": trk.s_depth.clone(), "s_valid": trk.s_valid.clone(), "d_uv": trk.d_uv.clone(),
+                "d_oid": trk.d_oid.clone(), "d_valid": trk.d_valid.clone()}
+
+    t1 = time.perf_counter()
+    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+    with SyncCounter(torch, device) as sync:
+        outs, times = _drive(torch, step, init(B, device), stacked, device, after=after)
+    launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
+    t2 = time.perf_counter()
+    if device == "cuda" and (launches["K1"], launches["K1 map"]) != (n, 0):
+        raise AssertionError(f"batched {mode}: fused K1 launched {launches['K1']} times and the map entry "
+                             f"{launches['K1 map']} times over {n} frames")
+    sites = {k: v for k, v in sync.sites.items() if not k.startswith("chip_smoke.py")}
+
+    rd = {"gt_m": 0.0, "gt_rad": 0.0, "ref_gt_m": 0.0, "ref_gt_rad": 0.0, "gt_excess_m": 0.0,
+          "gt_excess_rad": 0.0, "ref_m": 0.0, "ref_rad": 0.0, "motion_m": 0.0, "n_motions": 0, "count_rel": 0.0}
+    counts = np.stack([[o["after"]["n_static"].cpu().numpy(), o["after"]["n_dynamic"].cpu().numpy()]
+                       for o in outs])                                         # (n, 2, B)
+    ref_counts = np.stack([ref["n_static"], ref["n_dynamic"]], 1)
+    rd["count_rel"] = float((np.abs(counts - ref_counts) / np.maximum(ref_counts, 1)).max())
+    X_gt = scene.scn.X_gt
+    id_errs, identity, depth_errs, depth_worst = 0, {}, [], 0.0
+    true_depth = {}             # scene frame -> its uncorrupted depth, shared by the sequences
+    for b in range(B):
+        gt = lie.mm(lie.inverse(X_gt[b]), X_gt[b:b + n])
+        seq = [{k: v[b] for k, v in o.items() if torch.is_tensor(v)} for o in outs]
+        rot, trans = rot_trans_err(torch, lie, torch.stack([o["X_world_cam"] for o in seq]), gt)
+        ref_b = {k: ref[k][:, b] for k in ("X_world_cam", "object_ids", "object_motions", "object_motion_valid")}
+        rot_r, trans_r = rot_trans_err(torch, lie, torch.as_tensor(ref_b["X_world_cam"], device=device), gt)
+        for key, v in (("gt_m", trans), ("gt_rad", rot), ("ref_gt_m", trans_r), ("ref_gt_rad", rot_r),
+                       ("gt_excess_m", trans - trans_r), ("gt_excess_rad", rot - rot_r)):
+            rd[key] = max(rd[key], float(v.max()))
+        tr, rr, n_mot, mot = compare_to_reference(torch, lie, seq, ref_b, device, bounds=(float("inf"),) * 3,
+                                                  settled_only=mode == "stereo_imu")
+        rd["ref_m"], rd["ref_rad"] = max(rd["ref_m"], tr), max(rd["ref_rad"], rr)
+        rd["motion_m"], rd["n_motions"] = max(rd["motion_m"], mot), rd["n_motions"] + n_mot
+        ids = torch.stack([o["object_ids"] for o in seq]).cpu().numpy()
+        id_errs += int((ids != ref_b["object_ids"]).sum())
+        if mode == "bytetrack":
+            # the scene's own labels (its object ids) under each valid
+            # dynamic track, frame by frame: (ground-truth object, id) pairs
+            identity[b] = []
+            for k, o in enumerate(outs):
+                a = o["after"]
+                gt_lab = interp.sample_label(frames[k + b].mask, a["d_uv"][b])
+                sel = a["d_valid"][b] & (gt_lab > 0)
+                identity[b].append(set(zip(gt_lab[sel].tolist(), a["d_oid"][b][sel].tolist())))
+        else:
+            errs = []
+            for k, o in enumerate(outs[1:], start=1):
+                a = o["after"]
+                j = k + b
+                if j not in true_depth:
+                    true_depth[j] = scene._depth_mask(X_gt[j], [L[j] for L in scene.scn.L_gt])[0]
+                H, W = true_depth[j].shape
+                uv, depth, valid = a["s_uv"][b], a["s_depth"][b], a["s_valid"][b]
+                iu = torch.clamp(torch.round(uv[:, 0]).long(), 0, W - 1)
+                iv = torch.clamp(torch.round(uv[:, 1]).long(), 0, H - 1)
+                g = true_depth[j][iv, iu]
+                sel = valid & (depth > 0)
+                errs.append((torch.abs(depth - g) / g)[sel])
+            errs = torch.cat(errs)
+            depth_worst = max(depth_worst, float(torch.median(errs)))
+            depth_errs.append(errs)
+    rd["id_mismatches"] = id_errs
+    if mode == "bytetrack":
+        # in every frame each tracked ground-truth object carries one id and
+        # no two share one; an id changes between frames only where
+        # ByteTrack spawned a new track (an object that left the view, or
+        # whose box jumped below the match IoU), as the reference's ids do
+        rd["one_id_per_frame"] = all(
+            len({g for g, _ in pairs}) == len(pairs) == len({o for _, o in pairs})
+            for frames_b in identity.values() for pairs in frames_b)
+        switches = []
+        for b, frames_b in identity.items():
+            last = {}
+            for k, pairs in enumerate(frames_b):
+                for g, o in pairs:
+                    if g in last and last[g] != o:
+                        switches.append((b, k, g, last[g], o))
+                    last[g] = o
+        rd["id_switches"] = switches
+        rd["id_pairs"] = {b: sorted(set().union(*frames_b)) for b, frames_b in identity.items()}
+    else:
+        errs = torch.cat(depth_errs)
+        rd["depth_tracks"] = int(errs.numel())
+        rd["depth_relerr"] = float(torch.median(errs))
+        rd["depth_relerr_worst_seq"] = depth_worst
+    # device operations per advancing frame: the last frame again, from the
+    # state before it, under the profiler (one frame keeps the phase short)
+    t3 = time.perf_counter()
+    ops = busy = k1_ms = None
+    if device == "cuda":
+        ops, busy, k1_ms = profile_frames(torch, step, held["before_last"], stacked[-1:])
+    rd["phase_s"] = {"set_up": t1 - t0, "run": t2 - t1, "checks": t3 - t2, "profile": time.perf_counter() - t3}
+    return launches, rd, times, sites, ops, busy, k1_ms
+
+
+def run_batched_modes_path(torch, seed, testdata, device="cuda", smi=""):
+    """Phase 14: the batched step at B=8 in each frontend mode of
+    BATCHED_MODES, held to BATCHED_MODE_BOUNDS and its JAX reference ->
+    {path: launches}."""
+    import numpy as np
+
+    paths = {}
+    B, n = BATCHED_MODES_B, BATCHED_MODES_FRAMES
+    for mode in BATCHED_MODES:
+        t = time.perf_counter()
+        ref = np.load(os.path.join(testdata, f"bench_batched_{mode}_ref_b{B}_{n}f.npz"))
+        launches, rd, times, sites, ops, busy, k1_ms = batched_modes_readings(torch, seed, ref, mode, device)
+        over = {k: (rd[k], v) for k, v in BATCHED_MODE_BOUNDS[mode].items() if not rd[k] <= v}
+        if rd["id_mismatches"]:
+            over["id_mismatches"] = (rd["id_mismatches"], 0)
+        if mode == "bytetrack" and not rd["one_id_per_frame"]:
+            over["one_id_per_frame"] = (rd["id_pairs"], "one id per ground-truth object in each frame")
+        if over:
+            raise AssertionError(f"batched {mode} B={B}: readings over their bounds (reading, bound): {over}")
+        steady = statistics.median(times[10:])
+        idle = None if busy is None else 1.0 - busy / (steady * 1e3)
+        n_sync = sum(sites.values())
+        detail = (f"object ids equal to the JAX ref's in every sequence and frame, one id per ground-truth "
+                  f"object in each frame; ids that changed (sequence, frame, object, old id, new id) "
+                  f"{rd['id_switches']}" if mode == "bytetrack" else
+                  f"static track depths ({rd['depth_tracks']} over frames 1-{n - 1}, all sequences) median "
+                  f"relative error {rd['depth_relerr']:.3%} against the true depth, worst sequence "
+                  f"{rd['depth_relerr_worst_seq']:.3%} (provided depth off by 15%)")
+        say(f"batched {mode}: make_batched_pipeline at bench_config.batched_{mode}_config(), B={B}, {n} frames "
+            f"per sequence (window of 10 advanced {n - 10} times), on {device} ({smi}): fused K1 launches "
+            f"{launches['K1']}, map entry {launches['K1 map']}; camera vs GT max {rd['gt_m']:.2e} m / "
+            f"{rd['gt_rad']:.2e} rad (the JAX ref's own {rd['ref_gt_m']:.2e} m / {rd['ref_gt_rad']:.2e} rad, "
+            f"the port at most {rd['gt_excess_m']:.2e} m / {rd['gt_excess_rad']:.2e} rad past it); vs JAX ref "
+            f"max {rd['ref_m']:.2e} m / {rd['ref_rad']:.2e} rad; "
+            f"{rd['n_motions']} object motions{' (settled)' if mode == 'stereo_imu' else ''} vs JAX ref max "
+            f"{rd['motion_m']:.2e} m; valid track counts vs JAX ref within {rd['count_rel']:.2%}; {detail}; "
+            f"first frame {times[0] * 1e3:.1f} ms, median advancing frames 11-{n} {steady * 1e3:.2f} ms = "
+            f"{B / steady:.2f} frames/s aggregate, {1 / steady:.2f} per sequence; device ops per advancing "
+            f"frame {ops if ops is not None else 'n/a'}, device busy "
+            f"{f'{busy:.2f}' if busy is not None else 'n/a'} ms per advancing frame, idle "
+            f"{f'{idle:.1%}' if idle is not None else 'n/a'} of the step; K1b "
+            f"{f'{k1_ms:.4f}' if k1_ms is not None else 'n/a'} ms per launch; host syncs "
+            f"{n_sync / n:.1f}/frame (sites: "
+            f"{', '.join(f'{k} x{v}' for k, v in sorted(sites.items(), key=lambda kv: -kv[1])) or 'none'}); "
+            f"{time.perf_counter() - t:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in rd['phase_s'].items())})")
+        paths[f"batched_{mode}_b{B}"] = launches
+    return paths
+
+
 def _aligned_truth(np, scene):
     """The scene's camera poses and object motions in the frame of its first
     camera pose (the readers align the first pose to the identity)."""
@@ -2325,7 +2579,7 @@ def main():
     k1 = timed("3 (K1)", check_k1, torch, args.seed)
     k2 = timed("4 (K2)", check_k2, torch, args.seed, built[K2_V3_SOURCE][0])
 
-    # ---- 5-13. the main paths, counts zeroed just before each ----------------
+    # ---- 5-14. the main paths, counts zeroed just before each ----------------
     bench_launches = timed("5 (bench)", run_bench_path, torch, args.seed,
                            os.path.join(testdata, "bench_ref_20f.npz"))
     pipelined_launches = timed("5b (pipelined)", run_pipelined_path, torch, args.seed,
@@ -2345,12 +2599,13 @@ def main():
     dataset_launches = timed("12 (datasets)", run_datasets_path, torch, args.seed,
                              os.path.join(testdata, "datasets_ref_12f.npz"), smi=smi)
     tooling_launches = timed("13 (tooling)", run_tooling_path, torch, args.seed)
+    modes_launches = timed("14 (batched modes)", run_batched_modes_path, torch, args.seed, testdata, smi=smi)
 
-    # ---- 14. results ------------------------------------------------------------
+    # ---- 15. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "pipelined": pipelined_launches, "klt": klt_launches,
              "stereo_imu": stereo_launches, "detector": det_launches, "heldout": heldout_launches,
              "pipeline": pipe_launches, **forms_launches, **batched_launches, "datasets": dataset_launches,
-             **{f"tooling_{k}": v for k, v in tooling_launches.items()}}
+             **{f"tooling_{k}": v for k, v in tooling_launches.items()}, **modes_launches}
     batched = {p for p in paths if p.startswith("batched_")}
 
     def row(name, kid, source, replaces, check, only=None, **extra):

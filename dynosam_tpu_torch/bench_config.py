@@ -15,6 +15,11 @@ and `stereo_imu_frame()` gives each frame a right image rendered at
 +baseline, the 1.15x corrupted provided depth that only stereo repairs, and
 the exact IMU window of the interval before it.
 
+`batched_stereo_imu_config()` and `batched_bytetrack_config()` are the
+batched step's two frontend modes at the bench's width: stereo + IMU on the
+provided flow, and ByteTrack's relabelling of masks whose labels
+`label_permutations` permutes per frame and per sequence.
+
 `detector_config()` and `detector_scene()` are the detector path: the same
 settings with the masks coming from YOLOv8-seg (relabelled by ByteTrack)
 instead of the renderer, at the committed checkpoint's own camera (384 x
@@ -156,6 +161,36 @@ def stereo_imu_frame(scene: DenseScenario, k: int, imu_samples: int = 32) -> Fra
     imu, imu_valid = scene.scn.imu_window(k, imu_samples)
     return dataclasses.replace(fr, depth=fr.depth * 1.15, right=render_right(scene, k),
                                imu_samples=imu, imu_valid=imu_valid)
+
+
+def batched_stereo_imu_config():
+    """(cfg, intr): stereo_imu_config() tracking by the provided flow, the
+    batched step's stereo + IMU mode (KLT does not run batched): frames from
+    `stereo_imu_frame` on the world-textured bench scene."""
+    cfg, intr = stereo_imu_config()
+    return cfg.with_overrides({"frontend.tracker.prefer_provided_optical_flow": True}), intr
+
+
+def batched_bytetrack_config():
+    """(cfg, intr): bench_config() with ByteTrack giving the masks their
+    persistent ids (prefer_provided_object_detection=False), the batched
+    step's detector-label mode: masks relabelled by `label_permutations`."""
+    cfg, intr = bench_config()
+    return cfg.with_overrides({"frontend.tracker.prefer_provided_object_detection": False}), intr
+
+
+def label_permutations(seed: int, num_frames: int, batch: int, num_labels: int) -> np.ndarray:
+    """(num_frames, batch, num_labels + 1) int32 lookup tables, one per frame
+    and sequence, from `numpy.random.default_rng(seed)`: entry 0 keeps the
+    background, labels 1..num_labels go through a random permutation. A
+    mask relabelled by them carries per-frame detector labels with no
+    identity, which ByteTrack has to restore."""
+    rng = np.random.default_rng(seed)
+    lut = np.zeros((num_frames, batch, num_labels + 1), np.int32)
+    for k in range(num_frames):
+        for b in range(batch):
+            lut[k, b, 1:] = rng.permutation(num_labels) + 1
+    return lut
 
 
 def detector_config():

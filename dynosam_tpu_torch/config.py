@@ -402,6 +402,9 @@ class DynoConfig:
     def from_dict(cls, raw: Dict[str, Any]) -> "DynoConfig":
         return _merge_dataclass(cls(), raw)
 
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
     def with_overrides(self, overrides: Dict[str, Any]) -> "DynoConfig":
         """Apply dotted-path overrides, e.g. {'backend.noise.odometry_rotation_sigma': 0.1}.
 

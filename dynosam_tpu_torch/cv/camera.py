@@ -30,6 +30,11 @@ class CameraIntrinsics:
             width=int(width), height=int(height), baseline=float(baseline),
         )
 
+    def matrix(self, dtype=torch.float32, device="cuda"):
+        """The (3, 3) calibration matrix K."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+                            dtype=dtype, device=device)
+
 
 def project(pts_cam, intr: CameraIntrinsics, eps: float = 1e-6):
     """(..., 3) camera-frame points -> (..., 2) pixels (mask z > 0 yourself)."""
@@ -45,6 +50,24 @@ def backproject(uv, depth, intr: CameraIntrinsics):
     x = (uv[..., 0] - intr.cx) / intr.fx * depth
     y = (uv[..., 1] - intr.cy) / intr.fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def backproject_uvz(uvz, intr: CameraIntrinsics):
+    """(..., 3) rows [u, v, depth] -> (..., 3) camera-frame points."""
+    return backproject(uvz[..., :2], uvz[..., 2], intr)
+
+
+def bearing(uv, intr: CameraIntrinsics):
+    """Unit bearing vectors of pixels: (..., 2) -> (..., 3)."""
+    x = (uv[..., 0] - intr.cx) / intr.fx
+    y = (uv[..., 1] - intr.cy) / intr.fy
+    v = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+
+def depth_to_disparity(depth, intr: CameraIntrinsics):
+    """Metric depth -> the virtual disparity fx * baseline / depth."""
+    return intr.fx * intr.baseline / torch.clamp(depth, min=1e-6)
 
 
 def in_image(uv, intr: CameraIntrinsics, border: float = 0.0):

@@ -200,15 +200,15 @@ def stereo_track(left_gray, right_gray, uv_left, valid, fx: float, baseline: flo
                  levels: int = 3, half: int = 4, iters: int = 12, min_eig: float = 1e-4,
                  fb_threshold: float = 1.0, epipolar_tolerance: float = 1.0,
                  min_disparity: float = 0.1, max_disparity: float = 256.0):
-    """Match left keypoints (N, 2) into the rectified right image with KLT
-    and its flow-back check, gate on the epipolar row (|dv|) and the
-    disparity range, and triangulate -> (depth (N,), uv_right (N, 2),
-    ok (N,))."""
+    """Match left keypoints (..., N, 2) into the rectified right image
+    (..., H, W) with KLT and its flow-back check, gate on the epipolar row
+    (|dv|) and the disparity range, and triangulate -> (depth (..., N),
+    uv_right (..., N, 2), ok (..., N)); leading axes are sequences."""
     uv_right, ok = lk.lk_track(left_gray, right_gray, uv_left, valid, levels=levels, half=half,
                                iters=iters, min_eig=min_eig, fb_check=True,
                                fb_threshold=fb_threshold)
-    dv = uv_right[:, 1] - uv_left[:, 1]
-    disparity = uv_left[:, 0] - uv_right[:, 0]
+    dv = uv_right[..., 1] - uv_left[..., 1]
+    disparity = uv_left[..., 0] - uv_right[..., 0]
     ok = (ok & (torch.abs(dv) <= epipolar_tolerance) & (disparity > min_disparity)
           & (disparity < max_disparity))
     depth = fx * baseline / torch.clamp(disparity, min=min_disparity)

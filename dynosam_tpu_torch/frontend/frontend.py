@@ -16,9 +16,12 @@ when the frames carry a right image and use_stereo_track is on; the IMU when
 they carry an IMU window and use_imu is on.
 
 `frontend_step` also steps B sequences at once: a FrontendState of (B, ...)
-tensors (a (B,) frame_idx) with (B, ...) FrameInputs, in the provided-flow
-mode without stereo, IMU or mask propagation (the batched step's,
-parallel/batched.py). Every operation then runs once for the batch.
+tensors (a (B,) frame_idx) with (B, ...) FrameInputs (the batched step's,
+parallel/batched.py), in the provided-flow mode, with ByteTrack, the IMU
+and stereo as above. Every operation then runs once for the batch; whether
+the frames carry a right image or an IMU window is decided for the whole
+batch, as under the reference's vmap. KLT and mask propagation do not run
+batched, as in the reference, whose batch is built without an image shape.
 """
 
 from __future__ import annotations
@@ -148,12 +151,17 @@ def frontend_step(
     tp = params.tracker
     gray = _to_gray(inputs.rgb).contiguous()
     klt_mode = not tp.prefer_provided_optical_flow
-    if nb and (klt_mode or state.prev_mask.numel() > 0
-               or (params.use_stereo_track and inputs.right is not None)
-               or (params.use_imu and inputs.imu_samples is not None)):
+    if nb and klt_mode:
+        raise ValueError(
+            "frontend_step with a batch axis tracks by the provided flow: KLT needs the previous "
+            "frame in the state, and the reference's batch is built without an image_shape "
+            "(_init_batch), so its empty_frontend_state raises in KLT mode"
+        )
+    if nb and state.prev_mask.numel() > 0:
         raise NotImplementedError(
-            "frontend_step with a batch axis runs the provided flow only: KLT, mask propagation, "
-            "stereo and the IMU are not batched yet (ROADMAP item 21)"
+            "frontend_step with a batch axis does not propagate masks: the previous mask is carried "
+            "only by a state built with an image_shape, and the reference's batch is built without "
+            "one (_init_batch), so mask propagation never runs batched there"
         )
     # KLT mode: equalize the new frame once and carry it as prev_gray; the
     # LK pair is equalized, detection stays on the raw gray
@@ -218,11 +226,12 @@ def frontend_step(
         pim_dt = pim.dt
         X_imu, _ = imu_mod.predict(state.X_prev, state.v_world, pim, imu_params)
         has_imu = (pim.dt > 0) & not_first
-        X_prior = torch.where(has_imu, X_imu, X_prior)
+        X_prior = torch.where(has_imu[..., None, None], X_imu, X_prior)
         if params.imu.use_rotation_prior:
             # RANSAC solves T_cam_world: pin its rotation to the IMU's
             R_known = torch.where(
-                has_imu, lie.rotation(X_imu).transpose(-1, -2), lie.rotation(X_prior).transpose(-1, -2)
+                has_imu[..., None, None], lie.rotation(X_imu).transpose(-1, -2),
+                lie.rotation(X_prior).transpose(-1, -2),
             )
 
     cam_res = motion.solve_camera_pose(
@@ -383,8 +392,8 @@ def frontend_step(
     v_new = state.v_world
     if use_imu:
         v_new = torch.where(
-            pim_dt > 1e-6,
-            (lie.translation(X_k) - lie.translation(state.X_prev)) / torch.clamp(pim_dt, min=1e-6),
+            (pim_dt > 1e-6)[..., None],
+            (lie.translation(X_k) - lie.translation(state.X_prev)) / torch.clamp(pim_dt, min=1e-6)[..., None],
             state.v_world,
         )
 

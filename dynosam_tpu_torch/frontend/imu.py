@@ -11,7 +11,8 @@ the window's device:
 The reference's scan becomes a loop over the S samples; the S rotation
 increments exp((w_i - bg) dt_i) are computed in one batch first. The result
 feeds the ego-motion solver's rotation prior and the IMU prediction of the
-prior/fallback pose.
+prior/fallback pose. Windows, poses and velocities may carry leading axes
+of sequences (the batched step): (B, S, 7) windows give a (B,) `Pim.dt`.
 """
 
 from __future__ import annotations
@@ -44,39 +45,50 @@ class ImuParams:
 class Pim:
     """Preintegrated IMU measurement between two frames (body frame i)."""
 
-    dR: torch.Tensor    # (3, 3)
-    dv: torch.Tensor    # (3,)
-    dp: torch.Tensor    # (3,)
-    dt: torch.Tensor    # ()
+    dR: torch.Tensor    # (..., 3, 3)
+    dv: torch.Tensor    # (..., 3)
+    dp: torch.Tensor    # (..., 3)
+    dt: torch.Tensor    # (...,)
+
+    @classmethod
+    def identity(cls, dtype=torch.float32, device="cuda"):
+        return cls(
+            dR=torch.eye(3, dtype=dtype, device=device),
+            dv=torch.zeros(3, dtype=dtype, device=device),
+            dp=torch.zeros(3, dtype=dtype, device=device),
+            dt=torch.zeros((), dtype=dtype, device=device),
+        )
 
 
 def preintegrate(samples, valid, params: ImuParams) -> Pim:
-    """Integrate a padded window: samples (S, 7), valid (S,) bool; invalid
-    rows count with dt = 0."""
-    dt = torch.where(valid, samples[:, 0], 0.0)
-    acc = samples[:, 1:4] - params.accel_bias
-    exp_w = lie.so3_exp((samples[:, 4:7] - params.gyro_bias) * dt[:, None])    # (S, 3, 3)
-    dR = torch.eye(3, dtype=samples.dtype, device=samples.device)
-    dv = samples.new_zeros(3)
-    dp = samples.new_zeros(3)
-    T = samples.new_zeros(())
-    for i in range(samples.shape[0]):
-        dt_i = dt[i]
-        a_rot = lie.rotate_points(dR, acc[i])
-        dp = dp + dv * dt_i + 0.5 * a_rot * dt_i * dt_i
-        dv = dv + a_rot * dt_i
-        dR = lie.mm(dR, exp_w[i])
+    """Integrate a padded window: samples (..., S, 7), valid (..., S) bool;
+    invalid rows count with dt = 0. Leading axes are sequences."""
+    dt = torch.where(valid, samples[..., 0], 0.0)
+    acc = samples[..., 1:4] - params.accel_bias
+    exp_w = lie.so3_exp((samples[..., 4:7] - params.gyro_bias) * dt[..., None])    # (..., S, 3, 3)
+    lead = samples.shape[:-2]
+    dR = torch.eye(3, dtype=samples.dtype, device=samples.device).expand(lead + (3, 3))
+    dv = samples.new_zeros(lead + (3,))
+    dp = samples.new_zeros(lead + (3,))
+    T = samples.new_zeros(lead)
+    for i in range(samples.shape[-2]):
+        dt_i = dt[..., i]
+        a_rot = lie.rotate_points(dR, acc[..., i, :])
+        dp = dp + dv * dt_i[..., None] + 0.5 * a_rot * dt_i[..., None] * dt_i[..., None]
+        dv = dv + a_rot * dt_i[..., None]
+        dR = lie.mm(dR, exp_w[..., i, :, :])
         T = T + dt_i
     return Pim(dR=dR, dv=dv, dp=dp, dt=T)
 
 
 def predict(X_prev, v_prev, pim: Pim, params: ImuParams):
-    """Nav-state propagation: X_prev (4, 4) world_from_body at k-1 and
-    v_prev (3,) world velocity -> (X_pred (4, 4), v_pred (3,)) at k."""
+    """Nav-state propagation: X_prev (..., 4, 4) world_from_body at k-1 and
+    v_prev (..., 3) world velocity -> (X_pred (..., 4, 4), v_pred (..., 3))
+    at k."""
     R_prev = lie.rotation(X_prev)
     t_prev = lie.translation(X_prev)
     g = params.gravity
-    dt = pim.dt
+    dt = pim.dt[..., None]
     t_new = t_prev + v_prev * dt + 0.5 * g * dt * dt + lie.rotate_points(R_prev, pim.dp)
     v_new = v_prev + g * dt + lie.rotate_points(R_prev, pim.dv)
     R_new = lie.mm(R_prev, pim.dR)
@@ -84,7 +96,7 @@ def predict(X_prev, v_prev, pim: Pim, params: ImuParams):
 
 
 def rotation_prior(pim: Pim):
-    """Relative rotation R_{k-1,k} for the rotation-prior RANSAC."""
+    """Relative rotation R_{k-1,k} (..., 3, 3) for the rotation-prior RANSAC."""
     return pim.dR
 
 

@@ -81,7 +81,7 @@ def solve_camera_pose(
     params: MotionSolverParams,
     X_prior,            # (4, 4)
     uniforms: Optional[torch.Tensor] = None,   # (M, N) injected RANSAC draws
-    R_known: Optional[torch.Tensor] = None,    # (3, 3) camera rotation R_cam_world at k
+    R_known: Optional[torch.Tensor] = None,    # (*nb, 3, 3) camera rotation R_cam_world at k
 ) -> MotionSolveResult:
     """Estimate X_world_cam at frame k; falls back to X_prior on failure.
     A (B, 4, 4) X_prior with (B, N, ...) correspondences solves B sequences.
@@ -93,17 +93,16 @@ def solve_camera_pose(
     rp = params.camera
     nb = X_prior.ndim - 2
     data = {"p_w": pts_world, "uv": uv_k, "p_c": pts_cam_k}
-    if nb and R_known is not None:
-        raise NotImplementedError("the known-rotation camera solve (IMU prior) is not batched yet "
-                                  "(ROADMAP item 21)")
 
     if R_known is None:
         def solve_fn(s):
             return kabsch.solve_rigid_3pt(s["p_w"], s["p_c"])
     else:
         def solve_fn(s):
-            t = torch.mean(s["p_c"] - lie.rotate_points(R_known, s["p_w"]), dim=-2)
-            return lie.make_pose(R_known, t)
+            # s: (*nb, M, 3, 3) samples; each sequence's rotation broadcasts
+            # over its hypothesis and sample axes
+            t = torch.mean(s["p_c"] - lie.rotate_points(R_known[..., None, None, :, :], s["p_w"]), dim=-2)
+            return lie.make_pose(R_known[..., None, :, :], t)
 
     use_pnp = params.use_ego_motion_pnp
     if use_pnp:

@@ -18,10 +18,10 @@ kernel for a CUDA tensor, its plain version for a CPU tensor), else through
 the plain response and `_cell_reduce`. It always runs on the raw `gray`.
 
 `track_frame` also takes a leading batch axis of sequences: a (B, H, W)
-frame with a TrackerState of (B, ...) tables, in the provided-flow mode
-with provided object ids (the batched step's, parallel/batched.py). Each
-operation then runs once for the batch; detection launches the kernel's
-batched entry once for all B frames.
+frame with a TrackerState of (B, ...) tables, in the provided-flow mode,
+with provided object ids or ByteTrack's (the batched step's,
+parallel/batched.py). Each operation then runs once for the batch;
+detection launches the kernel's batched entry once for all B frames.
 """
 
 from __future__ import annotations
@@ -162,7 +162,7 @@ def track_frame(
     use_clahe is on; gray_lk defaults to `gray` with CLAHE off.
 
     A (B, H, W) `gray` with (B, ...) state, images and `first_frame` steps
-    B sequences at once (provided flow and object ids only)."""
+    B sequences at once (provided flow only)."""
     tp = params.tracker
     nb = gray.ndim - 2
     H, W = gray.shape[-2:]
@@ -170,10 +170,11 @@ def track_frame(
     dev = gray.device
     border_u, border_v = tp.shrink_col, tp.shrink_row
     not_first = ~first_frame[..., None]
-    if nb and not (tp.prefer_provided_optical_flow and tp.prefer_provided_object_detection):
-        raise NotImplementedError(
-            "track_frame with a batch axis runs the provided flow and object ids only: KLT and "
-            "the ByteTrack relabelling are not batched yet (ROADMAP item 21)"
+    if nb and not tp.prefer_provided_optical_flow:
+        raise ValueError(
+            "track_frame with a batch axis tracks by the provided flow: KLT needs the previous "
+            "frame in the state, and the reference's batch is built without an image_shape "
+            "(_init_batch), so its empty_frontend_state raises in KLT mode"
         )
 
     def in_bounds(uv):
@@ -197,11 +198,12 @@ def track_frame(
         max_dets = 2 * params.max_objects
         boxes, scores, det_valid, det_labels = bt.masks_to_detections(mask, max_dets=max_dets)
         bt_state, det_ids = bt.bytetrack_step(bt_state, boxes, scores, det_valid)
-        remap = torch.zeros((max_dets + 2,), dtype=torch.int32, device=dev)
-        remap[torch.clamp(det_labels, 0, max_dets + 1).long()] = torch.where(
-            det_valid & (det_ids > 0), det_ids, 0
-        ).to(torch.int32)
-        mask = remap[torch.clamp(mask, 0, max_dets + 1).long()]
+        # each sequence's labels -> its own ids: a per-row scatter and gather
+        remap = torch.zeros(det_ids.shape[:-1] + (max_dets + 2,), dtype=torch.int32, device=dev)
+        remap.scatter_(-1, torch.clamp(det_labels, 0, max_dets + 1).long(),
+                       torch.where(det_valid & (det_ids > 0), det_ids, 0).to(torch.int32))
+        lab = torch.clamp(mask, 0, max_dets + 1).long()
+        mask = torch.take_along_dim(remap, lab.reshape(lab.shape[:nb] + (-1,)), dim=-1).reshape(mask.shape)
 
     # ======== propagate tracks (provided dense flow OR sparse KLT) ========
     ns = state.s_uv.shape[-2]

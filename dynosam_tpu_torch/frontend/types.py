@@ -47,6 +47,19 @@ class TrackTable:
     age: torch.Tensor         # (N,) int32
     valid: torch.Tensor       # (N,) bool
 
+    @classmethod
+    def empty(cls, n: int, dtype=torch.float32, device="cuda") -> "TrackTable":
+        def full(shape, value, dt):
+            return torch.full(shape, value, dtype=dt, device=device)
+
+        return cls(uv=full((n, 2), 0.0, dtype), depth=full((n,), 0.0, dtype),
+                   tracklet_id=full((n,), -1, torch.int32), object_id=full((n,), 0, torch.int32),
+                   age=full((n,), 0, torch.int32), valid=full((n,), False, torch.bool))
+
+    @property
+    def capacity(self) -> int:
+        return self.uv.shape[-2]
+
 
 @dataclass
 class VisionPacket:
@@ -60,6 +73,23 @@ class VisionPacket:
     object_valid: torch.Tensor      # (J,) bool
     object_resampled: torch.Tensor  # (J,) bool
     pose_valid: torch.Tensor        # () bool
+
+    @classmethod
+    def empty(cls, n_static: int, n_dynamic: int, max_objects: int, dtype=torch.float32,
+              device="cuda") -> "VisionPacket":
+        eye = torch.eye(4, dtype=dtype, device=device)
+        return cls(
+            frame_id=torch.zeros((), dtype=torch.int32, device=device),
+            X_world_cam=eye,
+            odom_prev_curr=eye.clone(),
+            static_tracks=TrackTable.empty(n_static, dtype, device),
+            dynamic_tracks=TrackTable.empty(n_dynamic, dtype, device),
+            object_ids=torch.full((max_objects,), -1, dtype=torch.int32, device=device),
+            object_motions=eye.expand(max_objects, 4, 4).clone(),
+            object_valid=torch.zeros((max_objects,), dtype=torch.bool, device=device),
+            object_resampled=torch.zeros((max_objects,), dtype=torch.bool, device=device),
+            pose_valid=torch.zeros((), dtype=torch.bool, device=device),
+        )
 
 
 @dataclass

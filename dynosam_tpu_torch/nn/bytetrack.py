@@ -6,6 +6,11 @@ ByteTrack's two stages (high-score, then low-score detections) and a greedy
 global max-IoU assignment in place of lapjv. The frontend uses it when
 instance masks arrive without persistent ids
 (prefer_provided_object_detection=False).
+
+Every function also takes a leading batch axis of sequences (the batched
+step, parallel/batched.py): a ByteTrackState of (B, ...) tensors with a (B,)
+`next_id`, (B, D, ...) detections and (B, H, W) masks. Each sequence keeps
+its own tracks and ids; every operation runs once for the batch.
 """
 
 from __future__ import annotations
@@ -100,7 +105,9 @@ def kf_update(mean, cov, z_xyah):
         dim=-1,
     )
     S = torch.einsum("ij,...jk,lk->...il", Hm, cov, Hm) + _diag(r)
-    K = torch.einsum("...ij,kj,...kl->...il", cov, Hm, torch.linalg.inv(S))
+    # inv_ex: linalg.inv's error check would read the status on the host
+    # every frame; S is positive definite by construction
+    K = torch.einsum("...ij,kj,...kl->...il", cov, Hm, torch.linalg.inv_ex(S)[0])
     innov = z_xyah - torch.einsum("ij,...j->...i", Hm, mean)
     mean = mean + torch.einsum("...ij,...j->...i", K, innov)
     cov = cov - torch.einsum("...ij,jk,...kl->...il", K, Hm, cov)
@@ -129,36 +136,38 @@ def xyah_to_tlbr(s):
 
 
 def iou_matrix(a, b):
-    """a: (T, 4) tlbr, b: (D, 4) tlbr -> (T, D)."""
-    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
-    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    """a: (..., T, 4) tlbr, b: (..., D, 4) tlbr -> (..., T, D)."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
     wh = torch.clamp(rb - lt, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
-    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
-    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
-    return inter / torch.clamp(area_a[:, None] + area_b[None, :] - inter, min=1e-9)
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / torch.clamp(area_a[..., :, None] + area_b[..., None, :] - inter, min=1e-9)
 
 
 def greedy_assign(cost, row_ok, col_ok, min_iou: float, iters: int):
-    """Greedy max-IoU assignment -> (row_to_col (T,), col_to_row (D,)).
-    Each of `iters` rounds takes the global argmax (first index on ties);
-    a pair at or above `min_iou` is matched and its row and column closed,
-    otherwise only that entry is closed."""
-    T, D = cost.shape
-    c = torch.where(row_ok[:, None] & col_ok[None, :], cost, -torch.inf)
-    r2c = torch.full((T,), -1, dtype=torch.int32, device=cost.device)
-    c2r = torch.full((D,), -1, dtype=torch.int32, device=cost.device)
+    """Greedy max-IoU assignment -> (row_to_col (..., T), col_to_row (..., D)).
+    Each of `iters` rounds takes, per sequence, the argmax over the (T, D)
+    entries (first index on ties, as jnp.argmax); a pair at or above
+    `min_iou` is matched and its row and column closed, otherwise only that
+    entry is closed."""
+    T, D = cost.shape[-2:]
+    lead = cost.shape[:-2]
+    c = torch.where(row_ok[..., :, None] & col_ok[..., None, :], cost, -torch.inf)
+    r2c = torch.full(lead + (T,), -1, dtype=torch.int32, device=cost.device)
+    c2r = torch.full(lead + (D,), -1, dtype=torch.int32, device=cost.device)
     rows = torch.arange(T, device=cost.device)
     cols = torch.arange(D, device=cost.device)
     for _ in range(iters):
-        flat = torch.argmax(c)
-        i, j = flat // D, flat % D
-        ok = c[i, j] >= min_iou
+        flat_c = c.reshape(lead + (T * D,))
+        flat = torch.argmax(flat_c, dim=-1, keepdim=True)
+        i, j = flat // D, flat % D                                  # (..., 1)
+        ok = torch.take_along_dim(flat_c, flat, dim=-1) >= min_iou
         r2c = torch.where((rows == i) & ok, j.to(torch.int32), r2c)
         c2r = torch.where((cols == j) & ok, i.to(torch.int32), c2r)
-        line = (rows[:, None] == i) | (cols[None, :] == j)
-        entry = (rows[:, None] == i) & (cols[None, :] == j)
-        c = torch.where(torch.where(ok, line, entry), -torch.inf, c)
+        hit_r, hit_c = (rows == i)[..., :, None], (cols == j)[..., None, :]
+        c = torch.where(torch.where(ok[..., None], hit_r | hit_c, hit_r & hit_c), -torch.inf, c)
     return r2c, c2r
 
 
@@ -168,15 +177,22 @@ def greedy_assign(cost, row_ok, col_ok, min_iou: float, iters: int):
 
 def bytetrack_step(
     state: ByteTrackState,
-    det_tlbr,          # (D, 4)
-    det_score,         # (D,)
-    det_valid,         # (D,) bool
+    det_tlbr,          # (..., D, 4)
+    det_score,         # (..., D)
+    det_valid,         # (..., D) bool
     params: ByteTrackParams = ByteTrackParams(),
 ):
-    """One tracking step -> (state, det_track_ids (D,) int32, -1 = none)."""
-    T = state.track_id.shape[0]
-    D = det_tlbr.shape[0]
+    """One tracking step -> (state, det_track_ids (..., D) int32, -1 = none)."""
+    T = state.track_id.shape[-1]
+    D = det_tlbr.shape[-2]
     dev = det_tlbr.device
+
+    def take(x, idx):
+        # per sequence, entries idx (..., K) of x along its last axis
+        return torch.take_along_dim(x, idx.long(), dim=-1)
+
+    def take_boxes(idx):
+        return torch.take_along_dim(det_tlbr, idx.long()[..., None], dim=-2)
 
     mean, cov = kf_predict(state.mean, state.cov)
     iou = iou_matrix(xyah_to_tlbr(mean), det_tlbr)
@@ -192,12 +208,12 @@ def bytetrack_step(
     )
     r2c = torch.where(matched_row1, r2c1, r2c2)
     matched_row = r2c >= 0
-    det_of_row = torch.clamp(r2c, 0, D - 1).long()
+    det_of_row = torch.clamp(r2c, 0, D - 1)
 
     # KF update of matched tracks
-    mean_u, cov_u = kf_update(mean, cov, tlbr_to_xyah(det_tlbr[det_of_row]))
-    mean = torch.where(matched_row[:, None], mean_u, mean)
-    cov = torch.where(matched_row[:, None, None], cov_u, cov)
+    mean_u, cov_u = kf_update(mean, cov, tlbr_to_xyah(take_boxes(det_of_row)))
+    mean = torch.where(matched_row[..., None], mean_u, mean)
+    cov = torch.where(matched_row[..., None, None], cov_u, cov)
     time_lost = torch.where(matched_row, 0, state.time_lost + 1).to(torch.int32)
     active = state.active & (time_lost <= params.max_time_lost)
 
@@ -205,55 +221,59 @@ def bytetrack_step(
     det_matched = (c2r1 >= 0) | (c2r2 >= 0)
     spawn = high & ~det_matched & (det_score >= params.new_track_thresh)
     free = ~active
-    free_rank = torch.cumsum(free, 0) - 1
-    spawn_rank = torch.cumsum(spawn, 0) - 1
-    n_spawn = torch.sum(spawn)
-    # spawn_det_by_rank[q] = the q-th spawning detection; row D is the dump
-    # slot of the reference's dropped scatter
-    spawn_det_by_rank = torch.full((D + 1,), -1, dtype=torch.int64, device=dev)
-    spawn_det_by_rank[torch.where(spawn, spawn_rank, D)] = torch.arange(D, device=dev)
-    take = free & (free_rank < n_spawn)
-    det_idx = spawn_det_by_rank[:D][torch.clamp(free_rank, 0, D - 1)]
-    det_idx = torch.where(take, det_idx, 0)
-    m0, c0 = kf_initiate(tlbr_to_xyah(det_tlbr[det_idx]))
-    mean = torch.where(take[:, None], m0, mean)
-    cov = torch.where(take[:, None, None], c0, cov)
-    new_ids = state.next_id + spawn_rank[torch.clamp(det_idx, 0, D - 1)]
-    track_id = torch.where(take, new_ids, state.track_id).to(torch.int32)
-    active = active | take
-    time_lost = torch.where(take, 0, time_lost).to(torch.int32)
-    next_id = (state.next_id + n_spawn).to(torch.int32)
+    free_rank = torch.cumsum(free, -1) - 1
+    spawn_rank = torch.cumsum(spawn, -1) - 1
+    n_spawn = torch.sum(spawn, dim=-1, keepdim=True)
+    # spawn_det_by_rank[..., q] = the q-th spawning detection of each
+    # sequence; column D is the dump slot of the reference's dropped scatter
+    spawn_det_by_rank = torch.full(spawn.shape[:-1] + (D + 1,), -1, dtype=torch.int64, device=dev)
+    spawn_det_by_rank.scatter_(-1, torch.where(spawn, spawn_rank, D),
+                               torch.arange(D, device=dev).expand(spawn.shape))
+    take_row = free & (free_rank < n_spawn)
+    det_idx = take(spawn_det_by_rank[..., :D], torch.clamp(free_rank, 0, D - 1))
+    det_idx = torch.where(take_row, det_idx, 0)
+    m0, c0 = kf_initiate(tlbr_to_xyah(take_boxes(det_idx)))
+    mean = torch.where(take_row[..., None], m0, mean)
+    cov = torch.where(take_row[..., None, None], c0, cov)
+    next_id = state.next_id[..., None]
+    new_ids = next_id + take(spawn_rank, torch.clamp(det_idx, 0, D - 1))
+    track_id = torch.where(take_row, new_ids, state.track_id).to(torch.int32)
+    active = active | take_row
+    time_lost = torch.where(take_row, 0, time_lost).to(torch.int32)
 
     # per-detection ids; newly spawned detections get their fresh ids
     det_row = torch.where(c2r1 >= 0, c2r1, c2r2)
-    det_ids = torch.where(det_row >= 0, track_id[torch.clamp(det_row, 0, T - 1).long()], -1)
-    det_ids = torch.where(spawn, state.next_id + spawn_rank, det_ids).to(torch.int32)
+    det_ids = torch.where(det_row >= 0, take(track_id, torch.clamp(det_row, 0, T - 1)), -1)
+    det_ids = torch.where(spawn, next_id + spawn_rank, det_ids).to(torch.int32)
 
     new_state = ByteTrackState(
-        mean=mean, cov=cov, track_id=track_id,
-        time_lost=time_lost, active=active, next_id=next_id,
+        mean=mean, cov=cov, track_id=track_id, time_lost=time_lost, active=active,
+        next_id=(state.next_id + n_spawn[..., 0]).to(torch.int32),
     )
     return new_state, det_ids
 
 
 def masks_to_detections(mask, max_dets: int = 32):
-    """Instance mask -> padded (boxes tlbr, scores, valid, labels): label
-    l = 1..max_dets becomes detection l-1 with score 1.0. All labels are
-    compared with the mask in one batched pass."""
-    H, W = mask.shape
+    """Instance mask (..., H, W) -> padded (boxes tlbr (..., L, 4), scores,
+    valid, labels (..., L)): label l = 1..max_dets becomes detection l-1
+    with score 1.0. All labels are compared with the mask in one batched
+    pass."""
+    H, W = mask.shape[-2:]
+    lead = mask.shape[:-2]
     dev = mask.device
     labels = torch.arange(1, max_dets + 1, dtype=torch.int32, device=dev)
-    m = mask[None] == labels[:, None, None]                     # (L, H, W)
-    cols = torch.any(m, dim=1)                                  # (L, W)
-    rows = torch.any(m, dim=2)                                  # (L, H)
-    valid = torch.any(rows, dim=1)
+    m = mask[..., None, :, :] == labels[:, None, None]          # (..., L, H, W)
+    cols = torch.any(m, dim=-2)                                 # (..., L, W)
+    rows = torch.any(m, dim=-1)                                 # (..., L, H)
+    valid = torch.any(rows, dim=-1)
     u = torch.arange(W, dtype=torch.float32, device=dev)
     v = torch.arange(H, dtype=torch.float32, device=dev)
     big = 1e9
-    x1 = torch.amin(torch.where(cols, u, big), dim=1)
-    y1 = torch.amin(torch.where(rows, v, big), dim=1)
-    x2 = torch.amax(torch.where(cols, u, -big), dim=1)
-    y2 = torch.amax(torch.where(rows, v, -big), dim=1)
+    x1 = torch.amin(torch.where(cols, u, big), dim=-1)
+    y1 = torch.amin(torch.where(rows, v, big), dim=-1)
+    x2 = torch.amax(torch.where(cols, u, -big), dim=-1)
+    y2 = torch.amax(torch.where(rows, v, -big), dim=-1)
     boxes = torch.stack([x1, y1, x2 + 1, y2 + 1], dim=-1)
-    boxes = torch.where(valid[:, None], boxes, 0.0)
-    return boxes, torch.ones((max_dets,), device=dev), valid, labels
+    boxes = torch.where(valid[..., None], boxes, 0.0)
+    return (boxes, torch.ones(lead + (max_dets,), device=dev), valid,
+            labels.expand(lead + (max_dets,)))

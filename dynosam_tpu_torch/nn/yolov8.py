@@ -198,3 +198,21 @@ class YoloV8Seg(nn.Module):
                 out[key].append(nhwc(getattr(self, f"{name}{i}_2")(y)))
         out["proto"] = nhwc(self.proto(n3))
         return out
+
+
+def strides_for(input_hw) -> tuple:
+    """The head's strides (P3, P4, P5) at any input size."""
+    return (8, 16, 32)
+
+
+def init_params(seed: int = 0, num_classes: int = 80, scale: str = "n", input_hw=(384, 640),
+                dtype=torch.float32, device="cuda"):
+    """A freshly initialised network -> (model, its state_dict), torch's
+    default initialisation drawn from `seed` (the global generator is left
+    as it was). The weights' shapes do not depend on `input_hw`, which is
+    kept for the reference's signature."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = YoloV8Seg(num_classes=num_classes, scale=scale)
+    model = model.to(device=device, dtype=dtype)
+    return model, model.state_dict()

@@ -29,6 +29,22 @@ def sample_nearest(img, uv, nb: int = 0):
     return img[b, vi, ui]
 
 
+def sample_bilinear(img, uv):
+    """Bilinear sample of img (H, W[, C]) at uv (..., 2) -> (...[, C])."""
+    h, w = img.shape[0], img.shape[1]
+    u, v = _clip_uv(uv, h, w)
+    u0, v0 = torch.floor(u), torch.floor(v)
+    du, dv = u - u0, v - v0
+    u0i, v0i = u0.long(), v0.long()
+    u1i = torch.clamp(u0i + 1, max=w - 1)
+    v1i = torch.clamp(v0i + 1, max=h - 1)
+    if img.ndim == 3:
+        du, dv = du[..., None], dv[..., None]
+    top = img[v0i, u0i] * (1.0 - du) + img[v0i, u1i] * du
+    bot = img[v1i, u0i] * (1.0 - du) + img[v1i, u1i] * du
+    return top * (1.0 - dv) + bot * dv
+
+
 def sample_flow(flow, uv, nb: int = 0):
     return sample_nearest(flow, uv, nb)
 

@@ -34,6 +34,12 @@ def solve_rigid(p, q, w=None):
     return lie.make_pose(R, t)
 
 
+def alignment_error(T, p, q):
+    """Per-point residual norms || T p - q ||: T (..., 4, 4), p and q
+    (..., N, 3) -> (..., N)."""
+    return torch.linalg.norm(lie.transform_points(T[..., None, :, :], p) - q, dim=-1)
+
+
 def _normalize(v, eps=1e-12):
     return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True) + eps)
 

@@ -172,21 +172,14 @@ def _map_tensors(fn, obj):
 
 
 def _refuse_unbatched(cfg: DynoConfig):
-    """NotImplementedError for a frontend mode the batched modules do not
-    run yet (ROADMAP item 21); every backend formulation runs batched."""
-    fp = cfg.frontend
-    tp = fp.tracker
-    why = []
-    if not tp.prefer_provided_optical_flow:
-        why.append("KLT tracking")
-    if not tp.prefer_provided_object_detection:
-        why.append("the detector's ByteTrack relabelling")
-    if fp.use_imu:
-        why.append("the IMU")
-    if why:
-        raise NotImplementedError(
-            "make_batched_pipeline: " + ", ".join(why) + " not batched yet (ROADMAP item 21: "
-            "the batched frontend runs the provided flow only)"
+    """ValueError for KLT tracking, which the reference's batch cannot run
+    either: its batch is built without an image_shape (`_init_batch`), so
+    its `empty_frontend_state` raises in KLT mode."""
+    if not cfg.frontend.tracker.prefer_provided_optical_flow:
+        raise ValueError(
+            "make_batched_pipeline: KLT tracking (prefer_provided_optical_flow=False) needs the "
+            "previous frame in the state, and the reference's batch is built without an "
+            "image_shape (_init_batch), so its empty_frontend_state raises in KLT mode"
         )
 
 
@@ -208,14 +201,17 @@ def make_batched_pipeline(
     stays one host integer, `GraphState.num_frames`, as the reference's
     sequences advance together under vmap. Every formulation runs batched
     (backend_updater_enum 0 WCME, 1 WCPE, 2 or 3 hybrid, decoupled or
-    joint), dispatched as make_fused_step dispatches.
+    joint), dispatched as make_fused_step dispatches, and every frontend
+    mode of the reference's vmapped step: the provided flow with provided
+    object ids or the detector's ByteTrack relabelling
+    (prefer_provided_object_detection=False), the IMU with its rotation
+    prior on frames carrying an IMU window, and in-loop stereo on frames
+    carrying a right image (decided for the whole batch).
 
     The reference's `mesh=` argument, which shards the sequence axis over a
-    device mesh, has no counterpart on one GPU and is not taken. KLT, the
-    IMU and the detector's ByteTrack relabelling raise NotImplementedError
-    here, and the step raises it on frames carrying a right image (stereo)
-    (ROADMAP item 21); mask propagation never runs, as the reference's
-    batch is built without an image shape."""
+    device mesh, has no counterpart on one GPU and is not taken. As in the
+    reference, whose batch is built without an image shape (`_init_batch`),
+    KLT tracking raises ValueError here, and mask propagation never runs."""
     cfg = _incremental(cfg)
     _refuse_unbatched(cfg)
     enum = cfg.backend.backend_updater_enum

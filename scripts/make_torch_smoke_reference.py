@@ -61,6 +61,19 @@ dynosam_tpu_torch/testdata/:
     the same batched run with the WCME (backend_updater_enum 0) and WCPE
     (1) backends and the joint hybrid solve (decoupled_object_solve off),
     keys as bench_batched_ref_b8_20f.npz.
+  * bench_batched_bytetrack_ref_b8_14f.npz and
+    bench_batched_stereo_imu_ref_b8_14f.npz (--only batched_modes) — the
+    batched step at the port's bench_config.batched_bytetrack_config() /
+    batched_stereo_imu_config() (set in the JAX package's DynoConfig without
+    editing it) over B=8 sequences, sequence b taking scene frames b ..
+    b+13: the window fills and then advances 4 times. ByteTrack runs on the
+    bench frames with each mask's labels permuted per frame and per
+    sequence by bench_config.label_permutations(0, ...), saved as
+    `label_lut` (frames, B, 17); stereo + IMU on the frames of the stereo_imu
+    file (world-textured, right image, 1.15x depth, 32 IMU samples). Keys as
+    bench_batched_ref_b8_20f.npz, plus per frame and sequence n_static /
+    n_dynamic, the valid track counts, and the static tracks' s_uv,
+    s_depth and s_valid.
   * bench_pipelined_ref_20f.npz (--only pipelined) — the pipelined fused
     step (make_fused_step(..., pipelined=True), jitted) at
     bench.bench_config() over the 20 bench frames, keys as
@@ -87,7 +100,7 @@ dynosam_tpu_torch/testdata/:
     missed_rate; and the checkpoint's sidecar numbers as json_*.
 
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
-    [--only bench|detector|kitti|klt|stereo_imu|forms|batched|batched_forms|pipelined|datasets|heldout]
+    [--only bench|detector|kitti|klt|stereo_imu|forms|batched|batched_forms|batched_modes|pipelined|datasets|heldout]
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
 after it; the forms files' CPU time is in CHANGES.md)
@@ -132,6 +145,9 @@ FORMS_KITTI = {"wcme": 0, "wcpe": 1}
 KITTI_FORMS_OUT = os.path.join(TESTDATA, "kitti_forms_ref_60f.npz")
 BATCHED_B = 8
 BATCHED_OUT = os.path.join(TESTDATA, "bench_batched_ref_b8_20f.npz")
+BATCHED_MODES_FRAMES = 14     # the window fills, then advances 4 times
+BATCHED_BYTETRACK_OUT = os.path.join(TESTDATA, f"bench_batched_bytetrack_ref_b8_{BATCHED_MODES_FRAMES}f.npz")
+BATCHED_STEREO_IMU_OUT = os.path.join(TESTDATA, f"bench_batched_stereo_imu_ref_b8_{BATCHED_MODES_FRAMES}f.npz")
 PIPELINED_OUT = os.path.join(TESTDATA, "bench_pipelined_ref_20f.npz")
 DATASETS_OUT = os.path.join(TESTDATA, "datasets_ref_12f.npz")
 HELDOUT_OUT = os.path.join(TESTDATA, "det_heldout_ref_48.npz")
@@ -232,20 +248,18 @@ def klt_reference():
     _save(KLT_OUT, _run(step, state, frames, track_counts=True), t0)
 
 
-def stereo_imu_reference():
-    import jax
+def _stereo_imu_frames(intr, n):
+    """frame(k) of the port's bench scene, world-textured, rendered by the
+    JAX package over `n` frames: the right image at +baseline along camera
+    x, the provided depth corrupted by DEPTH_CORRUPTION and the
+    IMU_SAMPLES-sample window of the interval before it."""
     import jax.numpy as jnp
 
     from dynosam_tpu.dataproviders.simulator import ObjectSpec, ScenarioSpec
     from dynosam_tpu.dataproviders.synthetic_dense import DenseScenario
-    from dynosam_tpu.parallel.batched import init_pipeline_state, make_fused_step
     from dynosam_tpu_torch import bench_config as tbench
 
-    t0 = time.time()
-    cfg, intr = _klt_cfg(**{"frontend.use_imu": True, "frontend.imu.use_rotation_prior": True})
-    # the port's bench scene, world-textured, rendered by the JAX package
-    tscene = tbench.bench_scene(tbench.bench_config()[1], STEREO_IMU_FRAMES, device="cpu",
-                                world_texture=True)
+    tscene = tbench.bench_scene(tbench.bench_config()[1], n, device="cpu", world_texture=True)
     sp = tscene.scn.spec
     spec = ScenarioSpec(
         num_frames=sp.num_frames, num_static=0, camera_motion_xi=sp.camera_motion_xi,
@@ -267,10 +281,72 @@ def stereo_imu_reference():
                           right=scene._world_rgb(X_r, L_k, depth_r, mask_r),
                           imu_samples=imu, imu_valid=imu_valid)
 
+    return frame
+
+
+def stereo_imu_reference():
+    import jax
+
+    from dynosam_tpu.parallel.batched import init_pipeline_state, make_fused_step
+
+    t0 = time.time()
+    cfg, intr = _klt_cfg(**{"frontend.use_imu": True, "frontend.imu.use_rotation_prior": True})
+    frame = _stereo_imu_frames(intr, STEREO_IMU_FRAMES)
     step = jax.jit(make_fused_step(cfg, intr))
     state = init_pipeline_state(cfg, image_shape=(intr.height, intr.width))
     frames = [frame(k) for k in range(STEREO_IMU_FRAMES)]
     _save(STEREO_IMU_OUT, _run(step, state, frames, track_counts=True), t0)
+
+
+def batched_modes_reference():
+    """The batched step over B=8 sequences in the two frontend modes of the
+    port's bench_config.batched_{bytetrack,stereo_imu}_config(), sequence b
+    taking scene frames b .. b+BATCHED_MODES_FRAMES-1."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import bench
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu.parallel.batched import make_batched_pipeline
+    from dynosam_tpu_torch import bench_config as tbench
+
+    B, n = BATCHED_B, BATCHED_MODES_FRAMES
+
+    def stack(frames):
+        return jax.tree.map(lambda *x: jnp.stack(x), *frames)
+
+    def run(path, tcfg, intr, stacked, extra):
+        t0 = time.time()
+        step, init = make_batched_pipeline(DynoConfig.from_dict(dataclasses.asdict(tcfg)), intr)
+        state = init(B)
+        outs = {k: [] for k in KEYS + ("n_static", "n_dynamic", "s_uv", "s_depth", "s_valid")}
+        for fr in stacked:
+            state, out = step(state, fr)
+            for key in KEYS:
+                outs[key].append(np.asarray(out[key]))
+            trk = state.frontend.tracker
+            outs["n_static"].append(np.asarray(trk.s_valid.sum(-1)))
+            outs["n_dynamic"].append(np.asarray(trk.d_valid.sum(-1)))
+            for key in ("s_uv", "s_depth", "s_valid"):
+                outs[key].append(np.asarray(getattr(trk, key)))
+        _save(path, {**{k: np.stack(v) for k, v in outs.items()}, **extra}, t0)
+
+    # ByteTrack: the bench frames with each mask's labels permuted per frame
+    # and per sequence (bench_config.label_permutations, seed 0)
+    tcfg, _ = tbench.batched_bytetrack_config()
+    _, intr = bench.bench_config()
+    frames = bench.make_frames(intr, num_frames=n + B - 1)
+    lut = tbench.label_permutations(0, n, B, 2 * tcfg.frontend.max_objects)
+    stacked = [stack([frames[k + b].replace(mask=jnp.asarray(lut[k, b])[frames[k + b].mask])
+                      for b in range(B)]) for k in range(n)]
+    run(BATCHED_BYTETRACK_OUT, tcfg, intr, stacked, {"label_lut": lut})
+
+    # stereo + IMU on the provided flow
+    tcfg, _ = tbench.batched_stereo_imu_config()
+    frame = _stereo_imu_frames(intr, n + B - 1)
+    frames = [frame(k) for k in range(n + B - 1)]
+    run(BATCHED_STEREO_IMU_OUT, tcfg, intr, [stack(frames[k:k + B]) for k in range(n)], {})
 
 
 def detector_reference():
@@ -629,11 +705,11 @@ def datasets_reference():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched",
-                                       "batched_forms", "pipelined", "datasets", "heldout"],
+                                       "batched_forms", "batched_modes", "pipelined", "datasets", "heldout"],
                     action="append", help="write only these files (default: all)")
     args = ap.parse_args()
     todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "batched_forms",
-                         "pipelined", "datasets", "heldout"]
+                         "batched_modes", "pipelined", "datasets", "heldout"]
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -651,6 +727,8 @@ def main():
         batched_reference()
     if "batched_forms" in todo:
         batched_reference(forms=True)
+    if "batched_modes" in todo:
+        batched_modes_reference()
     if "pipelined" in todo:
         pipelined_reference()
     if "datasets" in todo:

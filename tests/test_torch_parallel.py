@@ -38,6 +38,8 @@ from dynosam_tpu_torch.parallel import batched as tbatched
 from dynosam_tpu_torch.parallel import sharded as tsharded
 from dynosam_tpu_torch.utils import lie as tlie
 from torch_port_util import np_tree, port_cfg, reference_draws, small_cfg, t, to_port
+from torch_port_util import seq_of as _seq
+from torch_port_util import stack_frames as _stack_frames
 
 torch.set_num_threads(1)
 B = 3
@@ -45,20 +47,6 @@ F = 4                      # window slots
 N = 5                      # frames per sequence: the last one advances the window
 POSE_TOL, MOTION_TOL = 1e-5, 2e-4          # batched vs unbatched (module docstring)
 _SAMPLE = ransac._sample_indices
-
-
-def _stack_frames(frames):
-    f0 = frames[0]
-    return dataclasses.replace(f0, **{k: torch.stack([getattr(f, k) for f in frames])
-                                      for k in f0.tensors()})
-
-
-def _seq(obj, b):
-    """Sequence b of a batched output dict or (nested) dataclass; host ints
-    stay."""
-    if isinstance(obj, dict):
-        return {k: v[b] for k, v in obj.items()}
-    return tbatched._map_tensors(lambda x: x[b], obj)
 
 
 def _inject(mp, draws):
@@ -298,18 +286,18 @@ def test_chunked_optimize(runs, chunk_state):
 
 
 def test_unbatched_configurations_raise(runs):
-    """The batched step refuses the frontend modes its modules do not batch
-    yet, naming ROADMAP item 21: KLT, the detector's ByteTrack relabelling
-    and the IMU when it is built; stereo (frames carrying a right image)
-    and mask propagation (a state carrying the previous mask) when a
-    batched frontend step meets them. Every backend formulation runs."""
+    """The batched step refuses what the reference's batch cannot run: KLT
+    (ValueError when it is built, the type the reference's
+    empty_frontend_state raises, as its batch is built without an
+    image_shape) and mask propagation (a state carrying the previous mask,
+    which the reference's batch never carries). The detector's ByteTrack
+    relabelling, the IMU and stereo (frames carrying a right image) build
+    and step, as every backend formulation builds."""
     cfg = runs["tcfg"]
     td = runs["td"]
-    for over in ({"frontend.tracker.prefer_provided_optical_flow": False},
-                 {"frontend.tracker.prefer_provided_object_detection": False},
-                 {"frontend.use_imu": True}):
-        with pytest.raises(NotImplementedError, match="item 21"):
-            tbatched.make_batched_pipeline(cfg.with_overrides(over), td.intr)
+    with pytest.raises(ValueError, match="built without an image_shape"):
+        tbatched.make_batched_pipeline(
+            cfg.with_overrides({"frontend.tracker.prefer_provided_optical_flow": False}), td.intr)
     for over in ({"backend.backend_updater_enum": 0}, {"backend.backend_updater_enum": 1},
                  {"backend.decoupled_object_solve": False}):
         tbatched.make_batched_pipeline(cfg.with_overrides(over), td.intr)
@@ -319,8 +307,20 @@ def test_unbatched_configurations_raise(runs):
     frames = _stack_frames([td.frame(0), td.frame(1)])
     one = empty_frontend_state(cfg.frontend, "cpu", image_shape=tuple(frames.rgb.shape[1:3]))
     batched = tbatched._map_tensors(lambda x: x.expand((2,) + x.shape).clone(), one)
-    with pytest.raises(NotImplementedError, match="item 21"):    # mask propagation
+    with pytest.raises(NotImplementedError, match="never runs batched"):    # mask propagation
         frontend_step(batched, frames, td.intr, cfg.frontend)
-    state = runs["tinit"](2, "cpu").frontend
-    with pytest.raises(NotImplementedError, match="item 21"):    # stereo
-        frontend_step(state, dataclasses.replace(frames, right=frames.rgb), td.intr, cfg.frontend)
+
+    imu = [td.scn.imu_window(k, 8) for k in (0, 1)]
+    modes = {
+        "bytetrack": ({"frontend.tracker.prefer_provided_object_detection": False}, frames),
+        "imu": ({"frontend.use_imu": True, "frontend.imu.use_rotation_prior": True},
+                dataclasses.replace(frames, imu_samples=torch.stack([w for w, _ in imu]),
+                                    imu_valid=torch.stack([v for _, v in imu]))),
+        "stereo": ({}, dataclasses.replace(frames, right=frames.rgb)),
+    }
+    for name, (over, fr) in modes.items():
+        step, init = tbatched.make_batched_pipeline(cfg.with_overrides(over), td.intr,
+                                                    torch.Generator().manual_seed(0))
+        st, out = step(init(2, "cpu"), fr)
+        assert out["X_world_cam"].shape == (2, 4, 4) and st.graph.num_frames == 1, name
+        assert bool(torch.isfinite(out["X_world_cam"]).all()), name

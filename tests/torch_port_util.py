@@ -157,6 +157,24 @@ def inject_draws(monkeypatch, draws):
     return queue
 
 
+def stack_frames(frames):
+    """One port FrameInputs with a leading batch axis from per-sequence
+    frames."""
+    f0 = frames[0]
+    return dataclasses.replace(f0, **{k: torch.stack([getattr(f, k) for f in frames])
+                                      for k in f0.tensors()})
+
+
+def seq_of(obj, b):
+    """Sequence b of a batched output dict or (nested) dataclass; host ints
+    stay."""
+    from dynosam_tpu_torch.parallel.batched import _map_tensors
+
+    if isinstance(obj, dict):
+        return {k: v[b] for k, v in obj.items()}
+    return _map_tensors(lambda x: x[b], obj)
+
+
 def port_intr(intr):
     """The port's CameraIntrinsics of JAX intrinsics."""
     from dynosam_tpu_torch.cv import camera as tcam
