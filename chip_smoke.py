@@ -11,7 +11,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
      (response + per-cell argmax, the main path's): random and constant
      frames at 384x1280 and 384x640 with cell 16 (on the constant frame
      every cell ties, so each must take its top-left pixel), 384x1280 with
-     cell 8, and an (8, 384, 1280) batch whose images each equal their
+     cell 8, random and constant 375x1242 frames with cell 8 (the rich
+     fixture's and KITTI's unpadded frames, partial cells at the right and
+     bottom edges), random and constant 384x1248 and 96x320 frames with
+     cell 8 (phase 15's padded rich frames and the fixture's: a last column
+     tile narrower than the kernel's, loaded 16 bytes at a time), a random
+     384x640 frame with cell 8 (phase 16), and an (8, 384, 1280) batch whose images each equal their
      single-image result; `best` bit for bit or within KERNEL_RTOL, with
      the near-tie cells counted, and (u, v) equal in every cell. The map
      entry: random, constant and a (3, 384, 1280) batch. Then, in one
@@ -29,8 +34,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
      detector scene's frame 0. Entry B (mask_label, the label image in one
      launch): random (32, 96x160 -> 384x640) inputs with boxes crossing the
      border and each other, invalid rows with NaN coefficients and two
-     tied scores, a ragged K=5 (37x61 -> 148x244) and the detector's frame
-     0, each with box_pad 0 and 2; every label pixel equal to plain but
+     tied scores, a ragged K=5 (37x61 -> 148x244), the detector's frame 0
+     (phase 16's shape too), and at the detected-masks accuracy run's
+     shape (the committed checkpoint at the dyno-KITTI fixture's 96x320,
+     24x80 prototypes) random inputs and the fixture's frame 0 (no
+     detection there: an all-background label image), each
+     with box_pad 0 and 2; every label pixel equal to plain but
      where a detection's plain interpolated value lies within K2_NEAR of
      the threshold (counted, at most K2_NEAR_SHARE of the pixels). Then the
      times, measured as in phase 3, in turns: entry A v4, v3 (the kernel
@@ -102,9 +111,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
      bounds and poses + object motions to
      dynosam_tpu_torch/testdata/bench_{wcme,wcpe,joint}_ref_20f.npz, the
      joint run's marginal covariances of its final window to the
-     reference's; then the pipeline path's entry-point code over the 60
-     fixture frames in incremental mode with WCME and WCPE, held to
-     kitti_forms_ref_60f.npz as phase 9 holds hybrid. Every run: the fused
+     reference's; then the pipeline path's entry-point code over the first
+     30 fixture frames (cut from 60 to pay for phases 15 and 16) in
+     incremental mode with WCME and WCPE, held to kitti_forms_ref_30f.npz
+     as phase 9 holds hybrid. Every run: the fused
      K1 once per frame, the map entry never, host syncs counted with their
      sites;
   11. batched path: make_batched_pipeline at bench_config() over B=1 and
@@ -115,7 +125,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
      sequence's camera poses held to the ground truth and poses + object
      motions to dynosam_tpu_torch/testdata/bench_batched_ref_b8_20f.npz at
      the bench path's bounds; the device operations per advancing frame
-     (torch.profiler over two frames) at B=8 at most 1.5x those at B=1;
+     (torch.profiler over the last frame) at B=8 at most 1.5x those at B=1;
      aggregate and per-sequence frames/s and host syncs per frame; and on
      the B=1 run's final window the landmark-chunked assembly
      (parallel/sharded.py, P=4) held to hybrid.linearize; then WCME, WCPE
@@ -137,7 +147,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
      object motions held to the scene's ground truth and to the JAX run of
      dynosam_tpu_torch/testdata/datasets_ref_12f.npz (DATASET_BOUNDS); the
      first frame's inputs and graph state on the card; the fused K1 once per
-     frame, the map entry never; frames/s and decode ms per frame;
+     frame, the map entry never; frames/s and decode ms per frame; then the
+     committed progressive JPEG (testdata/progressive_1242x375.jpg, written
+     by cv2 with IMWRITE_JPEG_PROGRESSIVE) decoded by jpeg.py equal to
+     cv2's decode committed beside it, with the ms per frame;
   13. tooling: python -m dynosam_tpu_torch.run_dynosam's main() with --viz
      over 12 fixture frames (tracking PNGs, the trajectory plot and the
      Motion-JPEG AVI decoded and checked), the same frames' packets saved
@@ -166,7 +179,30 @@ Phases, each printing one line; any failure raises and exits non-zero:
      frame, aggregate frames/s, device ops, busy time and idle share per
      advancing frame (torch.profiler over the last frame), K1b's device ms
      and host syncs with their sites;
-  15. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
+  15. rich fixture: bench_config.fixture_scenario(50, 1242, 375, rich=True)
+     (scripts/accuracy_rich.py's scene: four cars, the fourth crossing
+     behind the lead car) rendered on the host, written by the port's
+     dyno-KITTI writer to a temporary directory, read back onto the card
+     through
+     run_dynosam.open_dataset / build_pipeline / DynoPipeline.run and run in
+     hybrid incremental at the observability floor RICH_MIN_AREA with the
+     evaluator: the objects the floor withholds and the resample flags
+     equal to the nearest JAX seed's in every frame, mature camera poses
+     and matured motions to that seed's (RICH_REF_BOUNDS) and the
+     evaluator's numbers to the seeds' range, in
+     dynosam_tpu_torch/testdata/rich_ref_50f.npz; the fused K1 once per
+     frame, the map entry never;
+  16. detector pipeline: scripts/accuracy_detector.py run_cell
+     (eval/accuracy.py) over the first 20 frames of the detector's scene
+     (bench_config.detector_scene, rendered on the host and written to
+     disk) with the committed YOLOv8-seg checkpoint at 384x640 and
+     ByteTrack supplying the masks to DynoPipeline (hybrid
+     sliding-window): the packets' object
+     ids, the association of estimated ids to ground-truth ids, poses,
+     matured motions and the run's result held to
+     dynosam_tpu_torch/testdata/det_acc_ref_20f.npz; the fused K1 and K2's
+     entry B once per frame, entry A and the K1 map entry never;
+  17. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
      K2 entry A, K2 entry B), with each one's bound (the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates), loop-timed `ms` / `plain_ms` / `library_ms`
@@ -276,15 +312,16 @@ HELDOUT_CLASS_ACC = 0.0       # |class accuracy - reference|
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KITTI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "kitti_fixture")
 # the three modes and the deferred run take the first PIPE_FRAMES frames (cut
-# from all 60 to keep the smoke near half its time limit); the real-io run
-# and phase 10's fixture runs take all 60
+# from all 60 to keep the smoke near half its time limit), and so do phase
+# 10's fixture runs (cut from 60 to pay for phases 15 and 16); the real-io
+# run takes all 60
 PIPE_FRAMES = 30
 REAL_IO_FRAMES = 60
 # phase 5b: the pipelined step over the first PIPELINED_FRAMES bench frames
 # (two advancing frames), held to the first PIPELINED_FRAMES of
 # bench_pipelined_ref_20f.npz
 PIPELINED_FRAMES = 12
-FORM_KITTI_FRAMES = 60
+FORM_KITTI_FRAMES = 30
 KITTI_MODES = ("incremental", "sliding_window", "full_batch")
 DRAIN_EVERY = 16              # deferred run: drains after frames 16, 32, 48 and at the end
 DEFERRED_LOGS = ("camera_pose", "object_motion", "object_pose", "object_bbx")
@@ -366,13 +403,67 @@ FORM_KITTI = {"wcme": 0, "wcpe": 1}
 # (CPU) and 3.2e-2 (H100) of each block's largest entry (an f32 inverse of
 # a system spanning 1e-5 to 1e8).
 FORM_COV_REL = 0.1
-# Fixture forms against kitti_forms_ref_60f.npz (seed 0), as phase 9: JAX
-# seeds 1, 2 vs 0 / torch on the CPU (4 threads), wcme and wcpe alike:
-# pose 1.2e-5 / 1.7e-5 m, 1.8e-7 / 2.5e-7 rad; motions max 5.0e-4 /
-# 3.4e-4 m, median 7.3e-6 / 1.8e-5 (wcpe 1.1e-5 / 1.8e-5) m; the H100 read
-# pose 1.7e-5 / 1.6e-5 m, 1.3e-7 rad, motions max 5.5e-4 m, median 1.3e-5 /
-# 2.0e-5 m (wcme / wcpe). Bounds ~4x the largest reading, the poses' ~10x.
+# Fixture forms against kitti_forms_ref_30f.npz (seed 0), as phase 9. Over
+# 60 frames (the runs' length before the cut) JAX seeds 1, 2 vs 0 / torch
+# on the CPU (4 threads), wcme and wcpe alike: pose 1.2e-5 / 1.7e-5 m,
+# 1.8e-7 / 2.5e-7 rad; motions max 5.0e-4 / 3.4e-4 m, median 7.3e-6 / 1.8e-5 (wcpe 1.1e-5
+# / 1.8e-5) m; the H100 read pose 1.7e-5 / 1.6e-5 m, 1.3e-7 rad, motions
+# max 5.5e-4 m, median 1.3e-5 / 2.0e-5 m (wcme / wcpe). Over 30 frames the
+# H100 read pose 1.95e-6 m, 8.9e-8 / 7.9e-8 rad, motions max 1.16e-4 m,
+# median 1.06e-5 / 1.29e-5 m. Bounds ~4x the largest reading, the poses'
+# ~10x, kept from the 60-frame runs.
 FORM_KITTI_BOUNDS = {"pose_m": 2e-4, "pose_rad": 2e-6, "motion_max_m": 2e-3, "motion_median_m": 1e-4}
+# phase 15: the rich fixture (bench_config.fixture_scenario at 1242x375,
+# rich=True) rendered on the host as the JAX reference's files were,
+# written by the port's dyno-KITTI writer (about 3.7 MB of .flo per frame,
+# to a temporary directory removed after), read back onto the card through
+# run_dynosam.open_dataset (padded to 384x1248) and run in hybrid
+# incremental at the observability floor RICH_MIN_AREA over its first
+# RICH_FRAMES frames: object 3 falls below the floor at frames 30-32, slots
+# 2 and 3 are resampled at frames 30-35 (in every JAX seed). Held to the
+# nearest of the JAX seeds 0-5 in testdata/rich_ref_50f.npz: poses and
+# matured motions at RICH_REF_BOUNDS, the withheld objects and the resample
+# flags equal in every frame, the evaluator inside the seeds' range
+# (KITTI_RANGE_MARGIN).
+RICH_HW = (375, 1242)
+RICH_FRAMES = 50
+# The render stays on the host: the scene's f32 trajectory is
+# ill-conditioned at the fixture's 0.002 rad yaw (se3_exp's (1 - cos) /
+# theta^2 loses ~1.5% to one ulp of cos), so a render with the card's sin /
+# cos moves the scene ~7e-6 m per frame and is another disparity
+# quantisation draw (the H100 read 1.30e-3 m from the nearest seed that
+# way). On the scene the CPU renders, against the nearest seed: torch on
+# the CPU read pose 1.2e-5 m, 1.6e-7 rad, motions max 2.5e-4 m, median
+# 8.8e-6 m; the H100 2.8e-6 m, 1.9e-7 rad, 2.2e-4 m, 6.0e-6 m (and,
+# rendering itself with host-built trajectory chains, 4.4e-6 m, 1.4e-7
+# rad, 3.4e-4 m, 1.1e-5 m). Bounds ~6-10x the largest reading, phase 10's.
+RICH_REF_BOUNDS = {"pose_m": 1e-4, "pose_rad": 2e-6, "motion_max_m": 2e-3, "motion_median_m": 1e-4}
+# phase 16: scripts/accuracy_detector.py run_cell with the detected masks
+# (the committed checkpoint, score DET_ACC_SCORE, ByteTrack; hybrid
+# sliding-window, window 8) over the first DET_PIPE_FRAMES frames of
+# bench_config.detector_scene, the scene the checkpoint was trained on
+# (it finds nothing on the dyno-KITTI fixture at 96x320), rendered on the
+# host and written by the port's dyno-KITTI writer to a temporary
+# directory (eval/accuracy.py write_detector_scene), read back onto the
+# card at 384x640 and run through DynoPipeline. Held to the nearest (by
+# camera pose) of the JAX seeds 0-5 in testdata/det_acc_ref_20f.npz: the
+# packets' object ids in every frame, the association of ByteTrack's ids
+# to ground-truth ids and the result's counts equal, poses and matured
+# motions at DET_PIPE_BOUNDS, the result's ATE / AME within
+# DET_PIPE_RESULT (m). The detected run loses the camera by 0.52 m over
+# these frames (the provided masks' 2.0 cm), in the reference as in the
+# port, and the JAX seeds lie within 3.4e-4 m of each other in pose and
+# 3.3e-3 m in the AME median. Against the nearest seed (seed 2 on both),
+# torch on the CPU read 1.56e-4 m / 1.84e-5 rad, motions max 1.48e-3 m,
+# median 2.57e-5 m and a result 7.35e-4 m off; the H100 1.70e-4 m /
+# 2.60e-5 rad, 2.17e-3 m, 7.71e-5 m and 7.67e-4 m, ids and association
+# equal. Bounds ~4-6x the larger reading; the result's near the seeds' own
+# spread.
+DET_ACC_HW = (96, 320)         # the fixture's detector input (phase 4's entry-B case)
+DET_ACC_SCORE = 0.35
+DET_PIPE_FRAMES = 20
+DET_PIPE_BOUNDS = {"pose_m": 1e-3, "pose_rad": 1e-4, "motion_max_m": 1e-2, "motion_median_m": 3e-4}
+DET_PIPE_RESULT = 3e-3
 # batched path: B=1 and B=8 sequences, 20 frames each, from one scene of
 # 20 + 8 - 1 frames; every sequence held at the bench path's bounds (GT_*,
 # REF_*) to the ground truth and to bench_batched_ref_b8_20f.npz (B=1 to
@@ -474,6 +565,7 @@ TOOLING_DET_BOX_PX = 1e-3
 # DATASET_JPEG_LEVELS grey levels against the truncated render (the codec
 # itself equals OpenCV, tests/test_torch_codecs.py).
 DATASET_CHECK_FRAME = 5
+PROGRESSIVE_RUNS = 3          # decodes of the committed progressive file
 DATASET_VKITTI_FLOW_PX = 1e-3
 DATASET_JPEG_LEVELS = 12.0
 DATASET_MOTION_OVERLAP = 0.9
@@ -693,10 +785,19 @@ def check_k1(torch, seed):
         if not torch.equal(out_b[b], st.shi_tomasi_response(batch3[b].contiguous())):
             raise AssertionError(f"batched map image {b} differs from its single-image result")
 
-    # the fused entry
+    # the fused entry at the shapes the paths give it. 375x1242 with cell
+    # 8: the rich fixture and KITTI frames unpadded (the accuracy runs of
+    # eval/accuracy.py), partial cells at the right and bottom edges and
+    # W % 4 != 0 (the scalar loads). 384x1248 (phase 15, the rich fixture
+    # padded to multiples of 32 by run_dynosam) and 96x320 (the fixture:
+    # phases 9, 10, the sweep) with cell 8: W % 4 == 0 and a last column
+    # tile narrower than the kernel's 128 (the cp.async loads of a partial
+    # tile). 384x640 with cell 8: the detector scene (phase 16).
     cases = [((H, W), 16, "random"), ((H, W), 16, "constant"), ((H, 640), 16, "random"),
-             ((H, 640), 16, "constant"), ((H, W), 8, "random"), ((H, 640), 8, "constant"),
-             ((B, H, W), 16, "random")]
+             ((H, 640), 16, "constant"), ((H, W), 8, "random"), ((H, 640), 8, "random"),
+             ((H, 640), 8, "constant"), (RICH_HW, 8, "random"), (RICH_HW, 8, "constant"),
+             ((384, 1248), 8, "random"), ((384, 1248), 8, "constant"), ((96, 320), 8, "random"),
+             ((96, 320), 8, "constant"), ((B, H, W), 16, "random")]
     errs, bitwise, near = [], True, 0
     for shape, cell, kind in cases:
         img = rand(*shape) if kind == "random" else torch.full(shape, 0.5, device="cuda")
@@ -736,7 +837,8 @@ def check_k1(torch, seed):
     t1, t8 = times["b1"], times["b8"]
     say(f"K1 fused matches plain: best {'bit for bit' if bitwise else 'within KERNEL_RTOL'} "
         f"(max abs err {max(errs):.3e}), (u, v) equal in every cell, {near} near-tie cells, over "
-        f"{len(cases)} cases (384x1280 and 384x640, cells 16 and 8, constant frames take each "
+        f"{len(cases)} cases (384x1280, 384x640, 375x1242, 384x1248 and 96x320, cells 16 and 8, constant "
+        f"frames take each "
         f"cell's first pixel, an (8, 384, 1280) batch equal to its single images); map entry max "
         f"abs err {max(map_errs):.3e}, batch images equal")
     for label, t in times.items():
@@ -885,6 +987,25 @@ def unfused_label_route(v3):
     return run
 
 
+def fixture_label_inputs(torch, pp):
+    """Entry B's inputs at the fixture detector's frame 0: the engine of the
+    detected-masks accuracy run (the committed checkpoint at the fixture's
+    96x320, score DET_ACC_SCORE) on the fixture's frame 0 read from disk
+    -> (prototypes, coefficients, boxes, scores, valid)."""
+    from dynosam_tpu_torch.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
+
+    rgb = KittiDataProvider(KITTI_FIXTURE, device="cuda").frame(0).rgb
+    engine = YoloV8DetectorEngine(input_hw=DET_ACC_HW, score_threshold=DET_ACC_SCORE, device="cuda")
+    with torch.no_grad():
+        out = engine.model(rgb[None])
+        single = {k: [a[0] for a in v] if isinstance(v, list) else v[0] for k, v in out.items()}
+        det = pp.nms(*pp.decode_all(single), max_detections=engine.max_detections,
+                     score_threshold=engine.score_threshold, iou_threshold=engine.iou_threshold,
+                     class_ids=engine.class_ids)
+    return single["proto"], det.mcoef, det.boxes, det.scores, det.valid
+
+
 def check_k2(torch, seed, v3_lib):
     """Phase 4: both entries of K2 against their plain versions, and their
     times beside v3's (the kernel before this redesign, built from
@@ -935,12 +1056,20 @@ def check_k2(torch, seed, v3_lib):
     err_real = compare(real_proto, det.mcoef)
     err_a = max(err_rand, err_ragged, err_nchw, err_real)
 
-    # entry B: random, ragged and the real frame, box_pad 0 and 2
+    # entry B: random, ragged, the real frame, and at the shape of the
+    # detected-masks accuracy run (the engine at the fixture's 96x320, 24x80
+    # prototypes) random inputs and the fixture detector's frame 0, where
+    # the checkpoint finds nothing (no valid row: an all-background label
+    # image); box_pad 0 and 2
     out_hw = (384, 640)
+    fixture_inputs = fixture_label_inputs(torch, pp)
     cases = {"random (32, 96x160 -> 384x640)": _random_label_inputs(torch, gen, 32, 96, 160, *out_hw),
              "ragged (5, 37x61 -> 148x244)": _random_label_inputs(torch, gen, 5, 37, 61, 148, 244),
-             "detector frame 0": (real_proto, det.mcoef, det.boxes, det.scores, det.valid)}
+             "detector frame 0": (real_proto, det.mcoef, det.boxes, det.scores, det.valid),
+             "random (32, 24x80 -> 96x320)": _random_label_inputs(torch, gen, 32, 24, 80, *DET_ACC_HW),
+             f"fixture detector frame 0 ({int(fixture_inputs[4].sum())} valid, 24x80 -> 96x320)": fixture_inputs}
     hw = {"ragged (5, 37x61 -> 148x244)": (148, 244)}
+    hw.update({name: DET_ACC_HW for name in cases if "96x320" in name})
     label_lines, n_differ, n_near, away = [], 0, 0, 0
     for name, args in cases.items():
         for pad in (0.0, 2.0):
@@ -1139,8 +1268,8 @@ def pipelined_readings(torch, seed, ref_path, device="cuda"):
 
     def after(state):
         held["n"] += 1
-        if held["n"] == PIPELINED_FRAMES - 2:
-            held["before_last2"] = state
+        if held["n"] == PIPELINED_FRAMES - 1:
+            held["before_last"] = state
 
     st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
     outs, times = _drive(torch, step, init_pipeline_state(cfg, device), frames, device, after=after)
@@ -1155,7 +1284,9 @@ def pipelined_readings(torch, seed, ref_path, device="cuda"):
         bounds=(np.inf,) * 3)
     ops = busy = None
     if device == "cuda":
-        ops, busy, _ = profile_frames(torch, step, held["before_last2"], frames[-2:])
+        # the last frame again under the profiler: its event processing
+        # takes ~15 s per profiled frame on the card's host (phase 14)
+        ops, busy, _ = profile_frames(torch, step, held["before_last"], frames[-1:])
     return launches, rd, times, ops, busy
 
 
@@ -1440,15 +1571,16 @@ def _device_types(obj):
             if hasattr(getattr(obj, f.name), "device")}
 
 
-def kitti_run(torch, cfg, out_dir, device, seed, frames=PIPE_FRAMES):
+def kitti_run(torch, cfg, out_dir, device, seed, frames=PIPE_FRAMES, root=KITTI_FIXTURE, on_frame=None):
     """One run of the port's entry-point code (run_dynosam.open_dataset +
-    build_pipeline + DynoPipeline.run) over the committed fixture's first
-    `frames` frames, from disk -> (pipeline, frames, wall seconds, host
-    syncs). The first frame's FrameInputs and the GraphState after it must
-    lie on `device`."""
+    build_pipeline + DynoPipeline.run) over the first `frames` frames of
+    the dyno-KITTI sequence at `root` (the committed fixture), from disk ->
+    (pipeline, frames, wall seconds, host syncs). The first frame's
+    FrameInputs and the GraphState after it must lie on `device`.
+    `on_frame(pipeline, inputs, packet)` is called after each frame."""
     from dynosam_tpu_torch.run_dynosam import build_pipeline, open_dataset
 
-    intr, frame_it, gt_it, n = open_dataset(0, KITTI_FIXTURE, frames, cfg.backend.max_objects, device)
+    intr, frame_it, gt_it, n = open_dataset(0, root, frames, cfg.backend.max_objects, device)
     pipe = build_pipeline(cfg, intr, out_dir, device=device, seed=seed)
     first = {}
     process = pipe.process_frame
@@ -1462,7 +1594,7 @@ def kitti_run(torch, cfg, out_dir, device, seed, frames=PIPE_FRAMES):
     pipe.process_frame = checked
     with SyncCounter(torch, device) as syncs:
         t0 = time.perf_counter()
-        pipe.run(frame_it, gt_it)
+        pipe.run(frame_it, gt_it, on_frame=None if on_frame is None else (lambda i, p: on_frame(pipe, i, p)))
         dt = time.perf_counter() - t0
     want = torch.device(device).type
     off = {k: v for part in first.values() for k, v in part.items() if v != want}
@@ -1504,14 +1636,15 @@ def kitti_errors(pipe, ref, mode, run=None):
             "overlap": overlap}
 
 
-def compare_kitti(pipe, ref, mode):
+def compare_kitti(pipe, ref, mode, bounds=None):
     """kitti_errors against each JAX seed's run of `mode` in `ref`; the
-    nearest run (the least largest reading / bound) held to the mode's
-    KITTI_REF_BOUNDS and the key overlap to KITTI_MOTION_OVERLAP -> its
-    readings, with `run` its seed and `seed0` the readings against seed 0."""
+    nearest run (the least largest reading / bound) held to `bounds` (the
+    mode's KITTI_REF_BOUNDS) and the key overlap to KITTI_MOTION_OVERLAP
+    -> its readings, with `run` its seed, `prefix` its key prefix and
+    `seed0` the readings against seed 0."""
     runs = {int(ref["seeds"][0]): mode}
     runs.update({int(sd): f"{mode}_seed{int(sd)}" for sd in ref["seeds"][1:] if f"{mode}_seed{int(sd)}_X" in ref})
-    bounds = KITTI_REF_BOUNDS[mode]
+    bounds = bounds or KITTI_REF_BOUNDS[mode]
     errs = {sd: kitti_errors(pipe, ref, mode, run) for sd, run in runs.items()}
     seed, err = min(errs.items(), key=lambda kv: max(kv[1][k] / b for k, b in bounds.items()))
     if err["overlap"] < KITTI_MOTION_OVERLAP:
@@ -1519,7 +1652,7 @@ def compare_kitti(pipe, ref, mode):
     if not all(err[k] <= b for k, b in bounds.items()):
         raise AssertionError(f"{mode}: vs the nearest JAX run (seed {seed}), readings {err} against bounds "
                              f"{bounds}; vs each seed: {errs}")
-    return {**err, "run": seed, "seed0": errs[int(ref["seeds"][0])]}
+    return {**err, "run": seed, "prefix": runs[seed], "seed0": errs[int(ref["seeds"][0])]}
 
 
 def check_kitti_summary(summary, ref, mode):
@@ -1738,7 +1871,7 @@ def forms_bench_readings(torch, seed, name, ref_path, device="cuda"):
 
 def forms_kitti_readings(torch, seed, name, ref, out_dir, device="cuda"):
     """The entry point's pipeline over the fixture in incremental mode with
-    formulation `name` -> (launches, readings against kitti_forms_ref_60f,
+    formulation `name` -> (launches, readings against kitti_forms_ref_30f,
     evaluator summary, the phase's line)."""
     from dynosam_tpu_torch.bench_config import kitti_accuracy_config
     from dynosam_tpu_torch.eval.evaluator import DatasetEvaluator, summarize
@@ -1787,7 +1920,7 @@ def run_forms_path(torch, seed, testdata, device="cuda"):
             raise AssertionError(f"forms {name}: readings over their bounds (reading, bound): {over}")
         say(line)
         paths[f"forms_{name}"] = launches
-    ref = np.load(os.path.join(testdata, "kitti_forms_ref_60f.npz"))
+    ref = np.load(os.path.join(testdata, f"kitti_forms_ref_{FORM_KITTI_FRAMES}f.npz"))
     tmp = tempfile.mkdtemp(prefix="smoke_forms_")
     try:
         for name in FORM_KITTI:
@@ -1859,10 +1992,10 @@ def batched_readings(torch, seed, ref, B, device="cuda", form=None):
     held = {"n": 0}
 
     def after(state):
-        # the state before the last two frames, for their profiled replay
+        # the state before the last frame, for its profiled replay
         held["n"] += 1
-        if held["n"] == BATCHED_FRAMES - 2:
-            held["before_last2"] = state
+        if held["n"] == BATCHED_FRAMES - 1:
+            held["before_last"] = state
         held["last"] = state
 
     st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
@@ -1894,11 +2027,11 @@ def batched_readings(torch, seed, ref, B, device="cuda", form=None):
         rd["ref_m"], rd["ref_rad"] = max(rd["ref_m"], tr), max(rd["ref_rad"], rr)
         rd["motion_m"], rd["n_motions"] = max(rd["motion_m"], mot), rd["n_motions"] + n_mot
 
-    # device operations per advancing frame: the last two frames again, from
-    # the state before them, under the profiler (not counted as launches)
+    # device operations per advancing frame: the last frame again, from
+    # the state before it, under the profiler (not counted as launches)
     ops = busy = k1_ms = None
     if device == "cuda":
-        ops, busy, k1_ms = profile_frames(torch, step, held["before_last2"], stacked[-2:])
+        ops, busy, k1_ms = profile_frames(torch, step, held["before_last"], stacked[-1:])
     return launches, rd, held, times, sites, ops, busy, k1_ms
 
 
@@ -2526,6 +2659,209 @@ def run_datasets_path(torch, seed, ref_path, device="cuda", smi=""):
             f"vs JAX pose {r['ref_pose_m']:.2e} m / {r['ref_pose_rad']:.2e} rad, motions median "
             f"{r['ref_motion_median_m']:.2e} max {r['ref_motion_max_m']:.2e} m (key overlap "
             f"{r['ref_overlap']:.3f}); bounds {bounds}")
+    say(check_progressive_jpeg())
+    return launches
+
+
+def check_progressive_jpeg(testdata=os.path.join(ROOT, "dynosam_tpu_torch", "testdata")):
+    """Phase 12's progressive JPEG: the committed 1242x375 file that cv2
+    wrote with IMWRITE_JPEG_PROGRESSIVE, decoded by the port's jpeg.py on
+    this host, equal to cv2's decode committed beside it -> the line."""
+    import numpy as np
+
+    from dynosam_tpu_torch import jpeg
+
+    path = os.path.join(testdata, "progressive_1242x375.jpg")
+    want = np.load(os.path.join(testdata, "progressive_1242x375_cv2.npz"))["rgb"]
+    times = []
+    for _ in range(PROGRESSIVE_RUNS):
+        t0 = time.perf_counter()
+        got = jpeg.read_jpeg(path)
+        times.append(time.perf_counter() - t0)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"progressive JPEG: {int((got != want).sum())} values differ from cv2's decode")
+    return (f"progressive JPEG {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes, "
+            f"{want.shape[1]}x{want.shape[0]}): equal to cv2's decode pixel for pixel, median "
+            f"{statistics.median(times) * 1e3:.1f} ms per frame on the host over {PROGRESSIVE_RUNS} decodes")
+
+
+def rich_readings(torch, seed, ref, device="cuda"):
+    """Phase 15 without its bounds -> (launches, readings, evaluator
+    summary, the phase's line). The readings hold, against the nearest JAX
+    seed, the pose and motion errors (kitti_errors), `withheld_frames` and
+    `resampled_frames` (frames whose rows differ from that seed's) and the
+    times."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dynosam_tpu_torch.bench_config import RICH_MIN_AREA, kitti_accuracy_config
+    from dynosam_tpu_torch.eval.accuracy import write_rich
+    from dynosam_tpu_torch.eval.evaluator import DatasetEvaluator, summarize
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="smoke_rich_")
+    try:
+        t0 = time.perf_counter()
+        write_rich(os.path.join(tmp, "rich"), RICH_FRAMES, "cpu")
+        t_write = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(os.path.join(tmp, "rich"))
+                      for f in fs)
+        rows = []
+
+        def on_frame(pipe, inputs, packet):
+            tr = pipe.frontend_state.tracker
+            rows.append((tr.obj_ids.clone(), tr.obj_det_area.clone(), packet.object_resampled.clone(),
+                         tuple(inputs.mask.shape[-2:])))
+
+        cfg = kitti_accuracy_config("incremental", RICH_FRAMES, min_observable_mask_area=RICH_MIN_AREA)
+        st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+        pipe, n, dt, sync = kitti_run(torch, cfg, os.path.join(tmp, "out"), device, seed, RICH_FRAMES,
+                                      root=os.path.join(tmp, "rich"), on_frame=on_frame)
+        launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
+        if on_card and (launches["K1"], launches["K1 map"]) != (n, 0):
+            raise AssertionError(f"rich: fused K1 launched {launches['K1']} times and the map entry "
+                                 f"{launches['K1 map']} times over {n} frames")
+        summary = summarize(DatasetEvaluator(os.path.join(tmp, "out")).run_analysis()["dynosam_tpu"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    withheld, resampled = [], []
+    for ids, area, res, (h, w) in rows:
+        ids = ids.cpu().numpy()
+        floor = RICH_MIN_AREA * float(h * w)
+        withheld.append(np.where((ids > 0) & (area.cpu().numpy() < floor), ids, 0))
+        resampled.append(res.cpu().numpy())
+    withheld, resampled = np.stack(withheld), np.stack(resampled)
+    err = compare_kitti(pipe, ref, "incremental", RICH_REF_BOUNDS)
+    ref_w, ref_r = ref[f"{err['prefix']}_withheld"], ref[f"{err['prefix']}_resampled"]
+    rd = {**err, "withheld_frames": [k for k in range(n) if sorted(withheld[k][withheld[k] > 0]) !=
+                                     sorted(ref_w[k][ref_w[k] > 0])],
+          "resampled_frames": [k for k in range(n) if not np.array_equal(resampled[k], ref_r[k])],
+          "write_s": t_write, "run_s": dt}
+    held = {k: sorted(int(o) for o in withheld[k] if o > 0) for k in range(n) if (withheld[k] > 0).any()}
+    flagged = {k: np.flatnonzero(resampled[k]).tolist() for k in range(n) if resampled[k].any()}
+    syncs = sync.count
+    line = (f"rich: {n} frames of the rich fixture (1242x375, 4 objects) rendered on the host and written in "
+            f"{t_write:.2f} s ({written / 1e6:.1f} MB), read back padded to {rows[0][3][0]}x{rows[0][3][1]}, "
+            f"hybrid incremental at the floor {RICH_MIN_AREA} in {dt:.2f} s ({n / dt:.2f} frames/s, "
+            f"{syncs if syncs is not None else 'n/a'} host syncs), fused K1 launches {launches['K1']}, map entry "
+            f"{launches['K1 map']}; withheld {held} and resampled slots {flagged}, equal to JAX seed "
+            f"{err['run']}'s in every frame; camera ATE {summary['ate_unaligned_m'] * 100:.4f} cm, ATE rot "
+            f"{summary['ate_rot_rad']:.5f} rad, AME rms {summary['ame_rms_m'] * 100:.4f} cm, median "
+            f"{summary['ame_median_m'] * 100:.4f} cm, {summary['n_motions']:.0f} motions; vs the nearest JAX run, "
+            f"seed {err['run']}, over {err['n_motions']} matured motions (key overlap {err['overlap']:.4f}), "
+            f"reading / bound / vs seed 0: "
+            + ", ".join(f"{k} {err[k]:.2e} / {b:.0e} / {err['seed0'][k]:.2e}" for k, b in RICH_REF_BOUNDS.items()))
+    return launches, rd, summary, line
+
+
+def run_rich_path(torch, seed, ref_path, device="cuda"):
+    """Phase 15: rich_readings held to the nearest JAX seed -> launches."""
+    import numpy as np
+
+    ref = np.load(ref_path)
+    launches, rd, summary, line = rich_readings(torch, seed, ref, device)
+    if rd["withheld_frames"] or rd["resampled_frames"]:
+        raise AssertionError(f"rich: frames whose withheld objects ({rd['withheld_frames']}) or resample flags "
+                             f"({rd['resampled_frames']}) differ from JAX seed {rd['run']}'s")
+    ranges = check_kitti_summary(summary, ref, "incremental")
+    say(line + "; evaluator inside the JAX seed ranges "
+        + ", ".join(f"{k} [{lo:.6g}, {hi:.6g}]" for k, (lo, hi) in ranges.items()))
+    return launches
+
+
+def det_pipeline_readings(torch, seed, ref, device="cuda"):
+    """Phase 16 without its bounds -> (launches, readings, the phase's
+    line)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dynosam_tpu_torch.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu_torch.eval.accuracy import run_cell, write_detector_scene
+    from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
+    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+
+    tmp = tempfile.mkdtemp(prefix="smoke_det_pipe_")
+    try:
+        t0 = time.perf_counter()
+        write_detector_scene(tmp, DET_PIPE_FRAMES)
+        t_write = time.perf_counter() - t0
+        ds = KittiDataProvider(tmp, device=device)
+        hw = (int(ds.intrinsics().height), int(ds.intrinsics().width))
+        engine = YoloV8DetectorEngine(input_hw=hw, score_threshold=DET_ACC_SCORE, device=device)
+        ids = []
+        st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+        mc.mask_combine.launches = mc.mask_label.launches = 0
+        with SyncCounter(torch, device) as sync:
+            t0 = time.perf_counter()
+            r, pipe, assoc = run_cell(ds, DET_PIPE_FRAMES, engine, device, seed,
+                                      on_frame=lambda i, p: ids.append((p.object_ids.clone(),
+                                                                        p.object_valid.clone())))
+            dt = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"K1": st.shi_tomasi_cell_max.launches, "K2": mc.mask_combine.launches,
+                "K2 label": mc.mask_label.launches, "K1 map": st.shi_tomasi_response.launches}
+    n = DET_PIPE_FRAMES
+    if torch.device(device).type == "cuda" and launches != {"K1": n, "K2": 0, "K2 label": n, "K1 map": 0}:
+        raise AssertionError(f"detector pipeline: kernel launches {launches} over {n} frames")
+    got_ids = np.stack([np.where(v.cpu().numpy(), i.cpu().numpy(), 0) for i, v in ids])
+    fields = [str(f) for f in ref["result_fields"]]
+    # the nearest JAX seed by the camera poses (RANSAC's draws)
+    runs = {0: "detected", **{int(sd): f"detected_seed{int(sd)}" for sd in ref["seeds"][1:]}}
+    errs = {sd: kitti_errors(pipe, ref, "detected", p) for sd, p in runs.items()}
+    seed_ref = min(errs, key=lambda sd: errs[sd]["pose_m"])
+    prefix = runs[seed_ref]
+    err = errs[seed_ref]
+    jassoc = {int(a): int(b) for a, b in ref[f"{prefix}_assoc"]}
+    if not len(ref[f"{prefix}_motion_key"]) and not pipe.backend.matured_motion:
+        # the reference matures no object motion on these frames: nor may the port
+        err.update(motion_max_m=0.0, motion_median_m=0.0, overlap=1.0)
+    jr = dict(zip(fields, ref["results"][[str(x) for x in ref["rows"]].index("detected")] if seed_ref == 0
+                  else ref[f"{prefix}_results"]))
+    ref_ids = np.where(ref[f"{prefix}_packet_valid"], ref[f"{prefix}_packet_ids"], 0)
+    finite = [k for k in ("ate_t", "ame_t", "ame_t_med") if np.isfinite(jr[k])]
+    rd = {**err, "run": seed_ref, "pose_m_seed0": errs[0]["pose_m"],
+          "id_frames": [k for k in range(n) if not np.array_equal(got_ids[k], ref_ids[k])],
+          "assoc_equal": assoc == jassoc,
+          "result_m": max(abs(r[k] - jr[k]) for k in finite),
+          "counts_equal": all(int(r[k]) == int(jr[k]) for k in ("n_motions", "n_tracks", "n_assoc"))
+          and all(np.isfinite(r[k]) == np.isfinite(jr[k]) for k in ("ate_t", "ame_t", "ame_t_med"))}
+    syncs = sync.count
+    line = (f"detector pipeline: {n} frames of detector_scene written in {t_write:.2f} s and read back, through "
+            f"DynoPipeline with the detected masks (engine at {hw[0]}x{hw[1]}, score {DET_ACC_SCORE}, ByteTrack; "
+            f"hybrid sliding-window, window 8) on {device} in {dt:.2f} s ({n / dt:.2f} frames/s, "
+            f"{syncs if syncs is not None else 'n/a'} host "
+            f"syncs), launches {launches}; camera ATE {r['ate_t'] * 100:.4f} cm (JAX {jr['ate_t'] * 100:.4f}), "
+            f"AME rms {r['ame_t'] * 100:.4f} cm (JAX {jr['ame_t'] * 100:.4f}), median {r['ame_t_med'] * 100:.4f} "
+            f"cm (JAX {jr['ame_t_med'] * 100:.4f}), {r['n_motions']} motions, {r['n_assoc']}/{r['n_tracks']} "
+            f"tracks associated {assoc} (JAX {int(jr['n_motions'])}, {int(jr['n_assoc'])}/{int(jr['n_tracks'])} "
+            f"{jassoc}); packet ids differ from JAX's in frames {rd['id_frames']}; vs the nearest JAX run, seed "
+            f"{seed_ref} (poses {rd['pose_m_seed0']:.2e} m from seed 0), over {rd['n_motions']} matured motions "
+            f"(key overlap {rd['overlap']:.4f}), reading / bound: "
+            + ", ".join(f"{k} {rd[k]:.2e} / {b:.0e}" for k, b in DET_PIPE_BOUNDS.items())
+            + f", result {rd['result_m']:.2e} / {DET_PIPE_RESULT:.0e} m")
+    return launches, rd, line
+
+
+def run_det_pipeline_path(torch, seed, ref_path, device="cuda"):
+    """Phase 16: det_pipeline_readings held to det_acc_ref_20f.npz ->
+    launches."""
+    import numpy as np
+
+    launches, rd, line = det_pipeline_readings(torch, seed, np.load(ref_path), device)
+    over = {k: (rd[k], b) for k, b in DET_PIPE_BOUNDS.items() if not rd[k] <= b}
+    if rd["result_m"] > DET_PIPE_RESULT:
+        over["result_m"] = (rd["result_m"], DET_PIPE_RESULT)
+    if over or rd["id_frames"] or not rd["assoc_equal"] or not rd["counts_equal"] or \
+            rd["overlap"] < KITTI_MOTION_OVERLAP:
+        raise AssertionError(f"detector pipeline against det_acc_ref_20f.npz: over bounds {over}; {line}")
+    say(line)
     return launches
 
 
@@ -2579,7 +2915,7 @@ def main():
     k1 = timed("3 (K1)", check_k1, torch, args.seed)
     k2 = timed("4 (K2)", check_k2, torch, args.seed, built[K2_V3_SOURCE][0])
 
-    # ---- 5-14. the main paths, counts zeroed just before each ----------------
+    # ---- 5-16. the main paths, counts zeroed just before each ----------------
     bench_launches = timed("5 (bench)", run_bench_path, torch, args.seed,
                            os.path.join(testdata, "bench_ref_20f.npz"))
     pipelined_launches = timed("5b (pipelined)", run_pipelined_path, torch, args.seed,
@@ -2600,12 +2936,17 @@ def main():
                              os.path.join(testdata, "datasets_ref_12f.npz"), smi=smi)
     tooling_launches = timed("13 (tooling)", run_tooling_path, torch, args.seed)
     modes_launches = timed("14 (batched modes)", run_batched_modes_path, torch, args.seed, testdata, smi=smi)
+    rich_launches = timed("15 (rich)", run_rich_path, torch, args.seed,
+                          os.path.join(testdata, f"rich_ref_{RICH_FRAMES}f.npz"))
+    det_pipe_launches = timed("16 (detector pipeline)", run_det_pipeline_path, torch, args.seed,
+                              os.path.join(testdata, f"det_acc_ref_{DET_PIPE_FRAMES}f.npz"))
 
-    # ---- 15. results ------------------------------------------------------------
+    # ---- 17. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "pipelined": pipelined_launches, "klt": klt_launches,
              "stereo_imu": stereo_launches, "detector": det_launches, "heldout": heldout_launches,
              "pipeline": pipe_launches, **forms_launches, **batched_launches, "datasets": dataset_launches,
-             **{f"tooling_{k}": v for k, v in tooling_launches.items()}, **modes_launches}
+             **{f"tooling_{k}": v for k, v in tooling_launches.items()}, **modes_launches, "rich": rich_launches,
+             "detector_pipeline": det_pipe_launches}
     batched = {p for p in paths if p.startswith("batched_")}
 
     def row(name, kid, source, replaces, check, only=None, **extra):

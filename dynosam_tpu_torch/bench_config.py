@@ -211,13 +211,17 @@ KITTI_MODES = {"full_batch": 0, "sliding_window": 1, "incremental": 2}
 FORMULATIONS = {"wcme": 0, "wcpe": 1, "hybrid": 3}
 
 
-def kitti_accuracy_config(mode: str, num_frames: int = 60, formulation: int = 3) -> DynoConfig:
+def kitti_accuracy_config(mode: str, num_frames: int = 60, formulation: int = 3,
+                          min_observable_mask_area: float = 0.0, window=None) -> DynoConfig:
     """ACCURACY.md's on-disk configuration (scripts/accuracy_report.py
     run_config_dataset) in mode `mode` ("incremental", "sliding_window" or
     "full_batch") and formulation `formulation` (backend_updater_enum: 0
     WCME, 1 WCPE, 3 hybrid): 512 static + 768 dynamic track slots, cell 8,
     8 objects, an 8-frame window (the whole sequence for full-batch), 10 LM
-    iterations."""
+    iterations. `min_observable_mask_area` is the tracker's observability
+    floor (the rich matrix runs at RICH_MIN_AREA); `window` replaces the
+    8-frame window of the windowed modes (the sweep of
+    scripts/accuracy_rich.py)."""
     opt_mode = KITTI_MODES[mode]
     return DynoConfig(
         frontend=FrontendParams(
@@ -228,15 +232,84 @@ def kitti_accuracy_config(mode: str, num_frames: int = 60, formulation: int = 3)
                 max_dynamic_features_per_frame=768,
                 detection_cell_size=8,
                 min_corner_response=1e-6,
+                min_observable_mask_area=min_observable_mask_area,
             ),
         ),
         backend=BackendParams(
             optimization_mode=opt_mode,
             backend_updater_enum=formulation,
-            max_frames=num_frames if opt_mode == 0 else 8,
+            max_frames=num_frames if opt_mode == 0 else (window or 8),
             optimizer=OptimizerParams(max_iterations=10),
         ),
     )
+
+
+SWEEP_WINDOWS = (8, 12, 16)
+
+
+def detector_accuracy_config(detected: bool) -> DynoConfig:
+    """scripts/accuracy_detector.py run_cell's configuration: hybrid
+    sliding-window over an 8-frame window at kitti_accuracy_config's widths;
+    with `detected` the instance masks come from the detector, relabelled
+    by ByteTrack (prefer_provided_object_detection=False)."""
+    cfg = kitti_accuracy_config("sliding_window")
+    if detected:
+        cfg = cfg.with_overrides({"frontend.tracker.prefer_provided_object_detection": False})
+    return cfg
+
+
+# KITTI tracking's camera (scripts/make_fixture_sequence.py): 1242x375, and
+# the disparity base line 387.5744 px = fx * 0.537 m of virtual stereo
+KITTI_W, KITTI_H = 1242.0, 375.0
+KITTI_FX, KITTI_CX, KITTI_CY = 721.5377, 609.5593, 172.854
+KITTI_BASELINE_M = 387.5744 / KITTI_FX
+# the rich matrix's observability floor, a share of the image area
+# (scripts/accuracy_rich.py RICH_MIN_AREA)
+RICH_MIN_AREA = 0.0065
+# the world offset the fixture files carry (scripts/accuracy_rich.py
+# ensure_fixture): the reader's align-to-identity path has work to do
+FIXTURE_WORLD_OFFSET_XI = (0.0, 0.3, 0.0, 5.0, -1.0, 2.0)
+
+
+def fixture_world_offset() -> np.ndarray:
+    """(4, 4) float64: se3_exp of FIXTURE_WORLD_OFFSET_XI in f32, as the
+    reference's writer scripts compute it."""
+    xi = torch.tensor(FIXTURE_WORLD_OFFSET_XI, dtype=torch.float32)
+    return lie.se3_exp(xi).numpy().astype(np.float64)
+
+
+def fixture_scenario(num_frames: int = 60, width: int = 320, height: int = 96, rich: bool = False,
+                     device="cuda") -> DenseScenario:
+    """The committed dyno-KITTI fixture's scene
+    (scripts/make_fixture_sequence.py fixture_scenario): KITTI's camera
+    scaled to width x height, the camera driving forward 0.25 m per frame
+    with a slow yaw, three cars with yaw-only motions. `rich` (the
+    1242x375, 100-frame preset of scripts/accuracy_rich.py) adds a fourth
+    car crossing behind the lead car: its mask drops out under the
+    occlusion and re-enters."""
+    s = width / KITTI_W
+    intr = cam.CameraIntrinsics.create(
+        fx=KITTI_FX * s, fy=KITTI_FX * (height / KITTI_H), cx=KITTI_CX * s, cy=KITTI_CY * (height / KITTI_H),
+        width=width, height=height, baseline=KITTI_BASELINE_M,
+    )
+    objects = [
+        # lead car slightly left, pulling away with a slow left yaw
+        ObjectSpec(object_id=1, initial_pose_xi=np.array([0.0, 0.0, 0.0, -2.0, 0.3, 8.0]),
+                   motion_xi=np.array([0.0, 0.005, 0.0, 0.0, 0.0, 0.30]), num_points=0),
+        # car in the right lane, near-constant heading
+        ObjectSpec(object_id=2, initial_pose_xi=np.array([0.0, 0.0, 0.0, 2.5, 0.0, 14.0]),
+                   motion_xi=np.array([0.0, -0.004, 0.0, 0.0, 0.0, 0.28]), num_points=0),
+        # distant car drifting across the lane, slowly caught up
+        ObjectSpec(object_id=3, initial_pose_xi=np.array([0.0, 0.0, 0.0, 0.5, -0.4, 20.0]),
+                   motion_xi=np.array([0.0, 0.006, 0.0, -0.04, 0.0, 0.21]), num_points=0),
+    ]
+    if rich:
+        # crossing car: cuts right to left behind the lead car
+        objects.append(ObjectSpec(object_id=4, initial_pose_xi=np.array([0.0, 0.0, 0.0, 6.5, 0.1, 16.0]),
+                                  motion_xi=np.array([0.0, 0.0, 0.0, -0.17, 0.0, 0.27]), num_points=0))
+    spec = ScenarioSpec(num_frames=num_frames, num_static=0,
+                        camera_motion_xi=np.array([0.0, 0.002, 0.0, 0.0, 0.0, 0.25]), objects=objects)
+    return DenseScenario(spec, intr, ground_y=1.5, far_depth=55.0, object_half_extent=1.2, device=device)
 
 
 def synthetic_accuracy_config(mode: str, num_frames: int = 12, formulation: int = 3) -> DynoConfig:

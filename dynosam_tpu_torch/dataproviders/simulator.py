@@ -81,7 +81,7 @@ class Scenario:
     when given (parity tests pass the reference's draws), otherwise drawn
     from a generator seeded with spec.seed."""
 
-    def __init__(self, spec: ScenarioSpec, device="cuda", intr: Optional[cam.CameraIntrinsics] = None,
+    def __init__(self, spec: ScenarioSpec, intr: Optional[cam.CameraIntrinsics] = None, device="cuda",
                  uniforms: Optional[dict] = None):
         self.spec = spec
         self.device = torch.device(device)

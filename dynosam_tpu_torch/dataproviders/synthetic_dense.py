@@ -37,15 +37,16 @@ class DenseScenario:
         intr: cam.CameraIntrinsics,
         ground_y: float = 1.5,
         far_depth: float = 40.0,
+        object_half_extent: float = 1.2,
         world_texture: bool = False,
         object_texture: bool = False,
-        object_half_extents=None,   # per-object (ex, ey); default 1.2 x 1.2 m
+        object_half_extents=None,   # optional per-object (ex, ey) overrides
         object_classes=None,        # optional per-object class ids
         device="cuda",
     ):
         assert intr.width > 0 and intr.height > 0
         self.device = torch.device(device)
-        self.scn = Scenario(spec, self.device)
+        self.scn = Scenario(spec, intr, device=self.device)
         self.intr = intr
         self.world_texture = world_texture
         self.object_texture = object_texture
@@ -55,7 +56,7 @@ class DenseScenario:
         self.obj_extents = (
             [(float(ex), float(ey)) for ex, ey in object_half_extents]
             if object_half_extents is not None
-            else [(1.2, 1.2)] * J
+            else [(object_half_extent, object_half_extent)] * J
         )
         self.object_classes = (
             [int(c) for c in object_classes] if object_classes is not None else [0] * J

@@ -1,18 +1,21 @@
-"""Baseline JPEG codec in numpy, for the datasets whose images are JPEG
-(Virtual KITTI 2's `rgb_%05d.jpg`). The reference reads and writes these
-through OpenCV; the port may not, so this module reproduces what OpenCV's
+"""JPEG codec in numpy, for the datasets whose images are JPEG (Virtual
+KITTI 2's `rgb_%05d.jpg`). The reference reads and writes these through
+OpenCV; the port may not, so this module reproduces what OpenCV's
 libjpeg-turbo computes at its defaults, stage by stage:
 
-  * `decode_jpeg` / `read_jpeg`: baseline sequential Huffman, 8-bit, one or
-    three components, sampling 4:4:4, 4:2:2 (h2v1) or 4:2:0 (h2v2), restart
-    intervals, any size. The integer IDCT of `jidctint.c`
-    (jpeg_idct_islow), the "fancy" triangular chroma upsampling of
-    `jdsample.c` (h2v1_fancy_upsample / h2v2_fancy_upsample, edges
-    replicated) and the fixed-point YCbCr -> RGB tables of `jdcolor.c`
-    (build_ycc_rgb_table), so the pixels equal `cv2.imdecode`'s. A grey
-    file decodes to three equal channels, as cv2's default flag gives it.
-    Progressive, lossless, hierarchical, 12-bit and arithmetic-coded files,
-    and other samplings, raise NotImplementedError.
+  * `decode_jpeg` / `read_jpeg`: baseline sequential and progressive
+    Huffman, 8-bit, one or three components, sampling 4:4:4, 4:2:2 (h2v1)
+    or 4:2:0 (h2v2), restart intervals, any size. Progressive files
+    (T.81 Annex G: spectral selection, successive approximation,
+    end-of-band runs) collect every scan's coefficients as libjpeg-turbo's
+    `jdphuff.c` does, then take the same stages as baseline ones: the
+    integer IDCT of `jidctint.c` (jpeg_idct_islow), the "fancy" triangular
+    chroma upsampling of `jdsample.c` (h2v1_fancy_upsample /
+    h2v2_fancy_upsample, edges replicated) and the fixed-point YCbCr -> RGB
+    tables of `jdcolor.c` (build_ycc_rgb_table), so the pixels equal
+    `cv2.imdecode`'s. A grey file decodes to three equal channels, as cv2's
+    default flag gives it. Lossless, hierarchical, 12-bit and
+    arithmetic-coded files, and other samplings, raise NotImplementedError.
   * `encode_jpeg` / `write_jpeg`: what `cv2.imwrite(..., [IMWRITE_JPEG_QUALITY,
     q])` writes at its defaults: the Annex K tables scaled by libjpeg's
     quality curve (jcparam.c), RGB -> YCbCr in fixed point (jccolor.c), h2v2
@@ -43,7 +46,7 @@ _F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
 _F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
 _F1961, _F2053, _F2562, _F3072 = 16069, 16819, 20995, 25172
 
-ROADMAP_ENTRY = "ROADMAP.md queue 1, item 22: progressive and arithmetic-coded JPEG"
+ROADMAP_ENTRY = "ROADMAP.md item 22: arithmetic-coded JPEG is not decoded; neither cv2 nor PIL writes one to test against"
 
 
 def _descale(x, n):
@@ -351,28 +354,212 @@ def _decode_scan(seg: bytes, starts, comps, mcux, mcuy, restart, path):
     return out
 
 
+class _Bits:
+    """MSB-first reader of an unstuffed entropy-coded segment; past its end
+    it reads zero bits, as libjpeg's fill does."""
+
+    def __init__(self, seg: bytes):
+        self.data = seg + bytes(16)
+        self.end = len(seg)
+        self.reset(0)
+
+    def reset(self, bytepos: int):
+        self.pos, self.acc, self.n = bytepos, 0, 0
+
+    def _fill(self, want: int):
+        while self.n < want:
+            self.acc = (self.acc << 8) | (self.data[self.pos] if self.pos < self.end else 0)
+            self.pos += 1
+            self.n += 8
+
+    def get(self, k: int) -> int:
+        if k == 0:
+            return 0
+        if self.n < k:
+            self._fill(k)
+        self.n -= k
+        v = self.acc >> self.n
+        self.acc &= (1 << self.n) - 1
+        return v
+
+    def symbol(self, lut, path: str) -> int:
+        if self.n < 16:
+            self._fill(16)
+        e = lut[self.acc >> (self.n - 16)]
+        if not e:
+            raise ValueError(f"{path}: bad Huffman code in the scan")
+        self.n -= e >> 8
+        self.acc &= (1 << self.n) - 1
+        return e & 0xFF
+
+    def extend(self, s: int) -> int:
+        """receive + HUFF_EXTEND (T.81 F.2.2.1) of an s-bit magnitude."""
+        v = self.get(s)
+        return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
+
+
+def _decode_progressive_scan(seg, starts, comps, coefs, ss, se, ah, al, mcux, mcuy, restart, path):
+    """One scan of a progressive file (T.81 Annex G; libjpeg-turbo's
+    jdphuff.c), accumulated into `coefs`, each component's (blocks_y,
+    blocks_x, 64) int32 zigzag coefficients. DC scans may interleave
+    components; AC scans carry one. Spectral selection [ss, se] and
+    successive approximation (ah, al): first scans write coefficients
+    shifted left by al, refinement scans add the bit of weight 2^al, the
+    AC refinement also placing newly nonzero coefficients and skipping
+    through end-of-band runs as jdphuff.c's decode_mcu_AC_refine does."""
+    bits = _Bits(seg)
+    single = len(comps) == 1
+    if single:
+        c = comps[0]
+        # a non-interleaved scan covers the component's own blocks only
+        units_x, units_y = c["bw"], c["bh"]
+    else:
+        units_x, units_y = mcux, mcuy
+    units = units_x * units_y
+    interval = restart or units
+    p1, m1 = 1 << al, -(1 << al)
+    for n_int, first in enumerate(range(0, units, interval)):
+        bits.reset(starts[n_int] if n_int < len(starts) else len(seg))
+        pred = [0] * len(comps)
+        eobrun = 0
+        for m in range(first, min(first + interval, units)):
+            my, mx = divmod(m, units_x)
+            for ci, c in enumerate(comps):
+                h, v = (1, 1) if single else (c["h"], c["v"])
+                dst = coefs[c["index"]]
+                for by in range(v):
+                    for bx in range(h):
+                        blk = dst[my * v + by, mx * h + bx]
+                        if ss == 0:                           # DC
+                            if ah == 0:
+                                s = bits.symbol(c["dc"].lut, path)
+                                pred[ci] += bits.extend(s)
+                                blk[0] = pred[ci] << al
+                            elif bits.get(1):
+                                blk[0] |= p1
+                            continue
+                        lut = c["ac"].lut
+                        if ah == 0:                           # AC first
+                            if eobrun:
+                                eobrun -= 1
+                                continue
+                            k = ss
+                            while k <= se:
+                                rs = bits.symbol(lut, path)
+                                r, s = rs >> 4, rs & 15
+                                if s:
+                                    k += r
+                                    if k > 63:
+                                        raise ValueError(f"{path}: AC coefficients beyond the block")
+                                    blk[k] = bits.extend(s) << al
+                                    k += 1
+                                elif r == 15:
+                                    k += 16
+                                else:
+                                    eobrun = (1 << r) + bits.get(r) - 1
+                                    break
+                            continue
+                        k = ss                                # AC refinement
+                        if not eobrun:
+                            while k <= se:
+                                rs = bits.symbol(lut, path)
+                                r, s = rs >> 4, rs & 15
+                                if s:
+                                    s = p1 if bits.get(1) else m1
+                                elif r != 15:
+                                    eobrun = (1 << r) + bits.get(r)
+                                    break
+                                # skip r zero coefficients (ZRL: 16), refining
+                                # the nonzero ones passed on the way
+                                while k <= se:
+                                    coef = int(blk[k])
+                                    if coef:
+                                        if bits.get(1) and not coef & p1:
+                                            blk[k] = coef + (p1 if coef >= 0 else m1)
+                                    else:
+                                        if r == 0:
+                                            break
+                                        r -= 1
+                                    k += 1
+                                if s:
+                                    if k > 63:
+                                        raise ValueError(f"{path}: AC coefficients beyond the block")
+                                    blk[k] = s
+                                k += 1
+                        if eobrun:
+                            # the rest of the band: one correction bit per
+                            # nonzero coefficient, read together
+                            nz = np.flatnonzero(blk[k:se + 1])
+                            if nz.size:
+                                word = bits.get(int(nz.size))
+                                for i, z in enumerate(nz):
+                                    if (word >> (nz.size - 1 - i)) & 1:
+                                        coef = int(blk[k + z])
+                                        if not coef & p1:
+                                            blk[k + z] = coef + (p1 if coef >= 0 else m1)
+                            eobrun -= 1
+
+
+def _frame_layout(frame, height, width):
+    """Sampling checks and block geometry of a frame's components: each
+    gets `index`, its MCU-padded block array (by, bx), its samples (ch, cw)
+    and its own blocks (bh, bw), the extent of a non-interleaved scan ->
+    (hmax, vmax, mcux, mcuy)."""
+    sampling = tuple((c["h"], c["v"]) for c in frame)
+    if len(frame) not in (1, 3):
+        raise NotImplementedError(f"{len(frame)} components are not decoded")
+    if len(frame) == 3 and sampling not in (((1, 1),) * 3, ((2, 1), (1, 1), (1, 1)), ((2, 2), (1, 1), (1, 1))):
+        raise NotImplementedError(f"sampling {sampling} is not decoded (4:4:4, 4:2:2, 4:2:0 are)")
+    if len(frame) == 1:
+        frame[0]["h"] = frame[0]["v"] = 1
+    hmax = max(c["h"] for c in frame)
+    vmax = max(c["v"] for c in frame)
+    mcux = -(-width // (8 * hmax))
+    mcuy = -(-height // (8 * vmax))
+    for i, c in enumerate(frame):
+        ch, cw = -(-height * c["v"] // vmax), -(-width * c["h"] // hmax)     # the component's samples
+        c.update(index=i, by=mcuy * c["v"], bx=mcux * c["h"], ch=ch, cw=cw, bh=-(-ch // 8), bw=-(-cw // 8))
+    return hmax, vmax, mcux, mcuy
+
+
+def _scan_components(body, by_id, dht, path):
+    ns = body[0]
+    comps = []
+    for k in range(ns):
+        c = dict(by_id[body[1 + 2 * k]])
+        td, ta = body[2 + 2 * k] >> 4, body[2 + 2 * k] & 15
+        c.update(dc=dht.get((0, td)), ac=dht.get((1, ta)))
+        comps.append(c)
+    ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
+    return comps, ss, se, a >> 4, a & 15
+
+
 def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """A baseline JPEG -> (H, W, 3) uint8 RGB, pixel for pixel as
-    libjpeg-turbo decodes it at cv2's defaults (islow IDCT, fancy
+    """A baseline or progressive JPEG -> (H, W, 3) uint8 RGB, pixel for
+    pixel as libjpeg-turbo decodes it at cv2's defaults (islow IDCT, fancy
     upsampling)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{path}: not a JPEG file")
-    qt, dht, frame, restart = {}, {}, None, 0
+    qt, dht, frame, restart, progressive, coefs = {}, {}, None, 0, False, None
     pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) and data[pos + 1] == 0xFF:
             pos += 1
-        if pos + 4 > len(data) or data[pos] != 0xFF:
+        if pos + 2 > len(data) or data[pos] != 0xFF:
             raise ValueError(f"{path}: JPEG marker expected at byte {pos}")
         marker = data[pos + 1]
         if marker == 0xD9:
-            raise ValueError(f"{path}: JPEG ends before its scan")
+            if coefs is None:
+                raise ValueError(f"{path}: JPEG ends before its scan")
+            break
+        if pos + 4 > len(data):
+            raise ValueError(f"{path}: JPEG marker expected at byte {pos}")
         length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
         body = data[pos + 4:pos + 2 + length]
         pos += 2 + length
-        if marker in (0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
+        if marker in (0xC1, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
             kind = "arithmetic-coded" if marker >= 0xC9 else (
-                "progressive" if marker in (0xC2, 0xC6) else "non-baseline")
+                "hierarchical" if marker >= 0xC5 else "non-baseline")
             raise NotImplementedError(f"{path}: {kind} JPEG (SOF{marker - 0xC0}) is not decoded "
                                       f"({ROADMAP_ENTRY})")
         if marker == 0xCC:
@@ -398,56 +585,48 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
                 i += 17 + n
         elif marker == 0xDD:
             restart = struct.unpack(">H", body[:2])[0]
-        elif marker == 0xC0:
+        elif marker in (0xC0, 0xC2):
             precision, height, width, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise NotImplementedError(f"{path}: {precision}-bit JPEG is not decoded")
+            if height == 0:
+                raise NotImplementedError(f"{path}: a JPEG whose height follows in a DNL marker is not decoded")
+            progressive = marker == 0xC2
             frame = [dict(id=body[6 + 3 * k], h=body[7 + 3 * k] >> 4, v=body[7 + 3 * k] & 15,
                           tq=body[8 + 3 * k]) for k in range(nc)]
+            try:
+                hmax, vmax, mcux, mcuy = _frame_layout(frame, height, width)
+            except NotImplementedError as e:
+                raise NotImplementedError(f"{path}: {e}") from None
+            coefs = [np.zeros((c["by"], c["bx"], 64), np.int32) for c in frame]
         elif marker == 0xDA:
-            break
-    if frame is None:
-        raise ValueError(f"{path}: JPEG without a baseline frame header")
-    if height == 0:
-        raise NotImplementedError(f"{path}: a JPEG whose height follows in a DNL marker is not decoded")
-    ns = body[0]
-    sampling = tuple((c["h"], c["v"]) for c in frame)
-    if len(frame) not in (1, 3) or ns != len(frame):
-        raise NotImplementedError(f"{path}: {len(frame)} components in {ns} scans are not decoded")
-    if len(frame) == 3 and sampling not in (((1, 1),) * 3, ((2, 1), (1, 1), (1, 1)), ((2, 2), (1, 1), (1, 1))):
-        raise NotImplementedError(f"{path}: sampling {sampling} is not decoded (4:4:4, 4:2:2, 4:2:0 are)")
-    if body[1 + 2 * ns:4 + 2 * ns] != b"\x00\x3f\x00":
-        raise NotImplementedError(f"{path}: the scan is not baseline sequential")
-    hmax = max(c["h"] for c in frame)
-    vmax = max(c["v"] for c in frame)
-    if len(frame) == 1:
-        hmax = vmax = frame[0]["h"] = frame[0]["v"] = 1
-    mcux = -(-width // (8 * hmax))
-    mcuy = -(-height // (8 * vmax))
-    by_id = {c["id"]: c for c in frame}
-    comps = []
-    for k in range(ns):
-        c = by_id[body[1 + 2 * k]]
-        td, ta = body[2 + 2 * k] >> 4, body[2 + 2 * k] & 15
-        c.update(dc=dht[(0, td)], ac=dht[(1, ta)], by=mcuy * c["v"], bx=mcux * c["h"])
-        comps.append(c)
-    if len(frame) == 1:
-        # a single-component scan is not interleaved: one block per MCU
-        c = comps[0]
-        c["by"], c["bx"] = -(-height // 8), -(-width // 8)
-        mcux, mcuy = c["bx"], c["by"]
-    seg, starts, _ = _unstuff(data[pos:], path)
-    coefs = _decode_scan(seg, starts, comps, mcux, mcuy, restart, path)
+            if frame is None:
+                raise ValueError(f"{path}: JPEG scan before its frame header")
+            comps, ss, se, ah, al = _scan_components(body, {c["id"]: c for c in frame}, dht, path)
+            seg, starts, end = _unstuff(data[pos:], path)
+            if not progressive:
+                if len(comps) != len(frame):
+                    raise NotImplementedError(f"{path}: {len(frame)} components in {len(comps)} scans are not "
+                                              "decoded")
+                if (ss, se, ah, al) != (0, 63, 0, 0):
+                    raise NotImplementedError(f"{path}: the scan is not baseline sequential")
+                # (a single-component frame has one block per MCU, so its
+                # MCU-padded blocks are its own)
+                for c, out in zip(comps, _decode_scan(seg, starts, comps, mcux, mcuy, restart, path)):
+                    coefs[c["index"]] = out
+                break
+            if ss > se or se > 63 or (ss == 0) != (se == 0) or (ss and len(comps) != 1):
+                raise ValueError(f"{path}: invalid progressive scan (Ss {ss}, Se {se}, {len(comps)} components)")
+            _decode_progressive_scan(seg, starts, comps, coefs, ss, se, ah, al, mcux, mcuy, restart, path)
+            pos += end
     planes = []
-    for c, zz in zip(comps, coefs):
+    for c, zz in zip(frame, coefs):
         nat = np.zeros(zz.shape, np.int64)
         nat[..., _ZIGZAG] = zz
         deq = nat.reshape(-1, 8, 8) * qt[c["tq"]]
-        blocks = _idct_islow(deq).reshape(c["by"], c["bx"], 8, 8)
-        plane = blocks.transpose(0, 2, 1, 3).reshape(c["by"] * 8, c["bx"] * 8)
-        ch = -(-height * c["v"] // vmax)
-        cw = -(-width * c["h"] // hmax)
-        planes.append(plane[:ch, :cw])
+        blocks = _idct_islow(deq).reshape(zz.shape[0], zz.shape[1], 8, 8)
+        plane = blocks.transpose(0, 2, 1, 3).reshape(zz.shape[0] * 8, zz.shape[1] * 8)
+        planes.append(plane[:c["ch"], :c["cw"]])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=-1)
     y, cb, cr = planes
@@ -463,7 +642,7 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """A baseline JPEG file -> (H, W, 3) uint8 RGB, the pixels of
+    """A baseline or progressive JPEG file -> (H, W, 3) uint8 RGB, the pixels of
     `cv2.imread(path)` (which returns them in BGR order)."""
     with open(path, "rb") as f:
         return decode_jpeg(f.read(), path)

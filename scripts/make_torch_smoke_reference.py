@@ -46,8 +46,8 @@ dynosam_tpu_torch/testdata/:
     over the 20 bench frames, keys as bench_ref_20f.npz; the joint file
     also holds `cov_X` (F, 6, 6) and `cov_H` (J, F, 6, 6), the marginal
     covariances of the final window.
-  * kitti_forms_ref_60f.npz (--only forms) — the host pipeline over the 60
-    fixture frames in incremental mode with the WCME and WCPE backends at
+  * kitti_forms_ref_30f.npz (--only forms, or alone --only forms_kitti) —
+    the host pipeline over the first 30 fixture frames in incremental mode with the WCME and WCPE backends at
     ACCURACY.md's on-disk configuration (scripts/accuracy_report.py
     run_config_dataset), RANSAC seeds 0, 1 and 2, keys as kitti_ref_30f.npz
     with the formulation ("wcme", "wcpe") in place of the mode. This part
@@ -99,8 +99,50 @@ dynosam_tpu_torch/testdata/:
     mean_mask_iou, class_accuracy, instances, mean_detected_iou,
     missed_rate; and the checkpoint's sidecar numbers as json_*.
 
+  * rich_ref_50f.npz (--only rich) — hybrid incremental at the rich
+    matrix's observability floor (bench_config.RICH_MIN_AREA) over the
+    first 50 frames of the rich fixture (bench_config.fixture_scenario at
+    1242x375, rich=True, rendered by the port on the CPU and written by the
+    port's dyno-KITTI writer: see _write_rich), read by the JAX reader
+    padded to multiples of 32 as run_dynosam reads it, RANSAC seeds 0-5:
+    keys as kitti_ref_30f.npz, plus per run `_withheld` (frames, J), the ids
+    the floor withheld per frame, and `_resampled` (frames, J), the
+    packets' object_resampled flags.
+  * rich_matrix_ref_100f.npz (--only rich_matrix) — scripts/accuracy_rich.py's
+    nine cells (modes 1, 2, 0 x formulations 3, 1, 0) over the 100-frame
+    rich fixture (read unpadded) at the floor, seed 0: `summary` (cell,
+    FULL_SUMMARY_FIELDS, the frontend's columns included) and each cell's
+    poses and matured motions.
+  * rich_seeds_ref_100f/<mode>_<formulation>.npz (--only rich_seeds
+    [--cells ...] [--seeds ...]) — the matrix's WCME and WCPE cells under
+    RANSAC seeds 1-5 (full-batch: seed 1, ~40-75 min a cell on the CPU): `seeds`
+    and `summary` (seed, FULL_SUMMARY_FIELDS), rewritten after every
+    seed. With seed 0 of the matrix file they are the spread the RANSAC
+    draws give these cells, which eval/accuracy.py holds them to.
+  * --only rich_draws writes nothing: it prints the port's rows of four of
+    those cells on the CPU with JAX seed 0's RANSAC draws injected, beside
+    the matrix file's (rich_draws_check).
+  * sweep_ref_60f.npz (--only sweep) — hybrid sliding-window at windows 8,
+    12 and 16 over the 60-frame fixture, seed 0, keys as the matrix file.
+  * det_acc_ref_60f.npz (--only det_acc) — scripts/accuracy_detector.py
+    run_cell with the provided and the detected masks (the engine at the
+    fixture's 96x320, score 0.35) over the fixture's 60 frames, seed 0:
+    `results` (row, result_fields), and per row the poses, matured motions,
+    association `_assoc` (estimated id, ground-truth id) and the packets'
+    object ids and valid flags.
+  * det_acc_ref_20f.npz (--only det_pipe) — the same run over the first 20
+    frames of bench_config.detector_scene (the scene the checkpoint was
+    trained on; it finds nothing on the fixture), rendered by the port on
+    the CPU and written by its dyno-KITTI writer, the engine at 384x640,
+    the detected row also under seeds 1-5.
+  * progressive_1242x375.jpg and progressive_1242x375_cv2.npz (--only
+    progressive) — a synthetic frame cv2 wrote as a progressive JPEG, and
+    cv2's decode of it.
+
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
-    [--only bench|detector|kitti|klt|stereo_imu|forms|batched|batched_forms|batched_modes|pipelined|datasets|heldout]
+    [--only bench|detector|kitti|klt|stereo_imu|forms|forms_kitti|batched|batched_forms|batched_modes|pipelined|
+            datasets|heldout|rich|rich_matrix|rich_seeds|rich_draws|sweep|det_acc|det_pipe|progressive]
+    [--cells incremental_0,...] [--seeds 1,2,...]   (rich_seeds only)
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
 after it; the forms files' CPU time is in CHANGES.md)
@@ -132,7 +174,7 @@ DEPTH_CORRUPTION = 1.15
 KITTI_FRAMES = 30             # the three hybrid modes (chip_smoke.py phase 9)
 KITTI_OUT = os.path.join(TESTDATA, f"kitti_ref_{KITTI_FRAMES}f.npz")
 KITTI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "kitti_fixture")
-KITTI_FORMS_FRAMES = 60       # the WCME / WCPE fixture runs (phase 10)
+KITTI_FORMS_FRAMES = 30       # the WCME / WCPE fixture runs (phase 10)
 KITTI_MODES = ("incremental", "sliding_window", "full_batch")
 KITTI_SEEDS = (0, 1, 2)
 KITTI_30F_SEEDS = (0, 1, 2, 3, 4, 5)
@@ -142,7 +184,29 @@ KEYS = ("X_world_cam", "object_ids", "object_motions", "object_motion_valid")
 FORMS_BENCH = {"wcme": {"backend.backend_updater_enum": 0}, "wcpe": {"backend.backend_updater_enum": 1},
                "joint": {"backend.decoupled_object_solve": False}}
 FORMS_KITTI = {"wcme": 0, "wcpe": 1}
-KITTI_FORMS_OUT = os.path.join(TESTDATA, "kitti_forms_ref_60f.npz")
+KITTI_FORMS_OUT = os.path.join(TESTDATA, f"kitti_forms_ref_{KITTI_FORMS_FRAMES}f.npz")
+RICH_FRAMES = 50              # object 4's two drop-outs and re-entries (chip_smoke.py phase 15a)
+RICH_OUT = os.path.join(TESTDATA, f"rich_ref_{RICH_FRAMES}f.npz")
+RICH_MATRIX_FRAMES = 100      # the nine cells of scripts/accuracy_rich.py
+RICH_MATRIX_OUT = os.path.join(TESTDATA, f"rich_matrix_ref_{RICH_MATRIX_FRAMES}f.npz")
+# (mode, formulation) in scripts/accuracy_rich.py's order: modes 1, 2, 0,
+# formulations 3, 1, 0
+RICH_SEEDS_OUT = os.path.join(TESTDATA, f"rich_seeds_ref_{RICH_MATRIX_FRAMES}f")
+RICH_SEED_CELLS = tuple(f"{m}_{f}" for m in ("sliding_window", "incremental", "full_batch") for f in (1, 0))
+RICH_SEEDS = {"sliding_window": (1, 2, 3, 4, 5), "incremental": (1, 2, 3, 4, 5), "full_batch": (1,)}
+RICH_CELLS = tuple((m, f) for m in ("sliding_window", "incremental", "full_batch") for f in (3, 1, 0))
+SWEEP_FRAMES = 60
+SWEEP_OUT = os.path.join(TESTDATA, f"sweep_ref_{SWEEP_FRAMES}f.npz")
+DET_ACC_FRAMES = 60           # the table's run, on the fixture
+DET_ACC_OUT = os.path.join(TESTDATA, f"det_acc_ref_{DET_ACC_FRAMES}f.npz")
+DET_PIPE_FRAMES = 20          # the smoke's run (phase 16), on the detector's scene
+DET_PIPE_OUT = os.path.join(TESTDATA, f"det_acc_ref_{DET_PIPE_FRAMES}f.npz")
+PROGRESSIVE_JPG = os.path.join(TESTDATA, "progressive_1242x375.jpg")
+PROGRESSIVE_REF = os.path.join(TESTDATA, "progressive_1242x375_cv2.npz")
+# the evaluator's numbers of a run, as scripts/accuracy_report.py
+# run_config_dataset summarises them (fe_*: the frontend's own estimates)
+FULL_SUMMARY_FIELDS = ("ate_t", "ate_r", "rpe_t", "ame_t", "ame_r", "ame_t_med", "ame_r_med", "n_motions",
+                       "fe_ate_t", "fe_ame_t", "fe_ame_t_med")
 BATCHED_B = 8
 BATCHED_OUT = os.path.join(TESTDATA, "bench_batched_ref_b8_20f.npz")
 BATCHED_MODES_FRAMES = 14     # the window fills, then advances 4 times
@@ -512,10 +576,29 @@ def _rot_angle(R, R_ref):
     return np.arcsin(np.clip(np.linalg.norm(w, axis=-1), 0.0, 1.0))
 
 
-def _kitti_runs(runs, out_path, t0, frames, seeds=KITTI_SEEDS):
-    """The host pipeline over the first `frames` fixture frames for each
-    (name, JAX DynoConfig) of `runs` under `seeds` -> out_path, the keys
-    of kitti_ref_30f.npz with `name` in place of the mode."""
+def _withheld(pipe, mask_hw):
+    """The object ids the frontend's observability floor withheld from the
+    frame just processed (TrackerParams.min_observable_mask_area, the
+    reference's frontend.py:420-425), as a (J,) int32 row: the id where
+    withheld, else 0; and the packet's object_resampled flags (J,)."""
+    import numpy as np
+
+    tr = pipe.frontend_state.tracker
+    a = pipe.cfg.frontend.tracker.min_observable_mask_area
+    ids = np.asarray(tr.obj_ids)
+    floor = a if a >= 1.0 else a * float(mask_hw[0] * mask_hw[1])
+    unobs = (a > 0) & (ids > 0) & (np.asarray(tr.obj_det_area) < floor)
+    return np.where(unobs, ids, 0).astype(np.int32), np.asarray(pipe.last_packet.object_resampled)
+
+
+def _kitti_runs(runs, out_path, t0, frames, seeds=KITTI_SEEDS, ds=None, per_frame=False):
+    """The host pipeline over the first `frames` frames of `ds` (the
+    committed fixture by default) for each (name, JAX DynoConfig) of `runs`
+    under `seeds` -> out_path, the keys of kitti_ref_30f.npz with `name` in
+    place of the mode. With `per_frame`, each run also keeps
+    `<prefix>_withheld` (frames, J), the ids the observability floor
+    withheld per frame (0 elsewhere), and `<prefix>_resampled` (frames, J),
+    the packets' object_resampled flags."""
     import shutil
     import tempfile
 
@@ -526,9 +609,8 @@ def _kitti_runs(runs, out_path, t0, frames, seeds=KITTI_SEEDS):
     from dynosam_tpu.eval.evaluator import DatasetEvaluator
     from dynosam_tpu.pipeline.pipeline import DynoPipeline
 
-    ds = KittiDataProvider(KITTI_FIXTURE)
+    ds = ds or KittiDataProvider(KITTI_FIXTURE)
     n = min(frames, len(ds))
-    frames = [ds.frame(k) for k in range(n)]
     gts = [ds.ground_truth(k) for k in range(n)]
     names = [name for name, _ in runs]
     out = {"modes": np.array(names), "seeds": np.array(seeds),
@@ -536,20 +618,27 @@ def _kitti_runs(runs, out_path, t0, frames, seeds=KITTI_SEEDS):
     summary = np.zeros((len(runs), len(seeds), len(KITTI_SUMMARY_FIELDS)))
     spread = np.zeros((len(runs), len(seeds), len(KITTI_SPREAD_FIELDS)))
 
-    def keep(prefix, X, motions):
+    def keep(prefix, X, motions, rows):
         keys = sorted(motions)
         out[f"{prefix}_X"] = X
         out[f"{prefix}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
         out[f"{prefix}_motion_H"] = np.stack([motions[k] for k in keys])
+        if per_frame:
+            out[f"{prefix}_withheld"] = np.stack([r[0] for r in rows])
+            out[f"{prefix}_resampled"] = np.stack([r[1] for r in rows])
 
     for i, (name, jcfg) in enumerate(runs):
         for s, seed in enumerate(seeds):
             tmp = tempfile.mkdtemp(prefix="kitti_ref_")
+            rows = []
             try:
                 pipe = DynoPipeline(jcfg, ds.intrinsics(), output_path=tmp)
                 pipe.frontend_state = pipe.frontend_state.replace(key=jax.random.PRNGKey(seed))
-                for fr, gt in zip(frames, gts):
+                for k, gt in enumerate(gts):
+                    fr = ds.frame(k)
                     pipe.process_frame(fr, gt)
+                    if per_frame:
+                        rows.append(_withheld(pipe, fr.mask.shape))
                 pipe.finish()
                 rep = DatasetEvaluator(tmp).run_analysis()["dynosam_tpu"]
             finally:
@@ -559,10 +648,10 @@ def _kitti_runs(runs, out_path, t0, frames, seeds=KITTI_SEEDS):
             X = np.stack(pipe.trajectory).astype(np.float32)
             motions = {k: np.asarray(v, np.float32) for k, v in pipe.backend.matured_motion.items()}
             if s == 0:
-                keep(name, X, motions)
+                keep(name, X, motions, rows)
                 X0, motions0 = X, motions
                 continue
-            keep(f"{name}_seed{seed}", X, motions)
+            keep(f"{name}_seed{seed}", X, motions, rows)
             # how far another seed lands from seed 0: poses (m, rad),
             # matured motions on the shared keys (largest, median m)
             common = sorted(set(motions) & set(motions0))
@@ -637,9 +726,409 @@ def forms_reference():
             cov_X, cov_H = jax.jit(lambda g: jhybrid.marginal_covariances(g, cfg.backend))(state.graph)
             arrays.update(cov_X=np.asarray(cov_X), cov_H=np.asarray(cov_H))
         _save(os.path.join(TESTDATA, f"bench_{name}_ref_20f.npz"), arrays, t0)
+    forms_kitti_reference()
+
+
+def forms_kitti_reference():
+    """The fixture pipeline in incremental mode with WCME and WCPE."""
     t0 = time.time()
     _kitti_runs([(name, _jax_kitti_config(f)) for name, f in FORMS_KITTI.items()], KITTI_FORMS_OUT, t0,
                 KITTI_FORMS_FRAMES)
+
+
+def _write_rich(path, frames):
+    """The rich fixture (bench_config.fixture_scenario at 1242x375,
+    rich=True, the port's counterpart of scripts/make_fixture_sequence.py's)
+    over `frames` frames, rendered by the port on the CPU and written by the
+    port's dyno-KITTI writer as eval/accuracy.py writes it. The JAX
+    pipelines read these files: the f32 scene trajectory is ill-conditioned
+    at the fixture's small yaw (se3_exp's (1 - cos) / theta^2), so the JAX
+    renderer's scene sits ~1e-5 m per frame from the port's and its
+    disparity quantisation is another noise draw (tests/test_torch_rich.py
+    holds the two renderers to each other)."""
+    import torch
+
+    from dynosam_tpu_torch.eval.accuracy import write_rich
+
+    torch.set_num_threads(4)
+    write_rich(path, frames, "cpu")
+
+
+def rich_reference():
+    """Hybrid incremental at RICH_MIN_AREA over the first RICH_FRAMES frames
+    of the rich fixture (_write_rich), read as run_dynosam reads it (padded
+    to multiples of 32: 384x1248), under seeds 0-5, with the per-frame
+    floor and resample rows (chip_smoke.py phase 15)."""
+    import shutil
+    import tempfile
+
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu.dataproviders.base import create_dataset
+    from dynosam_tpu_torch.bench_config import RICH_MIN_AREA, kitti_accuracy_config
+
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="rich_ref_")
+    try:
+        _write_rich(tmp, RICH_FRAMES)
+        ds = create_dataset(0, tmp, pad_to_multiple=32)
+        cfg = DynoConfig.from_dict(dataclasses.asdict(
+            kitti_accuracy_config("incremental", RICH_FRAMES, min_observable_mask_area=RICH_MIN_AREA)))
+        _kitti_runs([("incremental", cfg)], RICH_OUT, t0, RICH_FRAMES, seeds=KITTI_30F_SEEDS, ds=ds,
+                    per_frame=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _full_summary(rep):
+    """The JAX evaluator's report -> FULL_SUMMARY_FIELDS (NaN for the
+    frontend's columns when it logged none)."""
+    import numpy as np
+
+    def summ(mod):
+        objs = list(mod.get("objects", {}).values())
+
+        def rms(key):
+            v = [o[key] for o in objs]
+            return float(np.sqrt(np.mean(np.square(v)))) if v else float("nan")
+
+        def mean(key):
+            v = [o.get(key, float("nan")) for o in objs]
+            return float(np.mean(v)) if v else float("nan")
+
+        cam = mod["camera"]
+        return dict(ate_t=cam["ate_unaligned_trans_rmse"], ate_r=cam["ate_rot_rmse"], rpe_t=cam["rpe_trans_rmse"],
+                    ame_t=rms("ame_trans_rmse"), ame_r=rms("ame_rot_rmse"), ame_t_med=mean("ame_trans_median"),
+                    ame_r_med=mean("ame_rot_median"), n_motions=float(sum(o["n_frames"] for o in objs)))
+
+    res = summ(rep["dynosam_tpu"])
+    fe = summ(rep["frontend"]) if "frontend" in rep and "camera" in rep["frontend"] else {}
+    res.update(fe_ate_t=fe.get("ate_t", float("nan")), fe_ame_t=fe.get("ame_t", float("nan")),
+               fe_ame_t_med=fe.get("ame_t_med", float("nan")))
+    return [res[k] for k in FULL_SUMMARY_FIELDS]
+
+
+def _cells(ds, runs, frames, t0, seed=0):
+    """Each (name, JAX DynoConfig) of `runs` over the first `frames` frames
+    of `ds`, RANSAC seed `seed`, through the CSV logs and the evaluator ->
+    {summary (cells, FULL_SUMMARY_FIELDS), `<name>_X`, `<name>_motion_key`,
+    `<name>_motion_H`}."""
+    import shutil
+    import tempfile
+
+    import jax
+    import numpy as np
+
+    from dynosam_tpu.eval.evaluator import DatasetEvaluator
+    from dynosam_tpu.pipeline.pipeline import DynoPipeline
+
+    n = min(frames, len(ds))
+    out = {"cells": np.array([name for name, _ in runs]), "summary_fields": np.array(FULL_SUMMARY_FIELDS),
+           "frames": n}
+    summary = []
+    for name, cfg in runs:
+        t1 = time.time()
+        tmp = tempfile.mkdtemp(prefix="cells_ref_")
+        try:
+            pipe = DynoPipeline(cfg, ds.intrinsics(), output_path=tmp)
+            pipe.frontend_state = pipe.frontend_state.replace(key=jax.random.PRNGKey(seed))
+            for k in range(n):
+                pipe.process_frame(ds.frame(k), ds.ground_truth(k))
+            pipe.finish()
+            rep = DatasetEvaluator(tmp).run_analysis()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        summary.append(_full_summary(rep))
+        motions = {k: np.asarray(v, np.float32) for k, v in pipe.backend.matured_motion.items()}
+        keys = sorted(motions)
+        out[f"{name}_X"] = np.stack(pipe.trajectory).astype(np.float32)
+        out[f"{name}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
+        out[f"{name}_motion_H"] = np.stack([motions[k] for k in keys]) if keys else np.zeros((0, 4, 4), np.float32)
+        print(f"  {name}: {dict(zip(FULL_SUMMARY_FIELDS, summary[-1]))} ({time.time() - t1:.0f} s, "
+              f"{time.time() - t0:.0f} s in all)", flush=True)
+    out["summary"] = np.array(summary)
+    return out
+
+
+def rich_matrix_reference():
+    """The nine cells of scripts/accuracy_rich.py over the 100-frame rich
+    fixture (_write_rich; read unpadded, as that script reads it) at
+    RICH_MIN_AREA, seed 0, in the script's order."""
+    import shutil
+    import tempfile
+
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu_torch.bench_config import RICH_MIN_AREA, kitti_accuracy_config
+
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="rich_matrix_ref_")
+    try:
+        _write_rich(tmp, RICH_MATRIX_FRAMES)
+        ds = KittiDataProvider(tmp)
+        runs = [(f"{mode}_{form}", DynoConfig.from_dict(dataclasses.asdict(kitti_accuracy_config(
+            mode, RICH_MATRIX_FRAMES, form, min_observable_mask_area=RICH_MIN_AREA)))) for mode, form in RICH_CELLS]
+        _save(RICH_MATRIX_OUT, _cells(ds, runs, RICH_MATRIX_FRAMES, t0), t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rich_seeds_reference(cells=RICH_SEED_CELLS, seeds=None):
+    """The rich matrix's `cells` ("<mode>_<formulation>") under RANSAC
+    `seeds` (RICH_SEEDS by mode if None) -> one file per cell under
+    RICH_SEEDS_OUT, rewritten after every seed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu_torch.bench_config import RICH_MIN_AREA, kitti_accuracy_config
+
+    t0 = time.time()
+    os.makedirs(RICH_SEEDS_OUT, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="rich_seeds_ref_")
+    try:
+        _write_rich(tmp, RICH_MATRIX_FRAMES)
+        ds = KittiDataProvider(tmp)
+        for cell in cells:
+            mode, form = cell.rsplit("_", 1)
+            cfg = DynoConfig.from_dict(dataclasses.asdict(kitti_accuracy_config(
+                mode, RICH_MATRIX_FRAMES, int(form), min_observable_mask_area=RICH_MIN_AREA)))
+            done = []
+            for seed in seeds or RICH_SEEDS[mode]:
+                done.append((seed, _cells(ds, [(cell, cfg)], RICH_MATRIX_FRAMES, t0, seed)["summary"][0]))
+                _save(os.path.join(RICH_SEEDS_OUT, f"{cell}.npz"),
+                      {"cell": cell, "seeds": np.array([sd for sd, _ in done]),
+                       "summary_fields": np.array(FULL_SUMMARY_FIELDS),
+                       "summary": np.array([v for _, v in done])}, t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rich_draws_check(cells=("sliding_window_1", "sliding_window_0", "incremental_1", "incremental_0")):
+    """The port on the CPU over the 100-frame rich fixture (_write_rich) in
+    the matrix's WCME / WCPE `cells`, its RANSAC sampling JAX seed 0's
+    draws (tests/torch_port_util.py reference_draws / inject_draws), through
+    eval/accuracy.py run_config_dataset, printed beside the matrix file's
+    seed-0 rows: whether the port's gap to those rows on the card is the
+    draws'. Writes no file."""
+    import shutil
+    import tempfile
+
+    import jax
+    import numpy as np
+    import pytest
+
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu_torch.bench_config import RICH_MIN_AREA, kitti_accuracy_config
+    from dynosam_tpu_torch.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu_torch.eval import accuracy
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_util import inject_draws, reference_draws
+
+    t0 = time.time()
+    ref = np.load(RICH_MATRIX_OUT)
+    fields = [str(f) for f in ref["summary_fields"]]
+    tmp = tempfile.mkdtemp(prefix="rich_draws_")
+    try:
+        _write_rich(tmp, RICH_MATRIX_FRAMES)
+        ds = KittiDataProvider(tmp, device="cpu")
+        for cell in cells:
+            mode, form = cell.rsplit("_", 1)
+            jcfg = DynoConfig.from_dict(dataclasses.asdict(kitti_accuracy_config(
+                mode, RICH_MATRIX_FRAMES, int(form), min_observable_mask_area=RICH_MIN_AREA)))
+            draws = reference_draws(jax.random.PRNGKey(0), jcfg.frontend, RICH_MATRIX_FRAMES)
+            with pytest.MonkeyPatch.context() as mp:
+                queue = inject_draws(mp, draws)
+                mode_enum = {v: k for k, v in accuracy.MODE_KEYS.items()}[mode]
+                r = accuracy.run_config_dataset(ds, int(form), mode_enum, RICH_MATRIX_FRAMES, "cpu",
+                                                min_observable_mask_area=RICH_MIN_AREA)
+            jr = dict(zip(fields, ref["summary"][[str(c) for c in ref["cells"]].index(cell)]))
+            print(f"  {cell} with JAX seed 0's draws ({len(queue)} left): "
+                  + ", ".join(f"{k} {r[k]:.6g} / JAX {jr[k]:.6g}" for k in
+                              ("ate_t", "ame_t", "ame_r", "ame_t_med", "n_motions", "fe_ame_t"))
+                  + f" ({time.time() - t0:.0f} s)", flush=True)
+            del draws
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sweep_reference():
+    """Hybrid sliding-window at windows 8, 12 and 16 over the 60-frame
+    fixture, seed 0 (scripts/accuracy_rich.py's sweep)."""
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu_torch.bench_config import SWEEP_WINDOWS, kitti_accuracy_config
+
+    t0 = time.time()
+    runs = [(f"window_{w}", DynoConfig.from_dict(dataclasses.asdict(
+        kitti_accuracy_config("sliding_window", SWEEP_FRAMES, window=w)))) for w in SWEEP_WINDOWS]
+    out = _cells(KittiDataProvider(KITTI_FIXTURE), runs, SWEEP_FRAMES, t0)
+    out["windows"] = list(SWEEP_WINDOWS)
+    _save(SWEEP_OUT, out, t0)
+
+
+def _det_acc_runs(ds, frames, out_path, seeds=(0,)):
+    """scripts/accuracy_detector.py run_cell over the first `frames` frames
+    of `ds`, provided and detected masks (seed 0; the detected row also
+    under the other `seeds`, as `detected_seed<s>_*`), the engine at the
+    dataset's frame size with score 0.35 and the XLA mask combination of
+    the CPU -> out_path: its result, and from the pipeline it builds the
+    mature poses, the matured motions, the association of estimated object
+    ids to ground-truth ids (object-pose trajectories, as run_cell
+    associates them) and per frame the packet's object ids and valid
+    flags."""
+    import numpy as np
+
+    import dynosam_tpu.pipeline.pipeline as jpipeline
+    from dynosam_tpu.nn.detector import YoloV8DetectorEngine
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import accuracy_detector
+
+    import jax
+
+    hw = (int(ds.intrinsics().height), int(ds.intrinsics().width))
+    base = jpipeline.DynoPipeline
+    made, seed = [], [0]
+
+    class Recorded(base):
+        """The reference's pipeline under RANSAC seed seed[0], keeping itself
+        and each frame's packet ids for the file."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.frontend_state = self.frontend_state.replace(key=jax.random.PRNGKey(seed[0]))
+            self.packet_ids, self.packet_valid = [], []
+            made.append(self)
+
+        def process_frame(self, *a, **kw):
+            out = super().process_frame(*a, **kw)
+            self.packet_ids.append(np.asarray(self.last_packet.object_ids))
+            self.packet_valid.append(np.asarray(self.last_packet.object_valid))
+            return out
+
+    def keep(prefix, pipe):
+        motions = {k: np.asarray(v, np.float32) for k, v in pipe.backend.matured_motion.items()}
+        keys = sorted(motions)
+        out[f"{prefix}_X"] = np.stack(pipe.trajectory).astype(np.float32)
+        out[f"{prefix}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
+        out[f"{prefix}_motion_H"] = np.array([motions[k] for k in keys], np.float32).reshape(-1, 4, 4)
+        out[f"{prefix}_packet_ids"] = np.stack(pipe.packet_ids).astype(np.int32)
+        out[f"{prefix}_packet_valid"] = np.stack(pipe.packet_valid)
+
+    jpipeline.DynoPipeline = Recorded
+    t0 = time.time()
+    out = {"rows": np.array(["provided", "detected"]), "frames": frames, "seeds": np.array(seeds),
+           "result_fields": np.array(["ate_t", "ame_t", "ame_t_med", "n_motions", "n_tracks", "n_assoc"])}
+    try:
+        engine = YoloV8DetectorEngine(input_hw=hw, score_threshold=0.35)
+        results = []
+        for row, det in (("provided", None), ("detected", engine)):
+            r = accuracy_detector.run_cell(ds, frames, det)
+            pipe = made[-1]
+            results.append([r[k] for k in out["result_fields"]])
+            keep(row, pipe)
+            assoc = associate(pipe, [ds.ground_truth(k) for k in range(frames)])
+            out[f"{row}_assoc"] = np.array(sorted(assoc.items()), np.int32).reshape(-1, 2)
+            print(f"  {row} ({frames} frames): {r}, association {assoc} ({time.time() - t0:.0f} s)", flush=True)
+        out["results"] = np.array(results, np.float64)
+        for sd in seeds[1:]:
+            seed[0] = sd
+            r = accuracy_detector.run_cell(ds, frames, engine)
+            p = f"detected_seed{sd}"
+            keep(p, made[-1])
+            out[f"{p}_results"] = np.array([r[k] for k in out["result_fields"]], np.float64)
+            assoc = associate(made[-1], [ds.ground_truth(k) for k in range(frames)])
+            out[f"{p}_assoc"] = np.array(sorted(assoc.items()), np.int32).reshape(-1, 2)
+            print(f"  detected seed {sd} ({frames} frames): {r}, association {assoc} ({time.time() - t0:.0f} s)",
+                  flush=True)
+    finally:
+        jpipeline.DynoPipeline = base
+    _save(out_path, out, t0)
+
+
+def det_acc_reference():
+    """The table's run: _det_acc_runs over the fixture's 60 frames (the
+    engine at its 96x320), seed 0."""
+    from dynosam_tpu.dataproviders.kitti import KittiDataProvider
+
+    _det_acc_runs(KittiDataProvider(KITTI_FIXTURE), DET_ACC_FRAMES, DET_ACC_OUT)
+
+
+def det_pipe_reference():
+    """The smoke's run (chip_smoke.py phase 16): _det_acc_runs over the
+    first DET_PIPE_FRAMES frames of bench_config.detector_scene, rendered by
+    the port on the CPU and written by its dyno-KITTI writer
+    (eval/accuracy.py write_detector_scene), the engine at 384x640, seeds
+    0-5."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dynosam_tpu.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu_torch.eval.accuracy import write_detector_scene
+
+    torch.set_num_threads(4)
+    tmp = tempfile.mkdtemp(prefix="det_pipe_ref_")
+    try:
+        write_detector_scene(tmp, DET_PIPE_FRAMES)
+        _det_acc_runs(KittiDataProvider(tmp), DET_PIPE_FRAMES, DET_PIPE_OUT, seeds=KITTI_30F_SEEDS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def associate(pipe, gts):
+    """scripts/accuracy_detector.py run_cell's association of estimated
+    object ids to ground-truth ids by object-pose trajectory (its body,
+    returned instead of consumed)."""
+    import numpy as np
+
+    est_pos = {}
+    for (fid, oid), L in pipe.backend.matured_objpose.items():
+        est_pos.setdefault(oid, {})[fid] = np.asarray(L)[:3, 3]
+    gt_pos = {}
+    for k, g in enumerate(gts):
+        for i, goid in enumerate(np.asarray(g.object_ids)):
+            if int(goid) > 0:
+                gt_pos.setdefault(int(goid), {})[k] = np.asarray(g.object_poses[i])[:3, 3]
+    assoc = {}
+    for eid, traj in est_pos.items():
+        best, best_d = None, np.inf
+        for goid, gtraj in gt_pos.items():
+            common = sorted(set(traj) & set(gtraj))
+            if len(common) < 3:
+                continue
+            d = float(np.mean([np.linalg.norm(traj[f] - gtraj[f]) for f in common]))
+            if d < best_d:
+                best, best_d = goid, d
+        if best is not None and best_d < 3.0:
+            assoc[int(eid)] = best
+    return assoc
+
+
+def progressive_reference():
+    """A 1242x375 synthetic frame (the world-textured dataset scene at
+    Virtual KITTI 2's size, frame 0, rendered by the port on the CPU)
+    written by cv2 as a progressive JPEG at quality 95, and cv2's decode of
+    that file as RGB (chip_smoke.py phase 12 decodes it on the card's
+    machine, which has no cv2)."""
+    import cv2
+    import numpy as np
+
+    from dynosam_tpu_torch.bench_config import dataset_scene
+
+    t0 = time.time()
+    rgb = dataset_scene("vkitti", 1, device="cpu").frame(0).rgb.numpy()
+    bgr = np.clip(np.rint(rgb[..., ::-1] * 255.0), 0, 255).astype(np.uint8)
+    ok, buf = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    assert ok and b"\xff\xc2" in buf.tobytes()
+    with open(PROGRESSIVE_JPG, "wb") as f:
+        f.write(buf.tobytes())
+    _save(PROGRESSIVE_REF, {"rgb": cv2.imdecode(buf, cv2.IMREAD_COLOR)[..., ::-1]}, t0)
 
 
 def datasets_reference():
@@ -704,12 +1193,14 @@ def datasets_reference():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched",
-                                       "batched_forms", "batched_modes", "pipelined", "datasets", "heldout"],
-                    action="append", help="write only these files (default: all)")
+    parts = ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "batched_forms", "batched_modes",
+             "pipelined", "datasets", "heldout", "rich", "rich_matrix", "rich_seeds", "rich_draws", "sweep",
+             "det_acc", "det_pipe", "forms_kitti", "progressive"]
+    ap.add_argument("--only", choices=parts, action="append", help="write only these files (default: all)")
+    ap.add_argument("--cells", help="rich_seeds: comma-separated cells (default: RICH_SEED_CELLS)")
+    ap.add_argument("--seeds", help="rich_seeds: comma-separated seeds (default: RICH_SEEDS by mode)")
     args = ap.parse_args()
-    todo = args.only or ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "batched_forms",
-                         "batched_modes", "pipelined", "datasets", "heldout"]
+    todo = args.only or parts
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -723,6 +1214,8 @@ def main():
         stereo_imu_reference()
     if "forms" in todo:
         forms_reference()
+    elif "forms_kitti" in todo:
+        forms_kitti_reference()
     if "batched" in todo:
         batched_reference()
     if "batched_forms" in todo:
@@ -735,6 +1228,23 @@ def main():
         datasets_reference()
     if "heldout" in todo:
         heldout_reference()
+    if "rich" in todo:
+        rich_reference()
+    if "rich_matrix" in todo:
+        rich_matrix_reference()
+    if "rich_seeds" in todo:
+        rich_seeds_reference(tuple(args.cells.split(",")) if args.cells else RICH_SEED_CELLS,
+                             tuple(int(x) for x in args.seeds.split(",")) if args.seeds else None)
+    if "rich_draws" in todo:
+        rich_draws_check()
+    if "sweep" in todo:
+        sweep_reference()
+    if "det_acc" in todo:
+        det_acc_reference()
+    if "det_pipe" in todo:
+        det_pipe_reference()
+    if "progressive" in todo:
+        progressive_reference()
 
 
 if __name__ == "__main__":

@@ -68,10 +68,13 @@ def test_kernel_rejects_a_noncontiguous_tensor(cuda):
 
 @pytest.mark.parametrize("batch", [None, 8])
 @pytest.mark.parametrize("cell", [8, 16])
-@pytest.mark.parametrize("hw", [(384, 1280), (384, 640), (100, 90)])
+@pytest.mark.parametrize("hw", [(384, 1280), (384, 640), (100, 90), (375, 1242), (384, 1248), (96, 320)])
 def test_fused_cell_max_equals_plain_version(cuda, hw, cell, batch):
     """Responses bit for bit (no FMA contraction on either side), so the
-    per-cell maxima and their pixels are equal in every cell."""
+    per-cell maxima and their pixels are equal in every cell. 375x1242 and
+    100x90 take the scalar loads (W % 4 != 0); 384x1248 and 96x320 (the
+    padded rich fixture and the dyno-KITTI fixture) the 16-byte loads of a
+    last column tile narrower than the kernel's."""
     shape = hw if batch is None else (batch, *hw)
     img = torch.rand(shape, generator=cuda, device="cuda")
     before = st.shi_tomasi_cell_max.launches
@@ -87,11 +90,12 @@ def test_fused_cell_max_equals_plain_version(cuda, hw, cell, batch):
                 assert torch.equal(a[b], one)
 
 
+@pytest.mark.parametrize("hw", [(384, 640), (384, 1248), (96, 320)])
 @pytest.mark.parametrize("cell", [8, 16])
-def test_fused_cell_max_ties_take_each_cells_first_pixel(cuda, cell):
-    img = torch.full((384, 640), 0.5, device="cuda")
+def test_fused_cell_max_ties_take_each_cells_first_pixel(cuda, cell, hw):
+    img = torch.full(hw, 0.5, device="cuda")
     best, u, v = st.shi_tomasi_cell_max(img, cell)
-    gw = 640 // cell
+    gw = hw[1] // cell
     cells = torch.arange(best.numel(), device="cuda")
     assert torch.equal(u, (cells % gw * cell).float()) and torch.equal(v, (cells // gw * cell).float())
     for a, b in zip((best, u, v), st.shi_tomasi_cell_max_reference(img, cell)):
@@ -179,7 +183,8 @@ def _near_threshold(proto, coef, boxes, valid, out_hw, pad, thr=0.5, near=1e-5):
 
 
 @pytest.mark.parametrize("box_pad", [0.0, 2.0])
-@pytest.mark.parametrize("k, hp, wp, H, W", [(32, 96, 160, 384, 640), (5, 37, 61, 148, 244), (4, 10, 10, 7, 13)])
+@pytest.mark.parametrize("k, hp, wp, H, W", [(32, 96, 160, 384, 640), (5, 37, 61, 148, 244), (4, 10, 10, 7, 13),
+                                             (32, 24, 80, 96, 320)])
 def test_mask_label_kernel_matches_plain_version(cuda, k, hp, wp, H, W, box_pad):
     proto, coef, boxes, scores, valid = _label_inputs(cuda, k, hp, wp, H, W)
     before = mc.mask_label.launches
@@ -192,6 +197,34 @@ def test_mask_label_kernel_matches_plain_version(cuda, k, hp, wp, H, W, box_pad)
     assert float(near.float().mean()) <= 1e-4
     # the same labels from contiguous NHWC prototypes
     assert torch.equal(out, mc.mask_label(proto.contiguous(), coef, boxes, scores, valid, (H, W), box_pad=box_pad))
+
+
+@pytest.mark.parametrize("box_pad", [0.0, 2.0])
+def test_mask_label_kernel_at_the_fixture_detector(cuda, box_pad):
+    """Entry B at the detected-masks accuracy run's shape: the committed
+    checkpoint at the dyno-KITTI fixture's 96x320 (24x80 prototypes) on its
+    frame 0, where it finds nothing (no score reaches 0.05 on any fixture
+    frame, on the CPU as in the JAX package): an all-background label."""
+    import os
+
+    from dynosam_tpu_torch.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu_torch.nn import postprocess as pp
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "kitti_fixture")
+    rgb = KittiDataProvider(root, device="cuda").frame(0).rgb
+    engine = YoloV8DetectorEngine(input_hw=(96, 320), score_threshold=0.35, device="cuda")
+    with torch.no_grad():
+        out = engine.model(rgb[None])
+        single = {k: [a[0] for a in v] if isinstance(v, list) else v[0] for k, v in out.items()}
+        det = pp.nms(*pp.decode_all(single), max_detections=engine.max_detections,
+                     score_threshold=engine.score_threshold, iou_threshold=engine.iou_threshold,
+                     class_ids=engine.class_ids)
+    proto = single["proto"]
+    assert tuple(proto.shape[:2]) == (24, 80) and int(det.valid.sum()) == 0
+    args = (proto, det.mcoef, det.boxes, det.scores, det.valid, (96, 320))
+    got = mc.mask_label(*args, box_pad=box_pad)
+    ref = mc.mask_label_reference(*args, box_pad=box_pad)
+    assert torch.equal(got, ref) and not bool(got.any())
 
 
 def test_mask_label_rejects_what_the_kernel_does_not_take(cuda):
