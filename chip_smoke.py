@@ -120,7 +120,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
   11. batched path: make_batched_pipeline at bench_config() over B=1 and
      B=8 sequences of one 27-frame bench scene, sequence b taking frames
      b .. b+19 (20 frames, 10 window advances, each frame one program for
-     the whole batch); the fused K1 must launch once per frame at both B
+     the whole batch; B=1 runs the first 12, two advances, against the
+     reference's first 12); the fused K1 must launch once per frame at both B
      (its blockIdx.z entry takes all B images) and the map entry never; each
      sequence's camera poses held to the ground truth and poses + object
      motions to dynosam_tpu_torch/testdata/bench_batched_ref_b8_20f.npz at
@@ -202,7 +203,35 @@ Phases, each printing one line; any failure raises and exits non-zero:
      matured motions and the run's result held to
      dynosam_tpu_torch/testdata/det_acc_ref_20f.npz; the fused K1 and K2's
      entry B once per frame, entry A and the K1 map entry never;
-  17. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
+  17. train: 6 steps of train_detector (the port of
+     scripts/train_detector.py) from the committed checkpoint at 384x640,
+     batch 8, drawing from the one-scene pool JAX rendered, each step's
+     loss and every leaf's change (parameters and batch_stats) held to
+     testdata/train_ref_6steps.npz; the pool rendered again on the card and
+     compared; the result written as a float16 flax checkpoint, loaded back
+     through load_flax_checkpoint into YoloV8DetectorEngine and scored on
+     16 held-out scenes (K2's entry B once per scene; K1 and K2's entry A
+     never, counted over the steps and the evaluation) against JAX's
+     eval_iou of its own 6-step parameters; ms per step and peak memory;
+  18. experiments: run_experiments.main (the port of
+     scripts/run_experiments.py) over the fixture, 10 frames, forms 0, 1, 3
+     x modes 0, 1, 2: no cell with an error, each cell's ATE, rotation,
+     RPE, AME rms and median inside the JAX sweep's seeds 0-5
+     (testdata/experiments_ref_10f/) widened by EXP_MARGIN, and by
+     EXP_MARGIN_CELL in WCME and WCPE sliding-window, whose float32 steps
+     are rounding noise on both sides; SUMMARY.md with the reference's
+     columns, pipeline.frontend / pipeline.backend in every timing
+     summary; the fused K1 once per frame, the map entry and K2 never;
+  19. scale: scale_check.time_config (the port of scripts/scale_check.py)
+     at J=32, F=16, 2048 dynamic landmarks, WCME and hybrid sliding-window:
+     every column printed, the graph after the optimize and after the
+     advance held to JAX's (testdata/scale_ref_J32_F16_2048.npz), and
+     the SCALE.md table printed with the card's name and power limit
+     (written to a temporary directory: only the explicit
+     `python -m dynosam_tpu_torch.scale_check` writes the committed
+     dynosam_tpu_torch/SCALE.md); every count read and 0, no hand kernel
+     on this path;
+  20. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
      K2 entry A, K2 entry B), with each one's bound (the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates), loop-timed `ms` / `plain_ms` / `library_ms`
@@ -474,6 +503,10 @@ DET_PIPE_RESULT = 3e-3
 # each one's largest entry, the port's linearize parity bound
 # (tests/test_torch_backend.py).
 BATCHED_FRAMES = 20
+# B=1 runs the window fill and two advancing frames (the last one profiled
+# for the B=8 / B=1 op ratio, its window for the chunked assembly), held to
+# the first 12 frames of the reference: cut from 20 to pay for phases 17-19
+BATCHED_B1_FRAMES = 12
 BATCHED_SIZES = (1, 8)
 BATCHED_OPS_RATIO = 1.5
 # WCME, WCPE and the joint hybrid solve at B=8, each held to the ground
@@ -1966,7 +1999,7 @@ def profile_frames(torch, step, state, frames):
     return len(kernels) / len(frames), busy, (statistics.mean(k1) / 1e3 if k1 else None)
 
 
-def batched_readings(torch, seed, ref, B, device="cuda", form=None):
+def batched_readings(torch, seed, ref, B, device="cuda", form=None, n_frames=BATCHED_FRAMES):
     """make_batched_pipeline at bench_config (with formulation `form` of
     FORM_BENCH, or the bench's decoupled hybrid) over B sequences ->
     (launches, readings, final state, per-frame host seconds, host-sync
@@ -1987,14 +2020,14 @@ def batched_readings(torch, seed, ref, B, device="cuda", form=None):
         cfg = cfg.with_overrides(FORM_BENCH[form])
     scene = bench_scene(intr, BATCHED_FRAMES + max(BATCHED_SIZES) - 1, device=device)
     frames = scene.frames()
-    stacked = [_stack_inputs(torch, frames[k:k + B]) for k in range(BATCHED_FRAMES)]
+    stacked = [_stack_inputs(torch, frames[k:k + B]) for k in range(n_frames)]
     step, init = make_batched_pipeline(cfg, intr, torch.Generator(device=device).manual_seed(seed))
     held = {"n": 0}
 
     def after(state):
         # the state before the last frame, for its profiled replay
         held["n"] += 1
-        if held["n"] == BATCHED_FRAMES - 1:
+        if held["n"] == n_frames - 1:
             held["before_last"] = state
         held["last"] = state
 
@@ -2002,9 +2035,9 @@ def batched_readings(torch, seed, ref, B, device="cuda", form=None):
     with SyncCounter(torch, device) as sync:
         outs, times = _drive(torch, step, init(B, device), stacked, device, after=after)
     launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
-    if device == "cuda" and (launches["K1"], launches["K1 map"]) != (BATCHED_FRAMES, 0):
+    if device == "cuda" and (launches["K1"], launches["K1 map"]) != (n_frames, 0):
         raise AssertionError(f"batched B={B}: fused K1 launched {launches['K1']} times and the map "
-                             f"entry {launches['K1 map']} times over {BATCHED_FRAMES} frames")
+                             f"entry {launches['K1 map']} times over {n_frames} frames")
     # _drive's own per-frame synchronize() calls are not the program's
     sites = {k: v for k, v in sync.sites.items() if not k.startswith("chip_smoke.py")}
 
@@ -2014,11 +2047,12 @@ def batched_readings(torch, seed, ref, B, device="cuda", form=None):
     X_gt = scene.scn.X_gt
     for b in range(B):
         # sequence b starts at scene frame b: its world is that camera
-        gt = lie.mm(lie.inverse(X_gt[b]), X_gt[b:b + BATCHED_FRAMES])
+        gt = lie.mm(lie.inverse(X_gt[b]), X_gt[b:b + n_frames])
         seq = [{k: v[b] for k, v in o.items() if torch.is_tensor(v)} for o in outs]
         rot, trans = rot_trans_err(torch, lie, torch.stack([o["X_world_cam"] for o in seq]), gt)
         rd["gt_m"], rd["gt_rad"] = max(rd["gt_m"], float(trans.max())), max(rd["gt_rad"], float(rot.max()))
-        ref_b = {k: ref[k][:, b] for k in ("X_world_cam", "object_ids", "object_motions", "object_motion_valid")}
+        ref_b = {k: ref[k][:n_frames, b] for k in ("X_world_cam", "object_ids", "object_motions",
+                                                   "object_motion_valid")}
         tr, rr, n_mot, mot = compare_to_reference(torch, lie, seq, ref_b, device, bounds=(float("inf"),) * 3,
                                                   settled_only=form in ("wcme", "wcpe"))
         if b in excluded:
@@ -2048,7 +2082,9 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
     ref = np.load(ref_path)
     paths, ops, lines, finals = {}, {}, [], {}
     for B in BATCHED_SIZES:
-        launches, rd, held, times, sites, ops[B], _, k1_ms = batched_readings(torch, seed, ref, B, device)
+        n_frames = BATCHED_B1_FRAMES if B == 1 else BATCHED_FRAMES
+        launches, rd, held, times, sites, ops[B], _, k1_ms = batched_readings(torch, seed, ref, B, device,
+                                                                               n_frames=n_frames)
         checks = {"gt_m": GT_TRANS_M, "gt_rad": GT_ROT_RAD, "ref_m": REF_TRANS_M, "ref_rad": REF_ROT_RAD,
                   "motion_m": REF_MOTION_TRANS_M}
         over = {k: (rd[k], v) for k, v in checks.items() if not rd[k] <= v}
@@ -2057,16 +2093,16 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
         steady = statistics.median(times[10:])
         n_sync = sum(sites.values())
         lines.append(
-            f"B={B}: fused K1 launches {launches['K1']}, map entry {launches['K1 map']}; camera vs GT "
+            f"B={B} ({n_frames} frames): fused K1 launches {launches['K1']}, map entry {launches['K1 map']}; camera vs GT "
             f"max {rd['gt_m']:.2e} m / {rd['gt_rad']:.2e} rad; vs JAX ref max {rd['ref_m']:.2e} m / "
             f"{rd['ref_rad']:.2e} rad; {rd['n_motions']} object motions vs JAX ref max "
             f"{rd['motion_m']:.2e} m; first frame {times[0] * 1e3:.1f} ms, median frames 2-10 "
             f"{statistics.median(times[1:10]) * 1e3:.2f} ms, median advancing frames 11-"
-            f"{BATCHED_FRAMES} {steady * 1e3:.2f} ms = {B / steady:.2f} frames/s aggregate, "
+            f"{n_frames} {steady * 1e3:.2f} ms = {B / steady:.2f} frames/s aggregate, "
             f"{1 / steady:.2f} per sequence; device ops per advancing frame "
             f"{ops[B] if ops[B] is not None else 'n/a'}, the fused K1 (blockIdx.z over {B}) "
             f"{f'{k1_ms:.4f}' if k1_ms is not None else 'n/a'} ms of device time per launch there; "
-            f"host syncs {n_sync / BATCHED_FRAMES:.1f}/frame "
+            f"host syncs {n_sync / n_frames:.1f}/frame "
             f"(sites: {', '.join(f'{k} x{v}' for k, v in sorted(sites.items(), key=lambda kv: -kv[1])) or 'none'})")
         paths[f"batched_b{B}"] = launches
         finals[B] = held["last"]
@@ -2865,6 +2901,372 @@ def run_det_pipeline_path(torch, seed, ref_path, device="cuda"):
     return launches
 
 
+# Phase 17 (train): 6 steps of the port's train_detector from the committed
+# checkpoint (read as float32, a fresh optimizer state) at 384x640, batch
+# 8, the schedule over T = 1500 (step 0 has lr 0), seed 0, drawing from the
+# one-scene pool JAX rendered (testdata/train_ref_6steps.npz,
+# make_torch_smoke_reference.py --only train). Each step's loss is held to
+# JAX's within TRAIN_LOSS_REL of it; each leaf element's change over the
+# steps (parameters and batch_stats) to JAX's (stored in float16: ~1.5e-7
+# of rounding at the largest change, 3.0e-4), all but TRAIN_LEAF_SHARE of
+# the elements within TRAIN_LEAF_ABS and every one within TRAIN_LEAF_MAX,
+# twice the sum of the steps' learning rates (Adam's normalised step
+# m / sqrt(v) carries the whole relative error of a gradient element that
+# sits near zero, up to a flip of its sign); and the held-out evaluation
+# of the written f16 checkpoint over 16 scenes to JAX's eval_iou of its
+# own float32 6-step parameters: instances equal, mean IoU within
+# TRAIN_EVAL_IOU. Torch on the CPU (4 threads) against JAX on the CPU read:
+# losses 2.4e-7 relative, every element within 1.3e-7, mean IoU 2.9e-5
+# (35 instances, as JAX), the pool's render 76 of 983,040 pixels one level
+# off JAX's, masks equal.
+TRAIN_REF = "train_ref_6steps.npz"
+TRAIN_LOSS_REL = 1e-5
+TRAIN_LEAF_ABS = 2e-6
+TRAIN_LEAF_SHARE = 1e-3
+TRAIN_EVAL_IOU = 1e-3
+# Phase 18 (experiments): run_experiments.main over the fixture, 10 frames,
+# forms 0, 1, 3 x modes 0, 1, 2, the port's own RANSAC generator (seed 0):
+# each cell's fields within the range of the JAX sweep's seeds 0-5
+# (testdata/experiments_ref_10f/seed<s>.npz) widened by margin * the
+# range's midpoint, as phase 9 widens its range. Torch on the CPU (2
+# threads) read at most, beyond the six seeds' range: ATE 0.26%, ATE rot
+# 0.07%, RPE 0.01%, AME rms 2.9% (wcpe batch), AME median 3.8% (wcpe
+# sliding); the margins are about twice that (ATE rot as phase 9's: the
+# aligned rotation is ill-conditioned about the direction of travel).
+# WCME and WCPE sliding-window have bands of their own, EXP_MARGIN_CELL:
+# their damped Gauss-Newton accepts every finite step, and on WCME's second
+# frame and WCPE's third the step's reduced system is cond ~1e11, the same
+# matrix in both packages in float64 but off it by 16-124% of its largest
+# entry in float32 on either side, so the step is rounding noise and the
+# factorisation's implementation (cuSOLVER here, XLA's in JAX) decides it
+# (tests/test_torch_experiments.py::
+# test_sliding_window_step_is_float32_rounding_noise). The H100 (runs BV,
+# BW, identical) read WCME sliding ATE 24% beyond the seeds' range, AME rms
+# 0.7%, AME median 8.0%, and WCPE sliding nothing beyond it; every cell's
+# ATE rot at most 28%. So those two cells' camera fields are held to half
+# the range's midpoint, AME rms to EXP_MARGIN's 8% and AME median to 16%,
+# about twice the card's readings.
+EXP_FRAMES = 10
+EXP_REF_DIR = "experiments_ref_10f"
+EXP_MARGIN = {"ate_trans_rmse": 0.02, "ate_rot_rmse": 0.3, "rpe_trans_rmse": 0.02, "ame_trans_rmse": 0.08,
+              "ame_trans_median": 0.08}
+EXP_MARGIN_CELL = {c: {"ate_trans_rmse": 0.5, "ate_rot_rmse": 0.5, "rpe_trans_rmse": 0.5, "ame_trans_rmse": 0.08,
+                       "ame_trans_median": 0.16} for c in ("wcme_sliding", "wcpe_sliding")}
+EXP_SUMMARY_HEADER = "| config | ATE (cm) | AME rms (cm) | AME med (cm) | frontend ms | backend ms |"
+# Phase 19 (scale): scale_check.time_config at J=32, F=16, 2048 dynamic
+# landmarks, WCME and hybrid sliding-window, the graph after the optimize
+# and after the advance held to JAX's (testdata/scale_ref_J32_F16_2048.npz,
+# --only scale): frame ids, object slots and motion validity equal, camera
+# poses within SCALE_POSE_M, settled motions (valid at the slot before too)
+# within SCALE_MOTION_M[formulation]. The port's Scenario draws its landmark
+# clouds from the JAX Scenario's uniforms (stored in the file), so both
+# backends take the same packets. Torch on the CPU (4 threads) read, after
+# the optimize and after the advance alike: poses 4.8e-7 m (both), settled
+# motions 5.3e-5 m (WCME, 407 compared) and 3.7e-4 m (hybrid, 376; its
+# decoupled object phase moves motions by ~1e-4 under f32 rounding of its
+# inputs, ROADMAP queue 3); the bounds are about 10x.
+SCALE_J, SCALE_F, SCALE_DYN = 32, 16, 2048
+SCALE_REF = f"scale_ref_J{SCALE_J}_F{SCALE_F}_{SCALE_DYN}.npz"
+SCALE_POSE_M = 1e-5
+SCALE_MOTION_M = {0: 5e-4, 3: 4e-3}
+
+
+def _zero_all_counts():
+    """Every kernel wrapper's launch count to 0 (phases 17-19 read all four,
+    the zeros they expect included)."""
+    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+
+    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
+    mc.mask_combine.launches = mc.mask_label.launches = 0
+
+
+def _all_counts():
+    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
+    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+
+    return {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches,
+            "K2": mc.mask_combine.launches, "K2 label": mc.mask_label.launches}
+
+
+def train_readings(torch, ref, device="cuda"):
+    """Phase 17 without its bounds -> readings (losses, leaf errors, the
+    pool's render against JAX's, the held-out numbers, times, peak memory,
+    launches)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dynosam_tpu_torch import train_detector as td
+    from dynosam_tpu_torch.eval import detector_heldout as dh
+    from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
+    from dynosam_tpu_torch.nn.weights import load_flax_checkpoint
+
+    on_card = torch.device(device).type == "cuda"
+    steps, batch, total, tseed = (int(v) for v in ref["config"])
+    lr = float(ref["lr"])
+    rd = {}
+    # the one-scene pool: JAX's render (what the steps draw) and the port's
+    t0 = time.perf_counter()
+    pi, pm, _ = td.build_pool(np.random.default_rng(tseed + 1), 1, device=device)
+    rd["pool_render_s"] = time.perf_counter() - t0
+    same_shape = np.stack(pi).shape == ref["pool_imgs"].shape
+    d = np.abs(np.stack(pi).astype(np.int32) - ref["pool_imgs"].astype(np.int32)) if same_shape else None
+    rd["pool_px_differ"] = int((d > 0).any(-1).sum()) if same_shape else -1
+    rd["pool_px_total"] = int(np.prod(ref["pool_imgs"].shape[:3]))
+    rd["pool_max_levels"] = int(d.max()) if same_shape else -1
+    rd["pool_mask_differ"] = int((np.stack(pm) != ref["pool_masks"]).sum()) if same_shape else -1
+    pool = (list(ref["pool_imgs"]), list(ref["pool_masks"]), list(ref["pool_cmaps"]))
+
+    leaves = td.load_leaves(td.COMMITTED_CKPT, device)
+    start = {k: v.detach().clone() for k, v in leaves.items()}
+    opt = td.OptaxAdamW(leaves, lambda c: td.warmup_cosine_lr(c, lr, total))
+    step = td.make_train_step(td.make_model(device), opt)
+    rng = np.random.default_rng(tseed + 1)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _zero_all_counts()          # the main path: the steps, then the held-out evaluation
+    losses, times = [], []
+    for _ in range(steps):
+        host = td.sample_batch(rng, *pool, batch)
+        t0 = time.perf_counter()
+        leaves, loss = step(leaves, *td.to_device(host, device))
+        losses.append(float(loss))          # waits for the step
+        times.append(time.perf_counter() - t0)
+    rd["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    rd["losses"], rd["times"] = losses, times
+    rd["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["loss"]))
+    leaf_err, worst, loose, n_el = 0.0, "", 0, 0
+    for k, v in leaves.items():
+        e = (v.detach() - start[k] - torch.as_tensor(ref[f"delta/{k}"].astype(np.float32), device=device)).abs()
+        loose += int((e > TRAIN_LEAF_ABS).sum())
+        n_el += e.numel()
+        if float(e.max()) >= leaf_err:
+            leaf_err, worst = float(e.max()), k
+    rd["leaf_err"], rd["leaf_worst"], rd["n_leaves"] = leaf_err, worst, len(leaves)
+    rd["leaf_loose"], rd["n_elements"] = loose, n_el
+    rd["leaf_max_bound"] = 2.0 * sum(td.warmup_cosine_lr(c, lr, total) for c in range(steps))
+    rd["largest_change"] = max(float(np.abs(ref[f"delta/{k}"]).max()) for k in leaves)
+
+    tmp = tempfile.mkdtemp(prefix="smoke_train_")
+    try:
+        path = os.path.join(tmp, "yolov8t_seg_synth.msgpack")
+        td.save_checkpoint(path, leaves, {"steps": steps, "scale": td.SCALE, "input_hw": [td.IMG_H, td.IMG_W],
+                                          "num_classes": td.NUM_CLASSES})
+        model, _ = load_flax_checkpoint(path)
+        engine = YoloV8DetectorEngine(model, input_hw=(td.IMG_H, td.IMG_W), max_detections=8, score_threshold=0.25,
+                                      class_ids=None, device=device)
+        t0 = time.perf_counter()
+        res = dh.evaluate(int(ref["eval_num_scenes"]), dh.SEED, device=device, engine=engine)
+        rd["eval_s"] = time.perf_counter() - t0
+        rd["launches"] = _all_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rd["eval"] = (res["mean_mask_iou"], res["class_accuracy"], res["instances"])
+    rd["eval_iou_err"] = abs(res["mean_mask_iou"] - float(ref["eval"][0]))
+    return rd
+
+
+def run_train_path(torch, ref_path, device="cuda", smi=""):
+    """Phase 17: train_readings held to the JAX run -> launches."""
+    import numpy as np
+
+    ref = np.load(ref_path)
+    rd = train_readings(torch, ref, device)
+    n_scenes = int(ref["eval_num_scenes"])
+    if device == "cuda" and rd["launches"] != {"K1": 0, "K1 map": 0, "K2": 0, "K2 label": n_scenes}:
+        raise AssertionError(f"train: kernel launches {rd['launches']} over {int(ref['config'][0])} steps and "
+                             f"{n_scenes} held-out scenes")
+    problems = []
+    if not rd["loss_rel"] <= TRAIN_LOSS_REL:
+        problems.append(f"loss {rd['losses']} vs JAX {ref['loss'].tolist()} (rel {rd['loss_rel']:.2e})")
+    if not (rd["leaf_err"] <= rd["leaf_max_bound"] and rd["leaf_loose"] <= TRAIN_LEAF_SHARE * rd["n_elements"]):
+        problems.append(f"leaf change {rd['leaf_err']:.2e} off JAX's at {rd['leaf_worst']} (bound "
+                        f"{rd['leaf_max_bound']:.2e}), {rd['leaf_loose']} of {rd['n_elements']} elements beyond "
+                        f"{TRAIN_LEAF_ABS:.0e}")
+    if rd["eval"][2] != int(ref["eval"][2]) or not rd["eval_iou_err"] <= TRAIN_EVAL_IOU:
+        problems.append(f"held-out {rd['eval']} vs JAX {ref['eval'].tolist()}")
+    if problems:
+        raise AssertionError("train vs the JAX run: " + "; ".join(problems))
+    steps, batch, total, _ = (int(v) for v in ref["config"])
+    peak = f"{rd['peak_bytes'] / 2**30:.2f} GiB" if rd["peak_bytes"] is not None else "n/a"
+    say(f"{smi} | train: {steps} steps of train_detector from the committed checkpoint at "
+        f"384x640, batch {batch}, schedule over {total} (lr 0 on step 0), on {device}: "
+        f"{statistics.median(rd['times'][1:]) * 1e3:.1f} ms per step (median of steps 1-{steps - 1}; the first "
+        f"{rd['times'][0] * 1e3:.1f} ms), peak device memory {peak}; "
+        f"losses {', '.join(f'{v:.6f}' for v in rd['losses'])} (JAX {', '.join(f'{v:.6f}' for v in ref['loss'])}; "
+        f"largest relative diff {rd['loss_rel']:.2e}, bound {TRAIN_LOSS_REL:.0e}); {rd['n_leaves']} leaves' change "
+        f"within {rd['leaf_err']:.2e} of JAX's (bound {rd['leaf_max_bound']:.1e}; largest change "
+        f"{rd['largest_change']:.2e}, worst {rd['leaf_worst']}), {rd['leaf_loose']} of {rd['n_elements']} elements "
+        f"beyond {TRAIN_LEAF_ABS:.0e} (bound {TRAIN_LEAF_SHARE:.0e} of them); the pool rendered on {device}: "
+        f"{rd['pool_px_differ']} of {rd['pool_px_total']} pixels differ from JAX's render, by at most "
+        f"{rd['pool_max_levels']} levels, {rd['pool_mask_differ']} mask pixels ({rd['pool_render_s']:.2f} s); the "
+        f"written f16 checkpoint loaded back through load_flax_checkpoint: {n_scenes} held-out scenes, K2 label "
+        f"entry {rd['launches']['K2 label']} launches, entry A {rd['launches']['K2']}, K1 fused {rd['launches']['K1']}, "
+        f"K1 map {rd['launches']['K1 map']} (counted over the steps and the evaluation); {rd['eval'][2]} instances "
+        f"(JAX {int(ref['eval'][2])}), mean IoU {rd['eval'][0]:.6f} (JAX's f32 parameters {float(ref['eval'][0]):.6f}, "
+        f"|diff| {rd['eval_iou_err']:.2e}, bound {TRAIN_EVAL_IOU:.0e}), class accuracy {rd['eval'][1]:.6f} (JAX "
+        f"{float(ref['eval'][1]):.6f}); {rd['eval_s']:.1f} s")
+    return rd["launches"]
+
+
+def experiments_readings(torch, testdata, device="cuda"):
+    """Phase 18 without its bounds -> (summary, SUMMARY.md's lines, the
+    JAX seeds' (lo, hi) per cell and field, launches, seconds, the files
+    one cell wrote, the number of JAX seeds). The sweep draws RANSAC from
+    run_experiments' own generator (seed 0), as a user's run does."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dynosam_tpu_torch import run_experiments as rx
+
+    refs = [np.load(p) for p in sorted(glob.glob(os.path.join(testdata, EXP_REF_DIR, "seed*.npz")))]
+    cells = [str(c) for c in refs[0]["cells"]]
+    fields = [str(f) for f in refs[0]["fields"]]
+    stack = np.stack([r["summary"] for r in refs])             # (seeds, cells, fields)
+    ranges = {(c, f): (float(stack[:, i, j].min()), float(stack[:, i, j].max()))
+              for i, c in enumerate(cells) for j, f in enumerate(fields)}
+    tmp = tempfile.mkdtemp(prefix="smoke_exp_")
+    try:
+        _zero_all_counts()
+        t0 = time.perf_counter()
+        summary = rx.main(["--sequence", f"kitti:{KITTI_FIXTURE}", "--frames", str(EXP_FRAMES), "--forms", "0,1,3",
+                           "--modes", "0,1,2", "--out", tmp, "--device", device])
+        dt = time.perf_counter() - t0
+        launches = _all_counts()
+        with open(os.path.join(tmp, "SUMMARY.md")) as fh:
+            md = fh.read().splitlines()
+        files = sorted(os.listdir(os.path.join(tmp, "kitti_kitti_fixture", cells[0])))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary, md, ranges, launches, dt, files, len(refs)
+
+
+def run_experiments_path(torch, testdata, device="cuda"):
+    """Phase 18: experiments_readings held to the JAX seeds' range -> launches."""
+    summary, md, ranges, launches, dt, files, n_seeds = experiments_readings(torch, testdata, device)
+    cells = summary["kitti_kitti_fixture"]
+    n_cells = len(cells)
+    if device == "cuda" and launches != {"K1": n_cells * EXP_FRAMES, "K1 map": 0, "K2": 0, "K2 label": 0}:
+        raise AssertionError(f"experiments: kernel launches {launches} over {n_cells} cells of {EXP_FRAMES} frames")
+    errors = {c: r["error"] for c, r in cells.items() if "error" in r}
+    if errors or n_cells != 9:
+        raise AssertionError(f"experiments: {n_cells} cells, errors {errors}")
+    out, excess = [], {}
+    for (c, f), (lo, hi) in ranges.items():
+        v = float(cells[c][f])
+        mid = 0.5 * (lo + hi)
+        excess[(c, f)] = max(lo - v, v - hi, 0.0) / mid
+        if not excess[(c, f)] <= EXP_MARGIN_CELL.get(c, EXP_MARGIN)[f]:
+            out.append(f"{c} {f} {v:.6g} outside JAX's [{lo:.6g}, {hi:.6g}] by {excess[(c, f)]:.2%} of its midpoint")
+    if out:
+        raise AssertionError("experiments vs the JAX seeds: " + "; ".join(out))
+    if EXP_SUMMARY_HEADER not in md:
+        raise AssertionError(f"experiments: SUMMARY.md lacks the reference's columns: {md[:4]}")
+    tags = [c for c, r in cells.items() if not {"pipeline.frontend", "pipeline.backend"} <= set(r["timing_ms"])]
+    if tags:
+        raise AssertionError(f"experiments: cells {tags} lack pipeline.frontend / pipeline.backend timings")
+    say(f"experiments: run_experiments.main over the fixture, {EXP_FRAMES} frames, forms 0,1,3 x modes 0,1,2 on "
+        f"{device}: {n_cells} cells, none with an error, in {dt:.1f} s ({dt / n_cells:.1f} s per cell); fused K1 "
+        f"launches {launches['K1']}, map entry {launches['K1 map']}, K2 entries A / B {launches['K2']} / "
+        f"{launches['K2 label']}; every field inside the range of {n_seeds} JAX "
+        f"seeds widened by a share of its midpoint, EXP_MARGIN ("
+        + ", ".join(f"{f} {m:.0%}" for f, m in EXP_MARGIN.items())
+        + "), and for " + " and ".join(EXP_MARGIN_CELL) + " EXP_MARGIN_CELL ("
+        + ", ".join(f"{f} {m:.0%}" for f, m in next(iter(EXP_MARGIN_CELL.values())).items())
+        + "); largest excess beyond the range, of its midpoint, in the other cells: "
+        + ", ".join(f"{f} {max(e for (c, g), e in excess.items() if g == f and c not in EXP_MARGIN_CELL):.2%}"
+                    for f in EXP_MARGIN)
+        + "; " + "; ".join(f"in {c}: " + ", ".join(f"{f} {excess[(c, f)]:.2%}" for f in EXP_MARGIN)
+                           for c in EXP_MARGIN_CELL)
+        + f"; per cell ATE / AME rms / AME med (cm), frontend / backend ms: "
+        + "; ".join(f"{c} {r['ate_trans_rmse'] * 100:.3f} / {r['ame_trans_rmse'] * 100:.3f} / "
+                    f"{r['ame_trans_median'] * 100:.3f}, {r['timing_ms']['pipeline.frontend']:.1f} / "
+                    f"{r['timing_ms']['pipeline.backend']:.1f}" for c, r in cells.items())
+        + f"; each cell wrote {', '.join(files)}")
+    return launches
+
+
+def scale_readings(torch, ref, device="cuda"):
+    """Phase 19 without its bounds -> ({formulation: (columns, readings)},
+    launches over both runs)."""
+    import numpy as np
+
+    from dynosam_tpu_torch import scale_check as sc
+
+    # the JAX Scenario's landmark clouds, so both backends take the same packets
+    uniforms = {"static": ref["uniforms_static"], "objects": list(ref["uniforms_objects"])}
+    out, launches = {}, {}
+    for form in (0, 3):
+        _zero_all_counts()
+        res, st_opt, st_adv = sc.time_config(SCALE_J, SCALE_F, SCALE_DYN, form, 1, device=device, uniforms=uniforms)
+        launches[form] = _all_counts()
+        rd = {}
+        for tag, g in (("opt", st_opt), ("adv", st_adv)):
+            p = f"{form}_{tag}_"
+            rd[f"{tag}_structure_equal"] = all(np.array_equal(getattr(g, k).cpu().numpy(), ref[p + k])
+                                               for k in ("frame_ids", "obj_ids", "H_valid"))
+            rd[f"{tag}_pose_m"] = float(np.abs(g.X.cpu().numpy()[..., :3, 3] - ref[p + "X"][..., :3, 3]).max())
+            rd[f"{tag}_pose_rot"] = float(np.abs(g.X.cpu().numpy()[..., :3, :3] - ref[p + "X"][..., :3, :3]).max())
+            both = g.H_valid.cpu().numpy() & ref[p + "H_valid"]
+            settled = both.copy()
+            settled[:, 1:] &= both[:, :-1]
+            settled[:, 0] = False
+            err = np.linalg.norm(g.H.cpu().numpy()[..., :3, 3] - ref[p + "H"][..., :3, 3], axis=-1)
+            rd[f"{tag}_motion_m"] = float(err[settled].max()) if settled.any() else float("nan")
+            rd[f"{tag}_n_settled"] = int(settled.sum())
+        out[form] = (res, rd)
+    return out, launches
+
+
+def run_scale_path(torch, ref_path, device="cuda", smi=""):
+    """Phase 19: scale_readings held to JAX; prints the SCALE.md table it
+    would write (the committed dynosam_tpu_torch/SCALE.md is written only by
+    `python -m dynosam_tpu_torch.scale_check`) -> launches, all 0: the path is
+    the backend alone."""
+    import tempfile
+
+    import numpy as np
+
+    from dynosam_tpu_torch import scale_check as sc
+
+    ref = np.load(ref_path)
+    out, launches = scale_readings(torch, ref, device)
+    rows, lines = [], []
+    for form, (res, rd) in out.items():
+        name = {0: "WCME", 3: "Hybrid"}[form]
+        if device == "cuda" and any(launches[form].values()):
+            raise AssertionError(f"scale {name}: kernel launches {launches[form]} on a path with no kernel")
+        bad = [tag for tag in ("opt", "adv") if not (rd[f"{tag}_structure_equal"]
+                                                     and rd[f"{tag}_pose_m"] <= SCALE_POSE_M
+                                                     and rd[f"{tag}_motion_m"] <= SCALE_MOTION_M[form]
+                                                     and rd[f"{tag}_n_settled"] > 0)]
+        if bad:
+            raise AssertionError(f"scale {name}: after {bad} vs JAX: {rd}")
+        rows.append({**res, "formulation": name})
+        lines.append(f"{name}: " + ", ".join(f"{c} {res[c]:.4f}" for c in sc.COLUMNS)
+                     + "; after the optimize / the advance: frame ids, slots and motion validity equal to JAX's, "
+                     f"camera {rd['opt_pose_m']:.2e} / {rd['adv_pose_m']:.2e} m, {rd['opt_n_settled']} / "
+                     f"{rd['adv_n_settled']} settled motions within {rd['opt_motion_m']:.2e} / "
+                     f"{rd['adv_motion_m']:.2e} m (bounds {SCALE_POSE_M:.0e} m, {SCALE_MOTION_M[form]:.0e} m); "
+                     f"launches " + ", ".join(f"{k} {v}" for k, v in launches[form].items()))
+    with tempfile.TemporaryDirectory(prefix="smoke_scale_") as tmp:
+        path = os.path.join(tmp, "SCALE.md")
+        sc.write_scale_md(path, rows, SCALE_J, SCALE_F, SCALE_DYN, smi or sc.device_label(device))
+        with open(path) as fh:
+            table = [ln for ln in fh.read().splitlines() if ln.startswith("|")]
+    say(f"{smi} | scale: scale_check.time_config at J={SCALE_J}, F={SCALE_F}, {SCALE_DYN} dynamic landmarks, "
+        f"sliding window, on {device}: " + "; ".join(lines))
+    for ln in table:
+        say(f"scale table: {ln}")
+    return {k: sum(c[k] for c in launches.values()) for k in launches[0]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the RANSAC and test-input generators")
@@ -2915,7 +3317,7 @@ def main():
     k1 = timed("3 (K1)", check_k1, torch, args.seed)
     k2 = timed("4 (K2)", check_k2, torch, args.seed, built[K2_V3_SOURCE][0])
 
-    # ---- 5-16. the main paths, counts zeroed just before each ----------------
+    # ---- 5-19. the main paths, counts zeroed just before each ----------------
     bench_launches = timed("5 (bench)", run_bench_path, torch, args.seed,
                            os.path.join(testdata, "bench_ref_20f.npz"))
     pipelined_launches = timed("5b (pipelined)", run_pipelined_path, torch, args.seed,
@@ -2940,13 +3342,17 @@ def main():
                           os.path.join(testdata, f"rich_ref_{RICH_FRAMES}f.npz"))
     det_pipe_launches = timed("16 (detector pipeline)", run_det_pipeline_path, torch, args.seed,
                               os.path.join(testdata, f"det_acc_ref_{DET_PIPE_FRAMES}f.npz"))
+    train_launches = timed("17 (train)", run_train_path, torch, os.path.join(testdata, TRAIN_REF), smi=smi)
+    exp_launches = timed("18 (experiments)", run_experiments_path, torch, testdata)
+    scale_launches = timed("19 (scale)", run_scale_path, torch, os.path.join(testdata, SCALE_REF), smi=smi)
 
-    # ---- 17. results ------------------------------------------------------------
+    # ---- 20. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "pipelined": pipelined_launches, "klt": klt_launches,
              "stereo_imu": stereo_launches, "detector": det_launches, "heldout": heldout_launches,
              "pipeline": pipe_launches, **forms_launches, **batched_launches, "datasets": dataset_launches,
              **{f"tooling_{k}": v for k, v in tooling_launches.items()}, **modes_launches, "rich": rich_launches,
-             "detector_pipeline": det_pipe_launches}
+             "detector_pipeline": det_pipe_launches, "train": train_launches, "experiments": exp_launches,
+             "scale": scale_launches}
     batched = {p for p in paths if p.startswith("batched_")}
 
     def row(name, kid, source, replaces, check, only=None, **extra):

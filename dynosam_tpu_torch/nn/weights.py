@@ -7,7 +7,10 @@ what `flax.serialization.to_bytes` wrote: a msgpack map of maps whose leaves
 are msgpack extension type 1, an ndarray, with the payload msgpack
 `[shape, dtype name, C-order bytes]` (`flax.serialization._ndarray_to_bytes`).
 `read_flax_msgpack` decodes that subset in pure Python, so loading needs
-neither flax nor the msgpack package.
+neither flax nor the msgpack package; `write_flax_msgpack` encodes it, so a
+checkpoint the port trains (train_detector.py) loads into both the port
+and the reference's `serialization.from_bytes`. `flax_from_state_dict` is
+the inverse of `state_dict_from_flax`.
 
 Mapping onto the torch module, whose submodules carry the flax names:
 conv kernels HWIO -> OIHW; the transposed conv's kernel (kh, kw, in, out)
@@ -118,6 +121,84 @@ def read_flax_msgpack(path: str) -> dict:
     return tree
 
 
+class _Writer:
+    """Encoder for the msgpack subset flax writes (`msgpack.packb` with
+    `use_bin_type=True`: the smallest header for each length)."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def _head(self, n, fix, fix_max, wide):
+        """A length header: the fix form below fix_max, else the smallest
+        of `wide` ((type byte, struct format, limit), ...)."""
+        if fix is not None and n < fix_max:
+            self.out.append(fix | n)
+            return
+        for byte, fmt, limit in wide:
+            if n < limit:
+                self.out.append(byte)
+                self.out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack length {n} is too large")
+
+    def write(self, v):
+        if isinstance(v, dict):
+            self._head(len(v), 0x80, 16, ((0xDE, ">H", 1 << 16), (0xDF, ">I", 1 << 32)))
+            for k, x in v.items():
+                self.write(k)
+                self.write(x)
+        elif isinstance(v, (list, tuple)):
+            self._head(len(v), 0x90, 16, ((0xDC, ">H", 1 << 16), (0xDD, ">I", 1 << 32)))
+            for x in v:
+                self.write(x)
+        elif isinstance(v, str):
+            b = v.encode()
+            self._head(len(b), 0xA0, 32, ((0xD9, ">B", 1 << 8), (0xDA, ">H", 1 << 16), (0xDB, ">I", 1 << 32)))
+            self.out += b
+        elif isinstance(v, bytes):
+            self._head(len(v), None, 0, ((0xC4, ">B", 1 << 8), (0xC5, ">H", 1 << 16), (0xC6, ">I", 1 << 32)))
+            self.out += v
+        elif isinstance(v, (int, np.integer)) and 0 <= v:
+            v = int(v)
+            if v < 0x80:
+                self.out.append(v)
+            else:
+                self._head(v, None, 0, ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16), (0xCE, ">I", 1 << 32),
+                                        (0xCF, ">Q", 1 << 64)))
+        elif isinstance(v, np.ndarray):
+            w = _Writer()
+            w.write((tuple(v.shape), v.dtype.name, np.ascontiguousarray(v).tobytes()))
+            payload = bytes(w.out)
+            n = len(payload)
+            fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+            if n in fixext:
+                self.out.append(fixext[n])
+            else:
+                self._head(n, None, 0, ((0xC7, ">B", 1 << 8), (0xC8, ">H", 1 << 16), (0xC9, ">I", 1 << 32)))
+            self.out += struct.pack(">b", _EXT_NDARRAY)
+            self.out += payload
+        else:
+            raise TypeError(f"{type(v).__name__} is not in the flax msgpack subset")
+
+
+def write_flax_msgpack(path: str, tree: dict, dtype=np.float16) -> None:
+    """Write a nested dict of arrays (numpy or torch) as
+    `flax.serialization.to_bytes` writes it, each array cast to `dtype`
+    (float16, as the reference stores its checkpoint). Keys go out sorted
+    at every level, the order in which `jax.tree.map` rebuilds a dict, so
+    the bytes equal `to_bytes` of the reference's `jax.tree.map`-cast tree."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {str(k): conv(t[k]) for k in sorted(t)}
+        a = t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+        return a.astype(dtype)
+
+    w = _Writer()
+    w.write(conv(tree))
+    with open(path, "wb") as fh:
+        fh.write(bytes(w.out))
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -147,6 +228,38 @@ def state_dict_from_flax(variables: dict) -> dict:
     for path, a in _flatten(variables.get("batch_stats", {})):
         sd[".".join(path[:-1]) + "." + stat_names[path[-1]]] = np.asarray(a, np.float32)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def flax_from_state_dict(state_dict: dict) -> dict:
+    """The inverse of `state_dict_from_flax`: a YoloV8Seg state_dict (or the
+    training leaves of train_detector.py) -> {'params': ..., 'batch_stats':
+    ...} nested as the reference's flax module, float32 numpy arrays.
+    BatchNorm's batch counter has no flax counterpart and is dropped."""
+    tree = {"params": {}, "batch_stats": {}}
+    stat_names = {"running_mean": "mean", "running_var": "var"}
+    for name, v in state_dict.items():
+        path = name.split(".")
+        leaf = path[-1]
+        if leaf == "num_batches_tracked":
+            continue
+        a = (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)).astype(np.float32)
+        if leaf in stat_names:
+            coll, leaf = "batch_stats", stat_names[leaf]
+        elif leaf == "weight" and path[-2] == "upsample":
+            coll, leaf, a = "params", "kernel", a.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif leaf == "weight" and a.ndim == 4:
+            coll, leaf, a = "params", "kernel", a.transpose(2, 3, 1, 0)
+        elif leaf == "weight":
+            coll, leaf = "params", "scale"
+        elif leaf == "bias":
+            coll = "params"
+        else:
+            raise KeyError(f"unexpected tensor {name}")
+        node = tree[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree
 
 
 def load_flax_checkpoint(path: str):

@@ -48,7 +48,16 @@ def _scale_n(n: int, depth: float) -> int:
 
 
 class ConvBnSiLU(nn.Module):
-    """Conv2d + BatchNorm (eps 1e-3) + SiLU — ultralytics' `Conv` block."""
+    """Conv2d + BatchNorm (eps 1e-3) + SiLU — ultralytics' `Conv` block.
+
+    BatchNorm always normalises with its running statistics, in plain ops
+    in flax's order: the reference runs the model only as
+    `model.apply(params, x, train=False)`, serving and training alike, and
+    its optimizer acts on the whole variables tree (scripts/train_detector.py:
+    350, 462), so `batch_stats.mean` / `var` are themselves trained
+    (train_detector.py hands them in through `torch.func.functional_call`),
+    a gradient torch's batch_norm refuses. `bn` holds the parameters and
+    statistics under BatchNorm2d's names."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
         super().__init__()
@@ -56,7 +65,14 @@ class ConvBnSiLU(nn.Module):
         self.bn = nn.BatchNorm2d(cout, eps=1e-3, momentum=0.03)
 
     def forward(self, x):
-        return F.silu(self.bn(self.conv(x)))
+        y = self.conv(x)
+        bn = self.bn
+
+        def c(v):
+            return v[:, None, None]
+        # flax's _normalize: (x - mean) * (rsqrt(var + eps) * scale) + bias
+        y = (y - c(bn.running_mean)) * c(torch.rsqrt(bn.running_var + bn.eps) * bn.weight) + c(bn.bias)
+        return F.silu(y)
 
 
 class Bottleneck(nn.Module):

@@ -122,6 +122,11 @@ dynosam_tpu_torch/testdata/:
   * --only rich_draws writes nothing: it prints the port's rows of four of
     those cells on the CPU with JAX seed 0's RANSAC draws injected, beside
     the matrix file's (rich_draws_check).
+  * rich_frontend_ref_100f.npz (--only rich_frontend) — the frontend alone
+    over the 100-frame rich fixture, JAX under PRNGKey(0) and the port on
+    the CPU with those draws (rich_frontend_reference): per-frame
+    differences, the inputs of both sides' object solve at the first frame
+    where a valid slot parts, and the one-ulp input changes that decide it.
   * sweep_ref_60f.npz (--only sweep) — hybrid sliding-window at windows 8,
     12 and 16 over the 60-frame fixture, seed 0, keys as the matrix file.
   * det_acc_ref_60f.npz (--only det_acc) — scripts/accuracy_detector.py
@@ -141,7 +146,8 @@ dynosam_tpu_torch/testdata/:
 
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
     [--only bench|detector|kitti|klt|stereo_imu|forms|forms_kitti|batched|batched_forms|batched_modes|pipelined|
-            datasets|heldout|rich|rich_matrix|rich_seeds|rich_draws|sweep|det_acc|det_pipe|progressive]
+            datasets|heldout|rich|rich_matrix|rich_seeds|rich_draws|rich_frontend|sweep|det_acc|det_pipe|
+            progressive]
     [--cells incremental_0,...] [--seeds 1,2,...]   (rich_seeds only)
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
@@ -195,6 +201,7 @@ RICH_SEEDS_OUT = os.path.join(TESTDATA, f"rich_seeds_ref_{RICH_MATRIX_FRAMES}f")
 RICH_SEED_CELLS = tuple(f"{m}_{f}" for m in ("sliding_window", "incremental", "full_batch") for f in (1, 0))
 RICH_SEEDS = {"sliding_window": (1, 2, 3, 4, 5), "incremental": (1, 2, 3, 4, 5), "full_batch": (1,)}
 RICH_CELLS = tuple((m, f) for m in ("sliding_window", "incremental", "full_batch") for f in (3, 1, 0))
+RICH_FRONTEND_OUT = os.path.join(TESTDATA, "rich_frontend_ref_100f.npz")
 SWEEP_FRAMES = 60
 SWEEP_OUT = os.path.join(TESTDATA, f"sweep_ref_{SWEEP_FRAMES}f.npz")
 DET_ACC_FRAMES = 60           # the table's run, on the fixture
@@ -955,6 +962,326 @@ def rich_draws_check(cells=("sliding_window_1", "sliding_window_0", "incremental
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the inputs of solve_all_object_motions, in its argument order
+OBJ_SOLVE_ARGS = ("object_ids", "track_object_ids", "pts_world_prev", "uv_k", "pts_world_k", "track_valid", "X_k")
+PART_M = 1e-2                 # a valid slot's motion parting by more than this (m) is a branch, not noise
+
+
+def rich_frontend_reference():
+    """The frontend alone, no backend, over the 100-frame rich fixture
+    (_write_rich; both sides read the same files unpadded) at
+    kitti_accuracy_config's frontend with RICH_MIN_AREA: JAX under
+    PRNGKey(0), the port on the CPU with JAX seed 0's draws injected. Per
+    frame: the camera's largest difference, each slot's largest motion
+    difference and its validity on both sides, the draws left in the queue.
+    At the first frame where a slot valid on both sides parts by more than
+    PART_M, the inputs of solve_all_object_motions on both sides (captured
+    as called), the object draws' key, and the one-f32-ulp changes of the
+    parting slot's points that make the port, on JAX's inputs, take the
+    branch it took on its own (searched on the port, which equals JAX on
+    equal inputs; tests/test_torch_rich_frontend.py runs them in JAX)."""
+    import shutil
+    import tempfile
+
+    import jax
+    import numpy as np
+    import pytest
+    import torch
+
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu.dataproviders.kitti import KittiDataProvider as JaxKitti
+    from dynosam_tpu.frontend import frontend as jfrontend
+    from dynosam_tpu.frontend import motion as jmotion
+    from dynosam_tpu_torch.bench_config import RICH_MIN_AREA, kitti_accuracy_config
+    from dynosam_tpu_torch.dataproviders.kitti import KittiDataProvider
+    from dynosam_tpu_torch.frontend import frontend as tfrontend
+    from dynosam_tpu_torch.frontend import motion as tmotion
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_util import inject_draws
+
+    torch.set_num_threads(4)
+    t0 = time.time()
+    pcfg = kitti_accuracy_config("incremental", RICH_MATRIX_FRAMES, 0,
+                                 min_observable_mask_area=RICH_MIN_AREA).normalized()
+    jcfg = DynoConfig.from_dict(dataclasses.asdict(pcfg)).normalized()
+    fp = jcfg.frontend
+    # the frame keys as reference_draws derives them, kept to save the object key
+    key, obj_keys, draws = jax.random.PRNGKey(0), [], []
+    shape = (fp.motion_solver.object.num_hypotheses(), fp.tracker.max_dynamic_features_per_frame)
+    for _ in range(RICH_MATRIX_FRAMES):
+        key, k_cam, k_obj = jax.random.split(key, 3)
+        obj_keys.append(np.asarray(k_obj))
+        draws.append(np.asarray(jax.random.uniform(
+            k_cam, (fp.motion_solver.camera.num_hypotheses(), fp.tracker.max_features_per_frame))))
+        draws.append(np.asarray(jax.vmap(lambda k: jax.random.uniform(k, shape))(
+            jax.random.split(k_obj, fp.max_objects))))
+    captured = {}
+    jax_solve, port_solve = jmotion.solve_all_object_motions, tmotion.solve_all_object_motions
+
+    def jax_capture(k, *a):
+        jax.debug.callback(lambda *x: captured.__setitem__("jax", [np.asarray(v) for v in x]), *a[:7])
+        return jax_solve(k, *a)
+
+    def port_capture(g, *a, **kw):
+        captured["port"] = [x.numpy().copy() for x in a[:7]]
+        return port_solve(g, *a, **kw)
+
+    tmp = tempfile.mkdtemp(prefix="rich_frontend_")
+    try:
+        _write_rich(tmp, RICH_MATRIX_FRAMES)
+        jds, tds = JaxKitti(tmp), KittiDataProvider(tmp, device="cpu")
+        jintr, tintr = jds.intrinsics(), tds.intrinsics()
+        out = {k: [] for k in ("cam_diff_m", "motion_diff", "valid_jax", "valid_port", "object_ids", "draws_left")}
+        intr = [float(jintr.fx), float(jintr.fy), float(jintr.cx), float(jintr.cy), jintr.width, jintr.height,
+                float(jintr.baseline)]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jfrontend.motion, "solve_all_object_motions", jax_capture)
+            mp.setattr(tfrontend.motion, "solve_all_object_motions", port_capture)
+            jstep = jax.jit(lambda s, i: jfrontend.frontend_step(s, i, jintr, fp))
+            js = jfrontend.empty_frontend_state(fp, image_shape=(jintr.height, jintr.width))
+            ts = tfrontend.empty_frontend_state(pcfg.frontend, device="cpu", image_shape=(tintr.height, tintr.width))
+            queue = inject_draws(mp, draws)
+            for k in range(RICH_MATRIX_FRAMES):
+                js, jp = jstep(js, jds.frame(k))
+                ts, tp = tfrontend.frontend_step(ts, tds.frame(k), tintr, pcfg.frontend, None)
+                jH, tH = np.asarray(jp.object_motions), tp.object_motions.numpy()
+                out["cam_diff_m"].append(np.abs(np.asarray(jp.X_world_cam) - tp.X_world_cam.numpy()).max())
+                out["motion_diff"].append(np.abs(jH - tH).max(axis=(1, 2)))
+                out["valid_jax"].append(np.asarray(jp.object_valid))
+                out["valid_port"].append(tp.object_valid.numpy())
+                out["object_ids"].append(np.asarray(jp.object_ids))
+                out["draws_left"].append(len(queue))
+                both = out["valid_jax"][-1] & out["valid_port"][-1]
+                if "part_frame" not in out and np.any(both & (out["motion_diff"][-1] > PART_M)):
+                    slot = int(np.argmax(np.where(both, out["motion_diff"][-1], 0.0)))
+                    out.update(part_frame=k, part_slot=slot, obj_key=obj_keys[k], jax_H=jH, port_H=tH)
+                    for side in ("jax", "port"):
+                        for name, v in zip(OBJ_SOLVE_ARGS, captured[side]):
+                            out[f"{side}_{name}"] = v
+                    print(f"  frame {k}, slot {slot}: the first valid slot to part "
+                          f"({out['motion_diff'][-1][slot]:.3g}), {len(queue)} draws left", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out["intr"] = np.array(intr, np.float64)      # fx, fy, cx, cy, width, height, baseline
+    # the one-ulp changes of the parting slot's points that flip the port on JAX's inputs
+    f, slot = int(out["part_frame"]), int(out["part_slot"])
+    uniforms = torch.from_numpy(draws[2 * f + 1])
+    inputs = {n: out[f"jax_{n}"] for n in OBJ_SOLVE_ARGS}
+
+    def branch(ins):
+        r = port_solve(None, *[torch.from_numpy(np.asarray(ins[n])) for n in OBJ_SOLVE_ARGS],
+                       tintr, pcfg.frontend.motion_solver, uniforms=uniforms)
+        return np.sign(float(r.pose[slot, 0, 0]))
+
+    base = branch(inputs)
+    oid = inputs["object_ids"][slot]
+    rows = np.nonzero(inputs["track_valid"] & (inputs["track_object_ids"] == oid))[0]
+    flips = []
+    for a, arr in enumerate(("pts_world_prev", "pts_world_k")):
+        for n in rows:
+            for c in range(3):
+                for s in (1, -1):
+                    ins = dict(inputs)
+                    ins[arr] = inputs[arr].copy()
+                    ins[arr][n, c] = np.nextafter(ins[arr][n, c], np.float32(s * np.inf))
+                    if branch(ins) != base:
+                        flips.append((a, n, c, s))
+    out["ulp_flips"] = np.array(flips, np.int32).reshape(-1, 4)     # (array 0 prev / 1 k, row, coord, direction)
+    print(f"  {len(flips)} one-ulp changes flip the branch ({time.time() - t0:.0f} s)", flush=True)
+    _save(RICH_FRONTEND_OUT, out, t0)
+
+
+EXP_FRAMES = 10               # the smoke's sweep (run_experiments over the fixture)
+EXP_SEEDS = (0, 1, 2, 3, 4, 5)
+EXP_OUT = os.path.join(TESTDATA, f"experiments_ref_{EXP_FRAMES}f")
+EXP_FIELDS = ("ate_trans_rmse", "ate_rot_rmse", "rpe_trans_rmse", "ame_trans_rmse", "ame_trans_median")
+
+
+def _reference_script(name):
+    """A module of scripts/ loaded from its file (the reference's runners)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"ref_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def experiments_reference(seeds=EXP_SEEDS):
+    """scripts/run_experiments.py's nine cells (forms 0, 1, 3 x modes 0, 1,
+    2, its make_config and run_cell) over the fixture's first EXP_FRAMES
+    frames, RANSAC seed s (the frontend state's key; seed 0 is the script's
+    own run) -> EXP_OUT/seed<s>.npz: `cells`, `fields` (EXP_FIELDS) and
+    `summary` (cell, field); seed 0 also `<cell>_timing_tags`, the tags of
+    its timing summary."""
+    import shutil
+    import tempfile
+
+    import jax
+    import numpy as np
+    import pytest
+
+    from dynosam_tpu.dataproviders.base import create_dataset
+    from dynosam_tpu.pipeline import pipeline as jpipeline
+
+    rx = _reference_script("run_experiments")
+    os.makedirs(EXP_OUT, exist_ok=True)
+    ds = create_dataset(0, KITTI_FIXTURE)
+    cells = [(f, m) for f in (0, 1, 3) for m in (0, 1, 2)]
+    orig = jpipeline.empty_frontend_state
+    for seed in seeds:
+        t0 = time.time()
+        out = {"cells": np.array([f"{rx.FORMS[f]}_{rx.MODES[m]}" for f, m in cells]), "fields": np.array(EXP_FIELDS)}
+        rows = []
+        tmp = tempfile.mkdtemp(prefix="exp_ref_")
+        try:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(jpipeline, "empty_frontend_state",
+                           lambda params, **kw: orig(params, key=jax.random.PRNGKey(seed), **kw))
+                for f, m in cells:
+                    r = rx.run_cell(ds, f, m, EXP_FRAMES, os.path.join(tmp, f"{f}_{m}"))
+                    rows.append([r[k] for k in EXP_FIELDS])
+                    if seed == 0:
+                        out[f"{rx.FORMS[f]}_{rx.MODES[m]}_timing_tags"] = np.array(sorted(r["timing_ms"]))
+                    print(f"  seed {seed} {rx.FORMS[f]}_{rx.MODES[m]}: "
+                          + ", ".join(f"{k} {v:.6g}" for k, v in zip(EXP_FIELDS, rows[-1])), flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        out["summary"] = np.array(rows)
+        _save(os.path.join(EXP_OUT, f"seed{seed}.npz"), out, t0)
+
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_TOTAL, TRAIN_LR, TRAIN_SEED = 6, 8, 1500, 2e-3, 0
+TRAIN_EVAL_SCENES = 16
+TRAIN_OUT = os.path.join(TESTDATA, f"train_ref_{TRAIN_STEPS}steps.npz")
+
+
+def train_reference():
+    """scripts/train_detector.py's training from the committed checkpoint
+    (read as float32, as its --start-step resume reads it) with a fresh
+    optimizer state: the schedule over TRAIN_TOTAL steps at the default lr,
+    batch TRAIN_BATCH, seed TRAIN_SEED, TRAIN_STEPS steps at 384x640 drawn
+    from a one-scene pool (build_pool(default_rng(seed + 1), 1), then
+    sampled by a fresh default_rng(seed + 1), as a run whose pool comes from
+    --pool-cache samples), each step the reference's train_step -> `pool_*`
+    (the pool, uint8), `loss` (steps,), `norm` (steps,) the gradients'
+    global norm, `delta/<leaf>` (float16) each leaf's change over the
+    steps under the port's state_dict name, and eval_iou over
+    TRAIN_EVAL_SCENES held-out scenes of the final float32 parameters:
+    `eval` (mean IoU, class accuracy, instances) and `eval_iou` (per
+    instance)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+    from flax import serialization
+
+    from dynosam_tpu.nn import yolov8
+    from dynosam_tpu_torch.nn.weights import state_dict_from_flax
+
+    t0 = time.time()
+    rt = _reference_script("train_detector")
+    model = yolov8.YoloV8Seg(num_classes=rt.NUM_CLASSES, scale=rt.SCALE)
+    params = model.init(jax.random.PRNGKey(TRAIN_SEED), jnp.zeros((1, rt.IMG_H, rt.IMG_W, 3), jnp.float32))
+    with open(rt.CKPT_PATH, "rb") as f:
+        params = serialization.from_bytes(params, f.read())
+    params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    start = jax.tree.map(np.asarray, params)
+    loss_fn = rt.build_loss_fn(model)
+    sched = optax.warmup_cosine_decay_schedule(0.0, TRAIN_LR, warmup_steps=min(100, TRAIN_TOTAL // 10),
+                                               decay_steps=TRAIN_TOTAL)
+    tx = optax.chain(optax.clip_by_global_norm(5.0), optax.adamw(sched))
+    opt_state = tx.init(params)
+
+    @jax.jit
+    def train_step(params, opt_state, imgs_u8, gain, bias, boxes, valid, clss, inst_u8):
+        # scripts/train_detector.py main()'s train_step, with the gradients' norm
+        imgs = imgs_u8.astype(jnp.float32) / 255.0
+        imgs = jnp.clip(imgs * gain[:, None, None, None] + bias[:, None, None, None], 0.0, 1.0)
+        inst = inst_u8.astype(jnp.float32)
+        loss, grads = jax.value_and_grad(loss_fn)(params, imgs, boxes, valid, clss, inst)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss, optax.global_norm(grads)
+
+    pool_i, pool_m, pool_c = rt.build_pool(np.random.default_rng(TRAIN_SEED + 1), 1)
+    rng = np.random.default_rng(TRAIN_SEED + 1)
+    losses, norms = [], []
+    for step in range(TRAIN_STEPS):
+        imgs, masks, cmaps, gain, bias = rt.sample_batch(rng, pool_i, pool_m, pool_c, TRAIN_BATCH)
+        tb, tv, tc, ti = zip(*(rt.targets_from_mask(m, c) for m, c in zip(masks, cmaps)))
+        params, opt_state, loss, norm = train_step(
+            params, opt_state, jnp.asarray(imgs), jnp.asarray(gain), jnp.asarray(bias), jnp.asarray(np.stack(tb)),
+            jnp.asarray(np.stack(tv)), jnp.asarray(np.stack(tc)), jnp.asarray(np.stack(ti)))
+        losses.append(float(loss))
+        norms.append(float(norm))
+        print(f"  step {step}: loss {losses[-1]:.6f}, gradient norm {norms[-1]:.4f} ({time.time() - t0:.0f} s)",
+              flush=True)
+    final = jax.tree.map(np.asarray, params)
+    sd_final, sd_start = state_dict_from_flax(final), state_dict_from_flax(start)
+    out = {"pool_imgs": np.stack(pool_i), "pool_masks": np.stack(pool_m), "pool_cmaps": np.stack(pool_c),
+           "loss": np.array(losses), "norm": np.array(norms),
+           "config": np.array([TRAIN_STEPS, TRAIN_BATCH, TRAIN_TOTAL, TRAIN_SEED], np.int64), "lr": TRAIN_LR}
+    for k, v in sd_final.items():
+        out[f"delta/{k}"] = (v.numpy() - sd_start[k].numpy()).astype(np.float16)
+    miou, cacc, n, _ = rt.eval_iou(final, num_scenes=TRAIN_EVAL_SCENES)
+    out["eval"] = np.array([miou, cacc, n], np.float64)
+    out["eval_num_scenes"] = TRAIN_EVAL_SCENES
+    print(f"  eval_iou over {TRAIN_EVAL_SCENES} scenes: mean IoU {miou:.6f}, class accuracy {cacc:.6f}, "
+          f"{n} instances ({time.time() - t0:.0f} s)", flush=True)
+    _save(TRAIN_OUT, out, t0)
+
+
+SCALE_J, SCALE_F, SCALE_DYN = 32, 16, 2048
+SCALE_OUT = os.path.join(TESTDATA, f"scale_ref_J{SCALE_J}_F{SCALE_F}_{SCALE_DYN}.npz")
+SCALE_KEYS = ("X", "H", "H_valid", "obj_ids", "frame_ids")
+
+
+def scale_states(J, F, n_dyn, formulation, mode=1):
+    """scripts/scale_check.py's time_config run as it is, its graph states
+    taken where it waits on them -> (timings, state after the second
+    optimize, state after the second advance)."""
+    import jax
+
+    sc = _reference_script("scale_check")
+    seen = []
+    orig = jax.block_until_ready
+    jax.block_until_ready = lambda x: (seen.append(x), orig(x))[1]
+    try:
+        res = sc.time_config(J, F, n_dyn, formulation, mode)
+    finally:
+        jax.block_until_ready = orig
+    # waits: update 0, updates 1..F-1, optimize x2, advance x2
+    return res, seen[3], seen[5]
+
+
+def scale_reference():
+    """scale_states at J=SCALE_J, F=SCALE_F, SCALE_DYN dynamic landmarks for
+    WCME (0) and hybrid (3), sliding window -> per formulation
+    `<form>_opt_<key>` and `<form>_adv_<key>` for SCALE_KEYS."""
+    import numpy as np
+
+    import jax
+
+    t0 = time.time()
+    out = {"config": np.array([SCALE_J, SCALE_F, SCALE_DYN])}
+    # the JAX Scenario's landmark-cloud uniforms (spec seed 0, its key split
+    # and fold_in), for the port's Scenario
+    pts = max(8, SCALE_DYN // SCALE_J)
+    _, k_obj, _ = keys = jax.random.split(jax.random.PRNGKey(0), 3)
+    out["uniforms_static"] = np.asarray(jax.random.uniform(keys[0], (256, 3)))
+    out["uniforms_objects"] = np.stack([np.asarray(jax.random.uniform(jax.random.fold_in(k_obj, i), (pts, 3)))
+                                        for i in range(SCALE_J)])
+    for form in (0, 3):
+        _, st_opt, st_adv = scale_states(SCALE_J, SCALE_F, SCALE_DYN, form)
+        for tag, st in (("opt", st_opt), ("adv", st_adv)):
+            for k in SCALE_KEYS:
+                out[f"{form}_{tag}_{k}"] = np.asarray(getattr(st, k))
+        print(f"  formulation {form} ({time.time() - t0:.0f} s)", flush=True)
+    _save(SCALE_OUT, out, t0)
+
+
 def sweep_reference():
     """Hybrid sliding-window at windows 8, 12 and 16 over the 60-frame
     fixture, seed 0 (scripts/accuracy_rich.py's sweep)."""
@@ -1195,10 +1522,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parts = ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "batched_forms", "batched_modes",
              "pipelined", "datasets", "heldout", "rich", "rich_matrix", "rich_seeds", "rich_draws", "sweep",
-             "det_acc", "det_pipe", "forms_kitti", "progressive"]
+             "det_acc", "det_pipe", "forms_kitti", "progressive", "rich_frontend", "experiments", "train", "scale"]
     ap.add_argument("--only", choices=parts, action="append", help="write only these files (default: all)")
     ap.add_argument("--cells", help="rich_seeds: comma-separated cells (default: RICH_SEED_CELLS)")
-    ap.add_argument("--seeds", help="rich_seeds: comma-separated seeds (default: RICH_SEEDS by mode)")
+    ap.add_argument("--seeds", help="rich_seeds / experiments: comma-separated seeds (default: RICH_SEEDS by "
+                                    "mode / EXP_SEEDS)")
     args = ap.parse_args()
     todo = args.only or parts
     os.makedirs(TESTDATA, exist_ok=True)
@@ -1237,6 +1565,14 @@ def main():
                              tuple(int(x) for x in args.seeds.split(",")) if args.seeds else None)
     if "rich_draws" in todo:
         rich_draws_check()
+    if "rich_frontend" in todo:
+        rich_frontend_reference()
+    if "train" in todo:
+        train_reference()
+    if "scale" in todo:
+        scale_reference()
+    if "experiments" in todo:
+        experiments_reference(tuple(int(x) for x in args.seeds.split(",")) if args.seeds else EXP_SEEDS)
     if "sweep" in todo:
         sweep_reference()
     if "det_acc" in todo:

@@ -382,3 +382,35 @@ def test_viode_depth_is_dense_stereo_on_the_card(cuda, tmp_path):
     got = got.cpu()
     assert torch.equal(got > 0, ref > 0) and (ref > 0).float().mean() > 0.2
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """One train_detector step at full width (384x640, two images of the
+    committed pool, from the committed checkpoint, lr past the warmup): the
+    loss within 1e-5 relative and every leaf after the update within
+    1e-6 + 2 * lr of the CPU's (Adam's normalised step carries the whole
+    relative error of a gradient element near zero), all but 0.1% of the
+    elements within 1e-6."""
+    import os
+
+    from dynosam_tpu_torch import train_detector as td
+
+    ref = np.load(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "dynosam_tpu_torch",
+                               "testdata", "train_ref_6steps.npz"))
+    pool = (list(ref["pool_imgs"]), list(ref["pool_masks"]), list(ref["pool_cmaps"]))
+    batch = td.sample_batch(np.random.default_rng(1), *pool, 2)
+    lr = 2e-3
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves = td.load_leaves(td.COMMITTED_CKPT, dev)
+        opt = td.OptaxAdamW(leaves, lambda c: lr)
+        leaves, loss = td.make_train_step(td.make_model(dev), opt)(leaves, *td.to_device(batch, dev))
+        out[dev] = (float(loss), {k: v.detach().cpu() for k, v in leaves.items()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    loose = n = 0
+    for k, v in out["cpu"][1].items():
+        err = (out["cuda"][1][k] - v).abs()
+        assert float(err.max()) <= 1e-6 + 2 * lr, k
+        loose += int((err > 1e-6).sum())
+        n += err.numel()
+    assert loose <= 1e-3 * n, loose
