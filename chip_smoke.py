@@ -130,8 +130,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
      aggregate and per-sequence frames/s and host syncs per frame; and on
      the B=1 run's final window the landmark-chunked assembly
      (parallel/sharded.py, P=4) held to hybrid.linearize; then WCME, WCPE
-     and the joint hybrid solve at B=8 on the same frames, K1b once per
-     frame, each held at phase 10's bounds to
+     and the joint hybrid solve at B=8 on the first 12 of those frames
+     (two advances), K1b once per frame, each held at phase 10's bounds to
+     the first 12 frames of
      bench_batched_{wcme,wcpe,joint}_ref_b8_20f.npz (WCME's and WCPE's
      motions where settled; WCPE's sequences 5 and 6 to the ground truth
      only, BATCHED_REF_EXCLUDED), with ms per advancing frame, aggregate
@@ -227,11 +228,25 @@ Phases, each printing one line; any failure raises and exits non-zero:
      every column printed, the graph after the optimize and after the
      advance held to JAX's (testdata/scale_ref_J32_F16_2048.npz), and
      the SCALE.md table printed with the card's name and power limit
-     (written to a temporary directory: only the explicit
-     `python -m dynosam_tpu_torch.scale_check` writes the committed
-     dynosam_tpu_torch/SCALE.md); every count read and 0, no hand kernel
-     on this path;
-  20. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
+     (written to a temporary directory: the committed
+     dynosam_tpu_torch/SCALE.md is refreshed only by `python -m
+     dynosam_tpu_torch.scale_check --out dynosam_tpu_torch/SCALE.md`);
+     every count read and 0, no hand kernel on this path;
+  20. streaming: exp_streaming (the port of scripts/exp_streaming.py) at
+     the script's defaults (20 frames, window 8, 10 LM iterations), the
+     simulator's noisy packets straight into RegularBackend in full-batch,
+     sliding-window and incremental modes, the port's Scenario drawing its
+     landmark clouds and measurement noise from the JAX run's uniforms and
+     normals: the packets' initial values and tracks, every frame's pose
+     and every scored (mature) motion of each mode held to
+     testdata/streaming_ref_20f.npz, each mode's summary numbers printed
+     beside JAX's with its wall seconds and steady step ms; every count
+     read and 0, no hand kernel on this path;
+  21. fixture writer: python -m dynosam_tpu_torch.make_fixture_sequence's
+     main() at its defaults (60 frames, 320x96) rendered on the card into a
+     temporary directory and held to the committed tests/fixtures/
+     kitti_fixture file by file (FIXTURE_BOUNDS); every count read and 0;
+  22. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
      K2 entry A, K2 entry B), with each one's bound (the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates), loop-timed `ms` / `plain_ms` / `library_ms`
@@ -529,8 +544,12 @@ BATCHED_OPS_RATIO = 1.5
 # those two are held to the ground truth only (BATCHED_REF_EXCLUDED; their
 # JAX-ref readings are printed) and the other six to the reference. The
 # joint solve's 2.6 cm against the ground truth is the reference's too (the
-# port sits 2.5e-4 m from it). Bounds ~4-15x the larger reading.
+# port sits 2.5e-4 m from it). Bounds ~4-15x the larger reading. Each form
+# runs the window fill and two advancing frames (the last one profiled),
+# held to the first 12 frames of its reference: cut from 20 to pay for
+# phases 20-21, every check kept.
 BATCHED_FORMS_B = 8
+BATCHED_FORMS_FRAMES = 12
 BATCHED_REF_EXCLUDED = {"wcpe": (5, 6)}
 BATCHED_FORM_BOUNDS = {
     "wcme": {"gt_m": 5e-3, "gt_rad": 2e-4, "ref_m": 2e-4, "ref_rad": 3e-6, "motion_m": 1e-2},
@@ -2136,7 +2155,8 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
         B = BATCHED_FORMS_B
         ref = np.load(os.path.join(os.path.dirname(ref_path), f"bench_batched_{form}_ref_b{B}_20f.npz"))
         t = time.perf_counter()
-        launches, rd, _, times, sites, ops_f, busy, k1_ms = batched_readings(torch, seed, ref, B, device, form)
+        launches, rd, _, times, sites, ops_f, busy, k1_ms = batched_readings(torch, seed, ref, B, device, form,
+                                                                             n_frames=BATCHED_FORMS_FRAMES)
         over = {k: (rd[k], v) for k, v in BATCHED_FORM_BOUNDS[form].items() if not rd[k] <= v}
         excl = "".join(f"; sequence {b} (held to the ground truth only) vs JAX ref {m:.2e} m / {r:.2e} rad, "
                        f"motions {mo:.2e} m" for b, (m, r, mo) in rd["excluded_ref"].items())
@@ -2146,17 +2166,17 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
         idle = None if busy is None else 1.0 - busy / (steady * 1e3)
         n_sync = sum(sites.values())
         say(f"batched {form}: make_batched_pipeline at bench_config with {FORM_BENCH[form]}, B={B}, "
-            f"{BATCHED_FRAMES} frames per sequence, on {device} ({smi}): fused K1 launches {launches['K1']}, "
+            f"{BATCHED_FORMS_FRAMES} frames per sequence, on {device} ({smi}): fused K1 launches {launches['K1']}, "
             f"map entry {launches['K1 map']}; camera vs GT max {rd['gt_m']:.2e} m / {rd['gt_rad']:.2e} rad; "
             f"vs JAX ref max {rd['ref_m']:.2e} m / {rd['ref_rad']:.2e} rad; {rd['n_motions']} object motions"
             f"{' (settled: valid the frame before too)' if form != 'joint' else ''} vs JAX ref max "
             f"{rd['motion_m']:.2e} m{excl}; first frame {times[0] * 1e3:.1f} ms, median advancing frames 11-"
-            f"{BATCHED_FRAMES} {steady * 1e3:.2f} ms = {B / steady:.2f} frames/s aggregate, {1 / steady:.2f} "
+            f"{BATCHED_FORMS_FRAMES} {steady * 1e3:.2f} ms = {B / steady:.2f} frames/s aggregate, {1 / steady:.2f} "
             f"per sequence; device ops per advancing frame {ops_f if ops_f is not None else 'n/a'}, device "
             f"busy {f'{busy:.2f}' if busy is not None else 'n/a'} ms per advancing frame, idle "
             f"{f'{idle:.1%}' if idle is not None else 'n/a'} of the step; K1b "
             f"{f'{k1_ms:.4f}' if k1_ms is not None else 'n/a'} ms per launch; host syncs "
-            f"{n_sync / BATCHED_FRAMES:.1f}/frame (sites: "
+            f"{n_sync / BATCHED_FORMS_FRAMES:.1f}/frame (sites: "
             f"{', '.join(f'{k} x{v}' for k, v in sorted(sites.items(), key=lambda kv: -kv[1])) or 'none'}); "
             f"{time.perf_counter() - t:.1f} s")
         paths[f"batched_{form}_b{B}"] = launches
@@ -2972,7 +2992,7 @@ SCALE_MOTION_M = {0: 5e-4, 3: 4e-3}
 
 
 def _zero_all_counts():
-    """Every kernel wrapper's launch count to 0 (phases 17-19 read all four,
+    """Every kernel wrapper's launch count to 0 (phases 17-21 read all four,
     the zeros they expect included)."""
     from dynosam_tpu_torch.ops.cuda import mask_combine as mc
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
@@ -3226,9 +3246,10 @@ def scale_readings(torch, ref, device="cuda"):
 
 def run_scale_path(torch, ref_path, device="cuda", smi=""):
     """Phase 19: scale_readings held to JAX; prints the SCALE.md table it
-    would write (the committed dynosam_tpu_torch/SCALE.md is written only by
-    `python -m dynosam_tpu_torch.scale_check`) -> launches, all 0: the path is
-    the backend alone."""
+    would write (the committed dynosam_tpu_torch/SCALE.md is refreshed only
+    by `python -m dynosam_tpu_torch.scale_check --out
+    dynosam_tpu_torch/SCALE.md`) -> launches, all 0: the path is the
+    backend alone."""
     import tempfile
 
     import numpy as np
@@ -3265,6 +3286,320 @@ def run_scale_path(torch, ref_path, device="cuda", smi=""):
     for ln in table:
         say(f"scale table: {ln}")
     return {k: sum(c[k] for c in launches.values()) for k in launches[0]}
+
+
+# Phase 20 (streaming): exp_streaming (the port of scripts/exp_streaming.py)
+# at the script's defaults (20 frames, window 8, modes 0, 1, 2, 10 LM
+# iterations), the port's Scenario drawing its landmark clouds and its
+# measurement noise from the JAX run's uniforms and normals
+# (testdata/streaming_ref_20f.npz, make_torch_smoke_reference.py --only
+# streaming). The noisy packets' initial values (lie.retract of the same
+# numpy normals, float32 on both sides) within STREAMING_PACKET of JAX's,
+# their tracks' valid flags equal, uv within STREAMING_UV_PX on the valid
+# tracks (the invalid ones, behind or near the camera plane, amplify the
+# pose chains' ulps to pixels and are masked everywhere) and depth within
+# STREAMING_DEPTH_M;
+# per mode the same scored (frame, object) keys, every frame's pose and
+# every scored motion within STREAMING_BOUNDS of JAX's. Each optimize ends
+# at the float32 error floor of its LM, and the windowed modes carry each
+# tail forward: on identical packets one ulp of one frame's depths moves
+# JAX's own sliding-window run by 2.1e-4 m, more than the port differs
+# from it (tests/test_torch_streaming.py). The H100 (80GB HBM3, 700 W)
+# read: initial values 3.8e-6, uv 4.0e-4 px, depth 1.24e-5 m (its sin /
+# cos part the ground-truth chains from JAX's further than the CPU's,
+# 1.9e-6 / 6.1e-5 px / 3.8e-6 m); poses 4.4e-5 / 2.6e-4 / 1.5e-4 m and
+# motions 4.7e-5 / 6.1e-5 / 1.7e-5 m (full-batch, sliding-window,
+# incremental; torch on the CPU at 4 threads 5.5e-5 / 1.5e-4 / 1.4e-4 and
+# 8.9e-5 / 7.7e-5 / 2.9e-5). The bounds are about 10x the card's.
+STREAMING_REF = "streaming_ref_20f.npz"
+STREAMING_PACKET = 4e-5
+STREAMING_UV_PX = 4e-3
+STREAMING_DEPTH_M = 1e-4
+STREAMING_BOUNDS = {"pose_m": 3e-3, "motion_m": 6e-4}
+STREAMING_MODES = {0: "full-batch", 1: "sliding-window", 2: "incremental"}
+# Phase 21 (fixture writer): make_fixture_sequence.main at its defaults (60
+# frames, 320x96) on the card into a temporary directory, held to the
+# committed tests/fixtures/kitti_fixture. The same file names; times.txt and
+# DatasetParams.yaml byte-equal; RGB images equal. The rest follows the
+# scene's float32 pose chains, which part between renderers (se3_exp is
+# ill-conditioned at the fixture's 0.002 rad yaw; the committed files were
+# rendered elsewhere, and JAX on a CPU renders them 508 mask pixels apart
+# too): pose_gt.txt within FIXTURE_BOUNDS["pose_gt_m_per_frame"] per frame,
+# object_pose.txt with the same (frame, object) rows, boxes within one
+# pixel, translations and yaw within their bounds; masks equal but at
+# pixels on a boundary between the two labels, at most
+# "mask_pixels_max_frame" in one frame; uint16 disparity within
+# "depth_levels" where the masks agree, on at most "depth_share" of those
+# pixels; .flo flow within "flow_px" where the masks of both frames agree.
+# The H100 (80GB HBM3, 700 W) read poses 6.8e-8 m per frame (2.7e-6 m at
+# frame 59: its sin / cos render the committed chains closely), object
+# translations 1.4e-5 m, yaw 1.1e-7 rad, boxes 1 px, masks 508 pixels (at
+# most 50 in a frame, all on boundaries), disparity 1 level on 0.018%,
+# flow 1.8e-4 px (2.74 px at the mask edges), the visibility line equal to
+# the committed files'; torch on the CPU (tests/test_torch_fixture_sequence.py
+# holds its render to the same bounds) 7.1e-6 m per frame (4.0e-4 m at
+# frame 59), 4.5e-4 m, 9.9e-8 rad, 1 px, 507 pixels (50), 1 level on
+# 0.093%, 4.6e-4 px. The bounds are about 10x the larger reading (boxes,
+# RGB and disparity levels at it).
+FIXTURE_BOUNDS = {"pose_gt_m_per_frame": 1e-4, "object_pose_m": 5e-3, "object_yaw_rad": 1e-6,
+                  "object_box_px": 1.0, "image_levels": 0, "mask_pixels_max_frame": 500,
+                  "depth_levels": 1, "depth_share": 1e-2, "flow_px": 5e-3}
+
+
+def streaming_draws(ref):
+    """The JAX Scenario's uniforms and normals stored in the reference, as
+    the port's Scenario takes them."""
+    u = {"static": ref["uniforms_static"], "objects": list(ref["uniforms_objects"])}
+    n = {"static": (ref["normals_static_pixel"], ref["normals_static_depth"]),
+         "objects": list(zip(ref["normals_objects_pixel"], ref["normals_objects_depth"]))}
+    return u, n
+
+
+def _summary_numbers(line):
+    """(ATE cm, AME rms cm, AME median cm, rotation rad, motions) of one of
+    the script's summary lines."""
+    f = line.replace("[", " ").split()
+    return float(f[2]), float(f[7]), float(f[10]), float(f[13]), int(f[14])
+
+
+def streaming_readings(torch, ref, device="cuda"):
+    """Phase 20 without its bounds -> (launches, packet readings, {mode:
+    readings})."""
+    import numpy as np
+
+    from dynosam_tpu_torch import exp_streaming as es
+
+    d = es.DEFAULTS
+    n, window, iters = (int(x) for x in ref["args"])
+    assert (n, window, iters) == (d["frames"], d["window"], d["iters"]), ref["args"]
+    u, nm = streaming_draws(ref)
+    jax_lines = {int(ln[5]): ln for ln in ref["lines"] if ln.startswith("mode=")}
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    scn = es.scenario(n, d["pixel_noise"], d["depth_noise"], device, uniforms=u, normals=nm)
+    packets = es.noisy_packets(scn, d["init_rot_noise"], d["init_trans_noise"])
+    pk = {"packets_s": time.perf_counter() - t0, "initial": 0.0, "uv_px": 0.0, "depth_m": 0.0,
+          "valid_equal": True}
+    for k, p in enumerate(packets):
+        for name, key in (("X_world_cam", "packet_X"), ("odom_prev_curr", "packet_odom"),
+                          ("object_motions", "packet_motions")):
+            pk["initial"] = max(pk["initial"], float(np.abs(getattr(p, name).cpu().numpy() - ref[key][k]).max()))
+        for table in ("static", "dynamic"):
+            tt = getattr(p, f"{table}_tracks")
+            valid = ref[f"packet_{table}_valid"][k]
+            pk["uv_px"] = max(pk["uv_px"], float(np.abs(tt.uv.cpu().numpy() - ref[f"packet_{table}_uv"][k])[valid]
+                                                 .max(initial=0.0)))
+            pk["depth_m"] = max(pk["depth_m"], float(np.abs(tt.depth.cpu().numpy()
+                                                            - ref[f"packet_{table}_depth"][k]).max()))
+            pk["valid_equal"] &= bool(np.array_equal(tt.valid.cpu().numpy(), valid))
+    modes = {}
+    for mode in (int(m) for m in d["modes"].split(",")):
+        t0 = time.perf_counter()
+        be, step_s, end_s = es.run_mode(mode, scn, packets, window, iters, device)
+        wall = time.perf_counter() - t0
+        me, pe = es.motion_errors(be, scn), es.pose_errors(be, scn)
+        X = np.stack([be.pose_at(k) for k in range(n)])
+        keys = [tuple(int(x) for x in key) for key in ref[f"{mode}_motion_key"]]
+        r = {"wall_s": wall, "end_s": end_s, "first_step_ms": step_s[0] * 1e3,
+             # the steady step: the median over frames 2.. (frame 0 opens the
+             # graph, frame 1 is the first optimize with objects)
+             "step_ms": statistics.median(step_s[2:]) * 1e3,
+             "pose_m": float(np.abs(X - ref[f"{mode}_X"]).max()),
+             "keys_equal": sorted(me) == sorted(keys),
+             "motion_m": max((float(np.abs(be.motion_at(*key) - H).max())
+                              for key, H in zip(keys, ref[f"{mode}_motion_H"]) if key in me), default=float("nan")),
+             "err_m": max((abs(me[key][0] - e[0]) for key, e in zip(keys, ref[f"{mode}_motion_err"]) if key in me),
+                          default=float("nan")),
+             "summary": es.summary(me, pe), "jax_line": jax_lines[mode],
+             "line": es.summary_line(mode, es.summary(me, pe))}
+        modes[mode] = r
+    return _all_counts(), pk, modes
+
+
+def run_streaming_path(torch, ref_path, device="cuda", smi=""):
+    """Phase 20: streaming_readings held to the JAX run -> launches, all 0:
+    the path is the backend alone."""
+    import numpy as np
+
+    ref = np.load(ref_path)
+    launches, pk, modes = streaming_readings(torch, ref, device)
+    over = []
+    if device == "cuda" and any(launches.values()):
+        over.append(f"kernel launches {launches} on a path with no kernel")
+    if not (pk["valid_equal"] and pk["initial"] <= STREAMING_PACKET and pk["uv_px"] <= STREAMING_UV_PX
+            and pk["depth_m"] <= STREAMING_DEPTH_M):
+        over.append(f"packets {pk}")
+    parts = []
+    for mode, r in modes.items():
+        if not (r["keys_equal"] and r["pose_m"] <= STREAMING_BOUNDS["pose_m"]
+                and r["motion_m"] <= STREAMING_BOUNDS["motion_m"] and r["err_m"] <= STREAMING_BOUNDS["motion_m"]):
+            over.append(f"mode {mode}: {({k: v for k, v in r.items() if k not in ('summary', 'line', 'jax_line')})}")
+        s, j = r["summary"], _summary_numbers(r["jax_line"])
+        parts.append(f"{STREAMING_MODES[mode]}: ATE {s['ate'] * 100:.3f} cm (JAX {j[0]:.3f}), AME rms "
+                     f"{s['ame_rms'] * 100:.3f} cm ({j[1]:.3f}), median {s['ame_med'] * 100:.3f} cm ({j[2]:.3f}), "
+                     f"rot {s['rot_rms']:.5f} rad ({j[3]:.5f}), {s['n_motions']} motions ({j[4]}); poses "
+                     f"{r['pose_m']:.2e} m and motions {r['motion_m']:.2e} m from JAX's, the same scored keys: "
+                     f"{r['keys_equal']}; {r['wall_s']:.2f} s wall, step {r['step_ms']:.2f} ms steady "
+                     f"(first {r['first_step_ms']:.1f} ms), finish + matured {r['end_s'] * 1e3:.1f} ms")
+    line = (f"{smi} | streaming: exp_streaming at the script's defaults on {device}, the JAX run's draws: packets "
+            f"in {pk['packets_s']:.2f} s, initial values {pk['initial']:.2e} from JAX's (bound "
+            f"{STREAMING_PACKET:.0e}), valid equal {pk['valid_equal']}, uv {pk['uv_px']:.2e} px on the valid tracks, "
+            f"depth {pk['depth_m']:.2e} m; "
+            + "; ".join(parts) + f" (bounds {STREAMING_BOUNDS}); launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    if over:
+        raise AssertionError(f"streaming against {os.path.basename(ref_path)}: {over}; {line}")
+    say(line)
+    for mode, r in modes.items():
+        say(f"streaming {r['line']}")
+    return launches
+
+
+def _tree(root):
+    return sorted(os.path.relpath(os.path.join(r, f), root) for r, _, fs in os.walk(root) for f in fs)
+
+
+def _rows(path):
+    with open(path) as f:
+        return [[float(x) for x in ln.split()] for ln in f.read().splitlines() if ln.strip()]
+
+
+def _on_boundary(mask, v, u, labels):
+    near = mask[max(v - 1, 0):v + 2, max(u - 1, 0):u + 2]
+    return all((near == lab).any() for lab in labels)
+
+
+def fixture_file_readings(ref_dir, out_dir):
+    """A dyno-KITTI sequence written at `out_dir` against the one at
+    `ref_dir` (phase 21's readings; the port's decoders, no cv2)."""
+    import numpy as np
+
+    from dynosam_tpu_torch import native
+
+    names = _tree(ref_dir)
+    r = {"names_equal": names == _tree(out_dir), "n_files": len(names)}
+
+    def raw(root, rel):
+        with open(os.path.join(root, rel), "rb") as f:
+            return f.read()
+
+    r["text_unequal"] = [f for f in ("times.txt", "DatasetParams.yaml") if raw(ref_dir, f) != raw(out_dir, f)]
+    pa, pb = (np.array(_rows(os.path.join(d, "pose_gt.txt"))) for d in (ref_dir, out_dir))
+    r["pose_rows_equal"] = pa.shape == pb.shape and bool((pa[:, 0] == pb[:, 0]).all())
+    dp = np.abs(pa[:, 1:] - pb[:, 1:]).max(1) if r["pose_rows_equal"] else np.array([np.inf])
+    r["pose_gt_m"] = float(dp.max())
+    r["pose_gt_m_per_frame"] = float((dp / np.maximum(pa[:, 0], 1)).max())
+    oa, ob = ({(int(x[0]), int(x[1])): np.array(x[2:]) for x in _rows(os.path.join(d, "object_pose.txt"))}
+              for d in (ref_dir, out_dir))
+    r["object_rows_equal"] = sorted(oa) == sorted(ob)
+    shared = sorted(set(oa) & set(ob))
+    r["object_box_px"] = float(max(np.abs(oa[k][:4] - ob[k][:4]).max() for k in shared))
+    r["object_pose_m"] = float(max(np.abs(oa[k][4:7] - ob[k][4:7]).max() for k in shared))
+    r["object_yaw_rad"] = float(max(abs(oa[k][7] - ob[k][7]) for k in shared))
+    r.update(image_levels=0, mask_pixels=0, mask_pixels_max_frame=0, mask_off_boundary=0, depth_levels=0,
+             flow_px=0.0, flow_px_anywhere=0.0)
+    n_depth = n_depth_off = 0
+    vis = {"ref": {}, "out": {}}
+    masks = {}
+
+    def mask(root, k, h, w):
+        if (root, k) not in masks:
+            masks[(root, k)] = native.read_txt_mask(os.path.join(root, "motion", f"{k:06d}.txt"), h, w)
+        return masks[(root, k)]
+
+    n = len(pa)
+    for k in range(n):
+        s = f"{k:06d}"
+        ia, ib = (native.read_png(os.path.join(d, "image_0", s + ".png")).astype(np.int64) for d in (ref_dir, out_dir))
+        r["image_levels"] = max(r["image_levels"], int(np.abs(ia - ib).max()))
+        h, w = ia.shape[:2]
+        ma, mb = mask(ref_dir, k, h, w), mask(out_dir, k, h, w)
+        for tag, m in (("ref", ma), ("out", mb)):
+            for oid in np.unique(m[m > 0]):
+                vis[tag][int(oid)] = vis[tag].get(int(oid), 0) + int((m == oid).sum() >= 25)
+        diff = np.argwhere(ma != mb)
+        r["mask_pixels"] += len(diff)
+        r["mask_pixels_max_frame"] = max(r["mask_pixels_max_frame"], len(diff))
+        r["mask_off_boundary"] += sum(not (_on_boundary(ma, v, u, (ma[v, u], mb[v, u]))
+                                           and _on_boundary(mb, v, u, (ma[v, u], mb[v, u]))) for v, u in diff)
+        same = ma == mb
+        da, db = (native.read_png(os.path.join(d, "depth", s + ".png")).astype(np.int64) for d in (ref_dir, out_dir))
+        dd = np.abs(da - db)[same]
+        r["depth_levels"] = max(r["depth_levels"], int(dd.max(initial=0)))
+        n_depth += dd.size
+        n_depth_off += int((dd > 0).sum())
+        fa, fb = (native.read_flo(os.path.join(d, "flow", s + ".flo"), h, w) for d in (ref_dir, out_dir))
+        fd = np.abs(fa - fb).max(-1)
+        # file k holds the k -> k+1 flow: where frame k's and k+1's masks agree
+        ok = same & (mask(ref_dir, k + 1, h, w) == mask(out_dir, k + 1, h, w)) if k + 1 < n else same
+        r["flow_px"] = max(r["flow_px"], float(fd[ok].max(initial=0.0)))
+        r["flow_px_anywhere"] = max(r["flow_px_anywhere"], float(fd.max()))
+        masks.pop((ref_dir, k - 1), None)
+        masks.pop((out_dir, k - 1), None)
+    r["depth_share"] = n_depth_off / max(n_depth, 1)
+    r["visible_ref"], r["visible_out"] = vis["ref"], vis["out"]
+    return r
+
+
+def fixture_writer_over(r):
+    """The readings of fixture_file_readings outside FIXTURE_BOUNDS (or
+    structurally different) -> {name: reading}."""
+    over = {k: r[k] for k, b in FIXTURE_BOUNDS.items() if not r[k] <= b}
+    for k in ("names_equal", "pose_rows_equal", "object_rows_equal"):
+        if not r[k]:
+            over[k] = r[k]
+    if r["text_unequal"] or r["mask_off_boundary"]:
+        over.update(text_unequal=r["text_unequal"], mask_off_boundary=r["mask_off_boundary"])
+    return over
+
+
+def fixture_writer_readings(torch, device="cuda"):
+    """Phase 21 without its bounds -> (launches, readings, the entry
+    point's printed lines, wall seconds)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from dynosam_tpu_torch import make_fixture_sequence as mfs
+
+    with tempfile.TemporaryDirectory(prefix="smoke_fixture_") as tmp:
+        out = os.path.join(tmp, "kitti_fixture")
+        buf = io.StringIO()
+        _zero_all_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mfs.main(["--out", out, "--device", device])
+        wall = time.perf_counter() - t0
+        launches = _all_counts()
+        r = fixture_file_readings(KITTI_FIXTURE, out)
+    return launches, r, buf.getvalue().splitlines(), wall
+
+
+def run_fixture_writer_path(torch, device="cuda", smi=""):
+    """Phase 21: the fixture writer's entry point held to the committed
+    fixture -> launches, all 0 (the renderer and the writer run no hand
+    kernel)."""
+    launches, r, lines, wall = fixture_writer_readings(torch, device)
+    over = fixture_writer_over(r)
+    if r["visible_ref"] != r["visible_out"]:
+        over["visible"] = (r["visible_ref"], r["visible_out"])
+    if device == "cuda" and any(launches.values()):
+        over["launches"] = launches
+    line = (f"{smi} | fixture writer: python -m dynosam_tpu_torch.make_fixture_sequence at its defaults on {device} "
+            f"in {wall:.2f} s ({' / '.join(lines)}); against tests/fixtures/kitti_fixture: names equal "
+            f"{r['names_equal']} ({r['n_files']} files), times.txt and DatasetParams.yaml byte-equal "
+            f"{not r['text_unequal']}, RGB {r['image_levels']} levels off, pose_gt {r['pose_gt_m']:.2e} m "
+            f"({r['pose_gt_m_per_frame']:.2e} m per frame), object boxes {r['object_box_px']:.0f} px, translations "
+            f"{r['object_pose_m']:.2e} m, yaw {r['object_yaw_rad']:.2e} rad, masks {r['mask_pixels']} pixels apart "
+            f"(at most {r['mask_pixels_max_frame']} in a frame, {r['mask_off_boundary']} off a label boundary), "
+            f"disparity {r['depth_levels']} levels on {r['depth_share']:.4%} where the masks agree, flow "
+            f"{r['flow_px']:.2e} px where they agree ({r['flow_px_anywhere']:.2f} px anywhere), visible frames "
+            f"{r['visible_out']} (committed {r['visible_ref']}); bounds {FIXTURE_BOUNDS}; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    if over:
+        raise AssertionError(f"fixture writer over bounds {over}; {line}")
+    say(line)
+    return launches
 
 
 def main():
@@ -3317,7 +3652,7 @@ def main():
     k1 = timed("3 (K1)", check_k1, torch, args.seed)
     k2 = timed("4 (K2)", check_k2, torch, args.seed, built[K2_V3_SOURCE][0])
 
-    # ---- 5-19. the main paths, counts zeroed just before each ----------------
+    # ---- 5-21. the main paths, counts zeroed just before each ----------------
     bench_launches = timed("5 (bench)", run_bench_path, torch, args.seed,
                            os.path.join(testdata, "bench_ref_20f.npz"))
     pipelined_launches = timed("5b (pipelined)", run_pipelined_path, torch, args.seed,
@@ -3345,14 +3680,17 @@ def main():
     train_launches = timed("17 (train)", run_train_path, torch, os.path.join(testdata, TRAIN_REF), smi=smi)
     exp_launches = timed("18 (experiments)", run_experiments_path, torch, testdata)
     scale_launches = timed("19 (scale)", run_scale_path, torch, os.path.join(testdata, SCALE_REF), smi=smi)
+    streaming_launches = timed("20 (streaming)", run_streaming_path, torch, os.path.join(testdata, STREAMING_REF),
+                               smi=smi)
+    fixture_launches = timed("21 (fixture writer)", run_fixture_writer_path, torch, smi=smi)
 
-    # ---- 20. results ------------------------------------------------------------
+    # ---- 22. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "pipelined": pipelined_launches, "klt": klt_launches,
              "stereo_imu": stereo_launches, "detector": det_launches, "heldout": heldout_launches,
              "pipeline": pipe_launches, **forms_launches, **batched_launches, "datasets": dataset_launches,
              **{f"tooling_{k}": v for k, v in tooling_launches.items()}, **modes_launches, "rich": rich_launches,
              "detector_pipeline": det_pipe_launches, "train": train_launches, "experiments": exp_launches,
-             "scale": scale_launches}
+             "scale": scale_launches, "streaming": streaming_launches, "fixture_writer": fixture_launches}
     batched = {p for p in paths if p.startswith("batched_")}
 
     def row(name, kid, source, replaces, check, only=None, **extra):

@@ -79,14 +79,22 @@ class Scenario:
     The landmark clouds come from uniforms in [0, 1): `uniforms` =
     {"static": (num_static, 3), "objects": [(num_points, 3) per object]}
     when given (parity tests pass the reference's draws), otherwise drawn
-    from a generator seeded with spec.seed."""
+    from a generator seeded with spec.seed.
+
+    The measurement noise comes from standard normals: `normals` =
+    {"static": (pixel (K, num_static, 2), depth (K, num_static)),
+    "objects": [(pixel (K, num_points, 2), depth (K, num_points)) per
+    object]} when given, frame k's rows scaled by the spec's sigmas and
+    added to the projections as `measurements(k)` makes them; otherwise
+    drawn per frame from a generator seeded with spec.seed and k."""
 
     def __init__(self, spec: ScenarioSpec, intr: Optional[cam.CameraIntrinsics] = None, device="cuda",
-                 uniforms: Optional[dict] = None):
+                 uniforms: Optional[dict] = None, normals: Optional[dict] = None):
         self.spec = spec
         self.device = torch.device(device)
         self.intr = intr or cam.CameraIntrinsics.create(500.0, 500.0, 320.0, 240.0, width=640, height=480)
         self._uniforms = uniforms
+        self._normals = normals
         self._clouds = None
         K = spec.num_frames
 
@@ -210,21 +218,28 @@ class Scenario:
         X_inv = lie.inverse(X)
         gen = torch.Generator().manual_seed(spec.seed * 1_000_003 + k)
 
-        def observe(points_w):
+        def noise(shape, given):
+            if given is None:
+                return torch.randn(shape, generator=gen).to(dev)
+            return torch.as_tensor(np.asarray(given[k], np.float32), device=dev)
+
+        def observe(points_w, given):
             pc = lie.transform_points(X_inv, points_w)    # camera frame
             uv = cam.project(pc, self.intr)
             if spec.pixel_noise_sigma > 0:
-                uv = uv + spec.pixel_noise_sigma * torch.randn(uv.shape, generator=gen).to(dev)
+                uv = uv + spec.pixel_noise_sigma * noise(uv.shape, given[0])
             depth = pc[..., 2]
             if spec.depth_noise_sigma > 0:
-                depth = depth + spec.depth_noise_sigma * torch.randn(depth.shape, generator=gen).to(dev)
+                depth = depth + spec.depth_noise_sigma * noise(depth.shape, given[1])
             visible = (pc[..., 2] > 0.3) & cam.in_image(uv, self.intr)
             return uv, depth, visible
+
+        normals = self._normals or {"static": (None, None), "objects": [(None, None)] * len(objects_w)}
 
         def i32(x):
             return torch.as_tensor(x, dtype=torch.int32, device=dev)
 
-        uv_s, d_s, vis_s = observe(static_w)
+        uv_s, d_s, vis_s = observe(static_w, normals["static"])
         n_s = spec.num_static
         static = TrackTable(uv=uv_s, depth=d_s, tracklet_id=torch.arange(n_s, dtype=torch.int32, device=dev),
                             object_id=torch.zeros((n_s,), dtype=torch.int32, device=dev),
@@ -232,9 +247,9 @@ class Scenario:
 
         # dynamic: the objects' points in order, tracklet ids from 10 000
         parts, offset = [], 10_000
-        for oid, pts_w in zip(self.object_ids, objects_w):
+        for oid, pts_w, given in zip(self.object_ids, objects_w, normals["objects"]):
             p = pts_w.shape[1]
-            parts.append(observe(pts_w[k]) + (torch.arange(p, dtype=torch.int32, device=dev) + offset,
+            parts.append(observe(pts_w[k], given) + (torch.arange(p, dtype=torch.int32, device=dev) + offset,
                                               torch.full((p,), oid, dtype=torch.int32, device=dev)))
             offset += p
         if parts:

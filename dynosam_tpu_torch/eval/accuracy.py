@@ -203,13 +203,10 @@ def write_rich(root: str, frames: int, device) -> None:
     """Render the rich fixture's first `frames` frames on `device` and write
     them to `root` in dyno-KITTI layout as scripts/accuracy_rich.py does
     (uint16 disparity at fx * KITTI_BASELINE_M, depth scale 256, .flo flow,
-    txt masks, the world offset)."""
-    from dynosam_tpu_torch.bench_config import KITTI_BASELINE_M, fixture_scenario, fixture_world_offset
-    from dynosam_tpu_torch.dataproviders.kitti_writer import write_kitti_sequence
+    txt masks, the world offset): make_fixture_sequence's --rich preset."""
+    from dynosam_tpu_torch.make_fixture_sequence import write_fixture
 
-    dense = fixture_scenario(frames, 1242, 375, rich=True, device=device)
-    write_kitti_sequence(dense, root, base_line=float(dense.intr.fx * KITTI_BASELINE_M), depth_scale_factor=256.0,
-                         world_offset=fixture_world_offset())
+    write_fixture(root, frames, 1242, 375, rich=True, device=device)
 
 
 def write_detector_scene(root: str, frames: int) -> None:

@@ -11,9 +11,10 @@ first launches) and `*_step_ms` the next call's. Every timing ends in
 `torch.cuda.synchronize()`. No hand-written kernel runs on this path: it is
 the backend alone, as in the reference.
 
-Writes --out (default dynosam_tpu_torch/SCALE.md, never the repository's
-SCALE.md, which the reference writes), headed by the card's name and power
-limit.
+Writes --out (default results/torch/SCALE.md: never a committed file, the
+repository's SCALE.md, which the reference writes, or the port's
+dynosam_tpu_torch/SCALE.md, which a card run refreshes with --out), headed
+by the card's name and power limit.
 
 Usage: python -m dynosam_tpu_torch.scale_check [--J 32] [--F 16] [--dyn 2048] [--device cuda]
 """
@@ -29,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-DEFAULT_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "SCALE.md")
+DEFAULT_OUT = os.path.join("results", "torch", "SCALE.md")
 COLUMNS = ("update_compile_s", "update_step_ms", "optimize_compile_s", "optimize_step_ms",
            "advance_compile_s", "advance_step_ms")
 N_STATIC = 256
@@ -164,6 +165,7 @@ def main(argv=None):
         r["formulation"] = name
         rows.append(r)
         print(json.dumps(r), flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     write_scale_md(args.out, rows, args.J, args.F, args.dyn, device_label(args.device))
     print(f"wrote {args.out}")
     return rows

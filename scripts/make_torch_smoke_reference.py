@@ -143,11 +143,15 @@ dynosam_tpu_torch/testdata/:
   * progressive_1242x375.jpg and progressive_1242x375_cv2.npz (--only
     progressive) — a synthetic frame cv2 wrote as a progressive JPEG, and
     cv2's decode of it.
+  * streaming_ref_20f.npz (--only streaming) — scripts/exp_streaming.py
+    run as it is at its defaults (20 frames, window 8, modes 0, 1, 2, 10
+    LM iterations), its Scenario's draws, the noisy packets and each mode's
+    poses and scored (mature) motions recorded (streaming_run).
 
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
     [--only bench|detector|kitti|klt|stereo_imu|forms|forms_kitti|batched|batched_forms|batched_modes|pipelined|
             datasets|heldout|rich|rich_matrix|rich_seeds|rich_draws|rich_frontend|sweep|det_acc|det_pipe|
-            progressive]
+            progressive|experiments|train|scale|streaming]
     [--cells incremental_0,...] [--seeds 1,2,...]   (rich_seeds only)
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
@@ -1282,6 +1286,112 @@ def scale_reference():
     _save(SCALE_OUT, out, t0)
 
 
+STREAMING_FRAMES = 20          # scripts/exp_streaming.py's defaults (chip_smoke.py phase 20)
+STREAMING_OUT = os.path.join(TESTDATA, f"streaming_ref_{STREAMING_FRAMES}f.npz")
+
+
+def streaming_run(argv=()):
+    """scripts/exp_streaming.py's main() run as it is under `argv`, its runs
+    recorded -> {name: array}: `args` (frames, window, LM iterations),
+    `modes` in the order run, `lines`
+    (what it printed), the landmark uniforms and noise normals its Scenario
+    drew (tests/torch_port_util.py scenario_uniforms / scenario_normals:
+    `uniforms_static` (256, 3), `uniforms_objects` (J, P, 3),
+    `normals_static_pixel` (F, 256, 2), `normals_static_depth` (F, 256),
+    `normals_objects_pixel` (J, F, P, 2), `normals_objects_depth` (J, F,
+    P)), the noisy packets its backends took (`packet_X`, `packet_odom`,
+    `packet_motions`, and `packet_<static|dynamic>_<uv|depth|valid>`), and
+    per mode m: `<m>_X` (F, 4, 4) pose_at(k) of every frame (NaN where
+    None), `<m>_motion_key` (N, 2) [frame, object id] of every scored
+    motion with `<m>_motion_H` (N, 4, 4) motion_at and `<m>_motion_err` (N,
+    2) the script's translation (m) and rotation (rad) errors."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    import dynosam_tpu.backend.backend as jbackend
+    import dynosam_tpu.dataproviders.simulator as jsim
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_util import scenario_normals, scenario_uniforms
+
+    made, scenes = [], []
+
+    class Recorded(jbackend.RegularBackend):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.packets = []
+            made.append(self)
+
+        def step(self, packet, *a, **kw):
+            self.packets.append(packet)
+            return super().step(packet, *a, **kw)
+
+    class RecordedScenario(jsim.Scenario):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            scenes.append(self)
+
+    mod = _reference_script("exp_streaming")
+    saved = (jbackend.RegularBackend, jsim.Scenario, sys.argv)
+    jbackend.RegularBackend, jsim.Scenario = Recorded, RecordedScenario
+    sys.argv = ["exp_streaming.py", *argv]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            mod.main()
+    finally:
+        jbackend.RegularBackend, jsim.Scenario, sys.argv = saved
+    (scn,) = scenes
+    n = scn.spec.num_frames
+    windows = [be.cfg.max_frames for be in made if be.cfg.optimization_mode != 0]
+    res = {"args": np.array([n, windows[0] if windows else -1, made[0].cfg.optimizer.max_iterations]),
+           "modes": np.array([be.cfg.optimization_mode for be in made]),
+           "lines": np.array(out.getvalue().splitlines())}
+    u, nm = scenario_uniforms(scn.spec), scenario_normals(scn.spec, n)
+    res["uniforms_static"], res["uniforms_objects"] = u["static"], np.stack(u["objects"])
+    res["normals_static_pixel"], res["normals_static_depth"] = nm["static"]
+    res["normals_objects_pixel"] = np.stack([p for p, _ in nm["objects"]])
+    res["normals_objects_depth"] = np.stack([d for _, d in nm["objects"]])
+    pk = made[0].packets
+    res["packet_X"] = np.stack([np.asarray(p.X_world_cam) for p in pk])
+    res["packet_odom"] = np.stack([np.asarray(p.odom_prev_curr) for p in pk])
+    res["packet_motions"] = np.stack([np.asarray(p.object_motions) for p in pk])
+    for table in ("static", "dynamic"):
+        for f in ("uv", "depth", "valid"):
+            res[f"packet_{table}_{f}"] = np.stack([np.asarray(getattr(getattr(p, f"{table}_tracks"), f)) for p in pk])
+    for be in made:
+        m = be.cfg.optimization_mode
+        X = [be.pose_at(k) for k in range(n)]
+        res[f"{m}_X"] = np.stack([np.full((4, 4), np.nan, np.float32) if x is None else np.asarray(x) for x in X])
+        keys, Hs, errs = [], [], []
+        for k in range(1, n):
+            for j, ob in enumerate(scn.spec.objects):
+                H = be.motion_at(k, object_id=ob.object_id)
+                if H is None:
+                    continue
+                # the script's motion_errors
+                E = np.linalg.inv(np.asarray(scn.H_gt[j][k])) @ H
+                cos = np.clip((np.trace(E[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+                keys.append((k, ob.object_id))
+                Hs.append(np.asarray(H))
+                errs.append((float(np.linalg.norm(E[:3, 3])), float(np.arccos(cos))))
+        res[f"{m}_motion_key"] = np.array(keys, np.int32).reshape(-1, 2)
+        res[f"{m}_motion_H"] = np.stack(Hs) if Hs else np.zeros((0, 4, 4), np.float32)
+        res[f"{m}_motion_err"] = np.array(errs, np.float64).reshape(-1, 2)
+    return res
+
+
+def streaming_reference(out=STREAMING_OUT, argv=()):
+    """streaming_run at the script's defaults (or `argv`) -> `out`."""
+    t0 = time.time()
+    res = streaming_run(argv)
+    for line in res["lines"]:
+        print("  " + line, flush=True)
+    _save(out, res, t0)
+
+
 def sweep_reference():
     """Hybrid sliding-window at windows 8, 12 and 16 over the 60-frame
     fixture, seed 0 (scripts/accuracy_rich.py's sweep)."""
@@ -1522,7 +1632,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parts = ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "batched_forms", "batched_modes",
              "pipelined", "datasets", "heldout", "rich", "rich_matrix", "rich_seeds", "rich_draws", "sweep",
-             "det_acc", "det_pipe", "forms_kitti", "progressive", "rich_frontend", "experiments", "train", "scale"]
+             "det_acc", "det_pipe", "forms_kitti", "progressive", "rich_frontend", "experiments", "train", "scale",
+             "streaming"]
     ap.add_argument("--only", choices=parts, action="append", help="write only these files (default: all)")
     ap.add_argument("--cells", help="rich_seeds: comma-separated cells (default: RICH_SEED_CELLS)")
     ap.add_argument("--seeds", help="rich_seeds / experiments: comma-separated seeds (default: RICH_SEEDS by "
@@ -1571,6 +1682,8 @@ def main():
         train_reference()
     if "scale" in todo:
         scale_reference()
+    if "streaming" in todo:
+        streaming_reference()
     if "experiments" in todo:
         experiments_reference(tuple(int(x) for x in args.seeds.split(",")) if args.seeds else EXP_SEEDS)
     if "sweep" in todo:

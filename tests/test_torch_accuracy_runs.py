@@ -40,7 +40,7 @@ from dynosam_tpu_torch.bench_config import detector_accuracy_config, kitti_accur
 from dynosam_tpu_torch.dataproviders.kitti import KittiDataProvider
 from dynosam_tpu_torch.eval import accuracy
 from dynosam_tpu_torch.pipeline.pipeline import DynoPipeline
-from torch_port_util import inject_draws, reference_draws
+from torch_port_util import inject_draws, reference_draws, reference_native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -58,7 +58,8 @@ DET_SCENE_AME_TOL = 5e-3
 
 
 @pytest.fixture(scope="module")
-def window16():
+def window16(tmp_path_factory):
+    reference_native(tmp_path_factory.mktemp("dynoio"))
     tcfg = kitti_accuracy_config("sliding_window", SWEEP_FRAMES, window=16)
     cfg = DynoConfig.from_dict(dataclasses.asdict(tcfg))
     jds, tds = JaxKitti(FIXTURE), KittiDataProvider(FIXTURE, device="cpu")
@@ -98,6 +99,8 @@ def det_cells(tmp_path_factory):
     import dynosam_tpu.pipeline.pipeline as jpipeline
     from dynosam_tpu.nn.detector import YoloV8DetectorEngine as JaxEngine
     from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
+
+    reference_native(tmp_path_factory.mktemp("dynoio"))
 
     scene = str(tmp_path_factory.mktemp("detector_scene"))
     accuracy.write_detector_scene(scene, DET_FRAMES)

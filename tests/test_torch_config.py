@@ -14,7 +14,12 @@ import pytest
 from dynosam_tpu import config as jconfig
 from dynosam_tpu_torch import bench_config as tbench
 from dynosam_tpu_torch import config as tconfig
+from dynosam_tpu_torch import exp_streaming as tstream
+from dynosam_tpu_torch import make_fixture_sequence as tfixture
 from dynosam_tpu_torch import run_dynosam as trun
+from dynosam_tpu_torch import run_experiments as trx
+from dynosam_tpu_torch import scale_check as tscale
+from dynosam_tpu_torch import train_detector as ttrain
 from dynosam_tpu_torch.backend import backend as tbackend
 from dynosam_tpu_torch.dataproviders import base as tbase
 from dynosam_tpu_torch.dataproviders import kitti as tkitti
@@ -121,6 +126,11 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", [tstream, tfixture], ids=lambda m: m.__name__.split(".")[-1])
+def test_import_scan_covers_the_script_ports(module):
+    assert os.path.realpath(module.__file__) in {os.path.realpath(p) for p in _port_sources()}
+
+
 def test_port_sources_load_no_native_library():
     """The port reads the dyno-KITTI formats with numpy; it never loads the
     reference's native/libdynoio.so."""
@@ -146,13 +156,17 @@ def test_port_sources_load_no_native_library():
     tbackend.RegularBackend.__init__,
     tpipe.DynoPipeline.__init__,
     trun.run,
+    tstream.scenario,
+    tstream.run_mode,
+    tfixture.write_fixture,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(entry):
     default = inspect.signature(entry).parameters["device"].default
     assert default in ("cuda", inspect.Parameter.empty), default
 
 
-def test_command_line_defaults_to_the_card():
+def _argparse_defaults(main):
+    """{dest: default} of the parser `main` builds, read before it parses."""
     import argparse
 
     seen = {}
@@ -165,7 +179,17 @@ def test_command_line_defaults_to_the_card():
     argparse.ArgumentParser.parse_args = parse
     try:
         with pytest.raises(SystemExit):
-            trun.main([])
+            main([])
     finally:
         argparse.ArgumentParser.parse_args = orig
-    assert seen["device"] == "cuda"
+    return seen
+
+
+def test_command_line_defaults_to_the_card():
+    assert _argparse_defaults(trun.main)["device"] == "cuda"
+
+
+@pytest.mark.parametrize("module", [tstream, tfixture, tscale, trx, ttrain], ids=lambda m: m.__name__.split(".")[-1])
+def test_script_ports_default_to_the_card(module):
+    """The ports of the reference's scripts take --device, default cuda."""
+    assert _argparse_defaults(module.main)["device"] == "cuda"

@@ -414,3 +414,30 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
         loose += int((err > 1e-6).sum())
         n += err.numel()
     assert loose <= 1e-3 * n, loose
+
+
+def test_streaming_mode_on_the_card_matches_the_reference(cuda):
+    """exp_streaming's incremental mode at the script's defaults on the card,
+    the port's Scenario taking the JAX run's draws
+    (testdata/streaming_ref_20f.npz): the same scored (frame, object) keys,
+    every frame's pose and every scored motion within chip_smoke.py phase
+    20's bounds of JAX's."""
+    import os
+
+    import chip_smoke
+    from dynosam_tpu_torch import exp_streaming as es
+
+    ref = np.load(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "dynosam_tpu_torch",
+                               "testdata", chip_smoke.STREAMING_REF))
+    d = es.DEFAULTS
+    uniforms, normals = chip_smoke.streaming_draws(ref)
+    scn = es.scenario(d["frames"], d["pixel_noise"], d["depth_noise"], "cuda", uniforms=uniforms, normals=normals)
+    packets = es.noisy_packets(scn, d["init_rot_noise"], d["init_trans_noise"])
+    be, _, _ = es.run_mode(2, scn, packets, d["window"], d["iters"], "cuda")
+    assert be.state.X.is_cuda
+    X = np.stack([be.pose_at(k) for k in range(d["frames"])])
+    np.testing.assert_allclose(X, ref["2_X"], rtol=0, atol=chip_smoke.STREAMING_BOUNDS["pose_m"])
+    keys = [tuple(int(x) for x in k) for k in ref["2_motion_key"]]
+    assert sorted(es.motion_errors(be, scn)) == sorted(keys)
+    for key, H in zip(keys, ref["2_motion_H"]):
+        np.testing.assert_allclose(be.motion_at(*key), H, rtol=0, atol=chip_smoke.STREAMING_BOUNDS["motion_m"])

@@ -24,7 +24,7 @@ from dynosam_tpu_torch.dataproviders.kitti import KittiDataProvider
 from dynosam_tpu_torch.dataproviders.simulator import Scenario, ScenarioSpec
 from dynosam_tpu_torch.dataproviders.synthetic_dense import default_dense_scenario
 from dynosam_tpu_torch.convert import dataclass_to_numpy
-from torch_port_util import assert_tree_matches, jax_spec, np_tree, port_spec, scenario_uniforms
+from torch_port_util import assert_tree_matches, jax_spec, np_tree, port_spec, reference_native, scenario_uniforms
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -158,7 +158,8 @@ def test_png_decoder_rejects_other_formats(tmp_path):
         native.read_png(path)
 
 
-def test_parsers_equal_the_native_library():
+def test_parsers_equal_the_native_library(tmp_path):
+    reference_native(tmp_path)
     assert jnative.available()
     h, w = 96, 320
     for k in (0, 29, 58):

@@ -58,7 +58,7 @@ from dynosam_tpu_torch.dataproviders.viode import ViodeDataProvider
 from dynosam_tpu_torch.dataproviders.vkitti import VirtualKittiDataProvider
 from dynosam_tpu_torch.frontend.types import FrameInputs
 from dynosam_tpu_torch.pipeline.pipeline import DynoPipeline
-from torch_port_util import inject_draws, port_cfg, reference_draws
+from torch_port_util import inject_draws, port_cfg, reference_draws, reference_native
 
 torch.set_num_threads(1)
 N_FRAMES = 6
@@ -128,7 +128,9 @@ def _write(module, name, dense, out):
 
 @pytest.fixture(scope="module")
 def fixtures(dense, tmp_path_factory):
-    """name -> a directory the JAX writer wrote."""
+    """name -> a directory the JAX writer wrote. The JAX readers parse
+    through the reference's native library, loaded in this process."""
+    reference_native(tmp_path_factory.mktemp("dynoio"))
     out = {}
     for name in FORMATS:
         d = str(tmp_path_factory.mktemp(f"jax_{name}"))
@@ -161,6 +163,37 @@ def _stereo_reference(jds, name, k):
 
 @pytest.mark.parametrize("name", list(FORMATS))
 def test_reader_matches_reference(fixtures, dense, name):
+    _check_reader(fixtures, dense, name)
+
+
+def test_kitti_reader_parity_survives_the_reference_fallback(fixtures, dense, monkeypatch, tmp_path):
+    """The reference's native library fails to load in a process that finds
+    it half-written (another xdist worker building it): get_lib then falls
+    back for good to Python arithmetic, whose disparity_to_depth divides in
+    float64 and differs from the library's float32 (which the port follows
+    bit for bit) at a few ulps. Forced here: the fallback alone differs from
+    the port; after reference_native the kitti_png comparison holds."""
+    from dynosam_tpu import native as jnative
+    from dynosam_tpu_torch import native as tnative
+
+    monkeypatch.setattr(jnative, "_tried", True)
+    monkeypatch.setattr(jnative, "_lib", None)
+    assert not jnative.available()
+    raw = cv2.imread(os.path.join(fixtures["kitti_png"], "depth", "000000.png"), cv2.IMREAD_UNCHANGED)
+    base_line = _kitti_base_line(dense)
+    fallback = jnative.disparity_to_depth(raw, base_line, 256.0)
+    port = tnative.disparity_to_depth(raw, base_line, 256.0)
+    assert fallback.dtype == port.dtype == np.float32
+    differ = fallback != port
+    assert differ.any() and np.abs(fallback - port).max() <= 1e-5 * np.abs(port).max()
+    reference_native(tmp_path)
+    assert jnative.available()
+    np.testing.assert_array_equal(jnative.disparity_to_depth(raw, base_line, 256.0).view(np.uint32),
+                                  port.view(np.uint32))
+    _check_reader(fixtures, dense, "kitti_png")
+
+
+def _check_reader(fixtures, dense, name):
     dtype = FORMATS[name][0]
     kw = _reader_kwargs(name, dense)
     jds = jbase.create_dataset(dtype, fixtures[name], **kw)

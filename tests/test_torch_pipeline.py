@@ -36,7 +36,7 @@ from dynosam_tpu_torch.frontend import frontend as tfrontend
 from dynosam_tpu_torch.frontend import tracker as ttracker
 from dynosam_tpu_torch.frontend.tracker import TrackerState
 from dynosam_tpu_torch.pipeline.pipeline import DynoPipeline
-from torch_port_util import inject_draws, port_cfg, reference_draws, t, to_port
+from torch_port_util import inject_draws, port_cfg, reference_draws, reference_native, t, to_port
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,7 +71,8 @@ def small_cfg(mode: str, **backend) -> DynoConfig:
 
 
 @pytest.fixture(scope="module")
-def providers():
+def providers(tmp_path_factory):
+    reference_native(tmp_path_factory.mktemp("dynoio"))
     return JaxKitti(FIXTURE), KittiDataProvider(FIXTURE, device="cpu")
 
 

@@ -30,7 +30,7 @@ from dynosam_tpu.pipeline.pipeline import DynoPipeline as JaxPipeline
 from dynosam_tpu_torch.bench_config import kitti_accuracy_config
 from dynosam_tpu_torch.dataproviders.kitti import KittiDataProvider
 from dynosam_tpu_torch.pipeline.pipeline import DynoPipeline
-from torch_port_util import inject_draws, reference_draws
+from torch_port_util import inject_draws, reference_draws, reference_native
 
 torch.set_num_threads(1)
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "fixtures",
@@ -43,6 +43,7 @@ MOTION_TOL = 1e-3
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    reference_native(tmp_path_factory.mktemp("dynoio"))
     tcfg = kitti_accuracy_config("incremental")
     cfg = DynoConfig.from_dict(dataclasses.asdict(tcfg))
     base = tmp_path_factory.mktemp("reanchor")

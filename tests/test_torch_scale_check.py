@@ -75,7 +75,9 @@ def test_cli_writes_every_column_outside_the_reference(tmp_path):
     header = [ln for ln in text.splitlines() if ln.startswith("| Formulation")][0]
     assert header.count("|") == 8 and "advance step (ms)" in header
     assert len([ln for ln in text.splitlines() if ln.startswith("| WCME") or ln.startswith("| Hybrid")]) == 2
-    # the default output is the port's own file, not the reference's SCALE.md
-    assert os.path.realpath(sc.DEFAULT_OUT) == os.path.join(os.path.realpath(ROOT), "dynosam_tpu_torch", "SCALE.md")
-    assert os.path.realpath(sc.DEFAULT_OUT) != os.path.join(os.path.realpath(ROOT), "SCALE.md")
+    # the default output is no committed file (the reference's SCALE.md,
+    # the port's dynosam_tpu_torch/SCALE.md): it lies under the git-ignored
+    # results/
+    assert sc.DEFAULT_OUT == os.path.join("results", "torch", "SCALE.md")
+    assert "results/" in open(os.path.join(ROOT, ".gitignore")).read().splitlines()
     assert _reference().time_config.__module__ == "ref_scale_check"

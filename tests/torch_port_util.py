@@ -204,6 +204,54 @@ def scenario_uniforms(spec):
                         for i, o in enumerate(spec.objects)]}
 
 
+def scenario_normals(spec, K):
+    """The standard normals behind the JAX Scenario's measurement noise over
+    frames 0..K-1, for the port's Scenario(normals=): per frame k its key
+    fold_in(noise_key, k) split into pixel and depth keys, each folded with
+    observe's block (0 static, j + 1 object j)."""
+    import jax
+
+    noise_key = jax.random.split(jax.random.PRNGKey(spec.seed), 3)[2]
+    blocks = [spec.num_static] + [o.num_points for o in spec.objects]
+    px = [[] for _ in blocks]
+    d = [[] for _ in blocks]
+    for k in range(K):
+        k_px, k_d = jax.random.split(jax.random.fold_in(noise_key, k))
+        for b, n in enumerate(blocks):
+            px[b].append(np.asarray(jax.random.normal(jax.random.fold_in(k_px, b), (n, 2))))
+            d[b].append(np.asarray(jax.random.normal(jax.random.fold_in(k_d, b), (n,))))
+    pairs = [(np.stack(p), np.stack(q)) for p, q in zip(px, d)]
+    return {"static": pairs[0], "objects": pairs[1:]}
+
+
+def reference_native(tmp_dir):
+    """The JAX package's native IO library (dynosam_tpu/native.py), loaded in
+    this process whatever another process is doing. get_lib builds
+    native/libdynoio.so beside its source at first use, unlocked across
+    processes: an xdist worker that loads the file while another is writing
+    it gets OSError, marks itself tried for good and falls back to Python
+    arithmetic (disparity_to_depth divides in float64). Where the library is
+    not loaded, this builds the source into `tmp_dir` by the module's own
+    _build (its flags) and loads it by get_lib (its argtypes), pointing the
+    module's _LIB there for that one call. The module's state is patched,
+    its code is not changed."""
+    import os
+
+    from dynosam_tpu import native as jnative
+
+    if jnative._lib is not None:
+        return jnative._lib
+    shared = jnative._LIB
+    jnative._LIB = os.path.join(str(tmp_dir), "libdynoio.so")
+    jnative._tried, jnative._lib = False, None
+    try:
+        lib = jnative.get_lib()
+    finally:
+        jnative._LIB = shared
+    assert lib is not None, "g++ could not build native/dynoio.cpp"
+    return lib
+
+
 def packet_backend_cfg(**kw):
     """The reference backend tests' settings on default_two_objects
     (tests/test_backend.py small_cfg): 256 static + 96 dynamic slots, 4
