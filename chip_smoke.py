@@ -136,8 +136,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
      bench_batched_{wcme,wcpe,joint}_ref_b8_20f.npz (WCME's and WCPE's
      motions where settled; WCPE's sequences 5 and 6 to the ground truth
      only, BATCHED_REF_EXCLUDED), with ms per advancing frame, aggregate
-     frames/s, device ops, busy time and idle share per advancing frame
-     and host syncs per frame with their sites;
+     frames/s and host syncs per frame with their sites (not profiled);
   12. datasets: each of the seven on-disk formats (dyno-KITTI with png
      masks, Virtual KITTI 2, OMD, TartanAir-Shibuya, VIODE, ClusterSlam,
      Aria; bench_config.DATASET_FORMATS) written by the port's writers at
@@ -246,7 +245,22 @@ Phases, each printing one line; any failure raises and exits non-zero:
      main() at its defaults (60 frames, 320x96) rendered on the card into a
      temporary directory and held to the committed tests/fixtures/
      kitti_fixture file by file (FIXTURE_BOUNDS); every count read and 0;
-  22. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
+  22. multichip: python -m dynosam_tpu_torch.multichip's two checks
+     (dynosam_tpu_torch/multichip.py, the port of the reference's
+     dryrun_multichip) on the card, one process per rank: 2 ranks over gloo
+     on the one card and 1 rank over NCCL (and NCCL over min(count, 4)
+     cards where there are more). (a) make_batched_pipeline at
+     bench_config over the group, 8 sequences of the bench scene (sequence
+     b on scene frames b .. b+11), each rank stepping its 8/P with the
+     whole batch's draws, the outputs gathered to rank 0: each sequence
+     held to the ground truth and the first 12 frames of
+     bench_batched_ref_b8_20f.npz at phase 11's bounds, to rank 0's
+     unsharded run at multichip.SHARD_BOUNDS (gloo) and to this
+     process's unsharded run at MULTICHIP_UNSHARDED; K1b once per frame on
+     every rank. (b) sharded_optimize at scale_check's defaults held to
+     chunked_optimize at the same P, every rank's system and step equal to
+     rank 0's; each rank's wall seconds and steady step ms;
+  23. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
      K2 entry A, K2 entry B), with each one's bound (the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates), loop-timed `ms` / `plain_ms` / `library_ms`
@@ -545,9 +559,11 @@ BATCHED_OPS_RATIO = 1.5
 # JAX-ref readings are printed) and the other six to the reference. The
 # joint solve's 2.6 cm against the ground truth is the reference's too (the
 # port sits 2.5e-4 m from it). Bounds ~4-15x the larger reading. Each form
-# runs the window fill and two advancing frames (the last one profiled),
-# held to the first 12 frames of its reference: cut from 20 to pay for
-# phases 20-21, every check kept.
+# runs the window fill and two advancing frames, held to the first 12
+# frames of its reference: cut from 20 to pay for phases 20-21, every check
+# kept. Its last frame is no longer replayed under torch.profiler (14.5-16.9
+# s each, a reading and no check: device ops, busy ms and idle share print
+# n/a), to pay for phase 22.
 BATCHED_FORMS_B = 8
 BATCHED_FORMS_FRAMES = 12
 BATCHED_REF_EXCLUDED = {"wcpe": (5, 6)}
@@ -2018,21 +2034,47 @@ def profile_frames(torch, step, state, frames):
     return len(kernels) / len(frames), busy, (statistics.mean(k1) / 1e3 if k1 else None)
 
 
-def batched_readings(torch, seed, ref, B, device="cuda", form=None, n_frames=BATCHED_FRAMES):
+def batched_errors(torch, outs, ref, B, n_frames, X_gt, device, form=None):
+    """Each sequence of a batched run (`outs`: per frame, each output with
+    the leading B) against the ground truth and the JAX reference `ref` ->
+    the largest readings over the sequences (see batched_readings)."""
+    from dynosam_tpu_torch.utils import lie
+
+    rd = {"gt_m": 0.0, "gt_rad": 0.0, "ref_m": 0.0, "ref_rad": 0.0, "motion_m": 0.0, "n_motions": 0,
+          "excluded_ref": {}}
+    excluded = BATCHED_REF_EXCLUDED.get(form, ())
+    for b in range(B):
+        # sequence b starts at scene frame b: its world is that camera
+        gt = lie.mm(lie.inverse(X_gt[b]), X_gt[b:b + n_frames])
+        seq = [{k: v[b] for k, v in o.items() if torch.is_tensor(v)} for o in outs]
+        rot, trans = rot_trans_err(torch, lie, torch.stack([o["X_world_cam"] for o in seq]), gt)
+        rd["gt_m"], rd["gt_rad"] = max(rd["gt_m"], float(trans.max())), max(rd["gt_rad"], float(rot.max()))
+        ref_b = {k: ref[k][:n_frames, b] for k in ("X_world_cam", "object_ids", "object_motions",
+                                                   "object_motion_valid")}
+        tr, rr, n_mot, mot = compare_to_reference(torch, lie, seq, ref_b, device, bounds=(float("inf"),) * 3,
+                                                  settled_only=form in ("wcme", "wcpe"))
+        if b in excluded:
+            rd["excluded_ref"][b] = (tr, rr, mot)
+            continue
+        rd["ref_m"], rd["ref_rad"] = max(rd["ref_m"], tr), max(rd["ref_rad"], rr)
+        rd["motion_m"], rd["n_motions"] = max(rd["motion_m"], mot), rd["n_motions"] + n_mot
+    return rd
+
+
+def batched_readings(torch, seed, ref, B, device="cuda", form=None, n_frames=BATCHED_FRAMES, profile=True):
     """make_batched_pipeline at bench_config (with formulation `form` of
     FORM_BENCH, or the bench's decoupled hybrid) over B sequences ->
     (launches, readings, final state, per-frame host seconds, host-sync
     sites, device ops per advancing frame, device busy ms per advancing
     frame and the fused K1's device ms per launch on the path, the last
-    three None off the card). WCME's and WCPE's motions are compared where
-    settled only (see FORM_COV_REL). The sequences of
+    three None off the card or without `profile`). WCME's and WCPE's
+    motions are compared where settled only (see FORM_COV_REL). The sequences of
     BATCHED_REF_EXCLUDED[form] are held to the ground truth only: their
     readings against the JAX reference go to `excluded_ref` (sequence ->
     (m, rad, motion m)) and into no maximum."""
     from dynosam_tpu_torch.bench_config import bench_config, bench_scene
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
     from dynosam_tpu_torch.parallel.batched import make_batched_pipeline
-    from dynosam_tpu_torch.utils import lie
 
     cfg, intr = bench_config()
     if form is not None:
@@ -2060,30 +2102,12 @@ def batched_readings(torch, seed, ref, B, device="cuda", form=None, n_frames=BAT
     # _drive's own per-frame synchronize() calls are not the program's
     sites = {k: v for k, v in sync.sites.items() if not k.startswith("chip_smoke.py")}
 
-    rd = {"gt_m": 0.0, "gt_rad": 0.0, "ref_m": 0.0, "ref_rad": 0.0, "motion_m": 0.0, "n_motions": 0,
-          "excluded_ref": {}}
-    excluded = BATCHED_REF_EXCLUDED.get(form, ())
-    X_gt = scene.scn.X_gt
-    for b in range(B):
-        # sequence b starts at scene frame b: its world is that camera
-        gt = lie.mm(lie.inverse(X_gt[b]), X_gt[b:b + n_frames])
-        seq = [{k: v[b] for k, v in o.items() if torch.is_tensor(v)} for o in outs]
-        rot, trans = rot_trans_err(torch, lie, torch.stack([o["X_world_cam"] for o in seq]), gt)
-        rd["gt_m"], rd["gt_rad"] = max(rd["gt_m"], float(trans.max())), max(rd["gt_rad"], float(rot.max()))
-        ref_b = {k: ref[k][:n_frames, b] for k in ("X_world_cam", "object_ids", "object_motions",
-                                                   "object_motion_valid")}
-        tr, rr, n_mot, mot = compare_to_reference(torch, lie, seq, ref_b, device, bounds=(float("inf"),) * 3,
-                                                  settled_only=form in ("wcme", "wcpe"))
-        if b in excluded:
-            rd["excluded_ref"][b] = (tr, rr, mot)
-            continue
-        rd["ref_m"], rd["ref_rad"] = max(rd["ref_m"], tr), max(rd["ref_rad"], rr)
-        rd["motion_m"], rd["n_motions"] = max(rd["motion_m"], mot), rd["n_motions"] + n_mot
+    rd = batched_errors(torch, outs, ref, B, n_frames, scene.scn.X_gt, device, form)
 
     # device operations per advancing frame: the last frame again, from
     # the state before it, under the profiler (not counted as launches)
     ops = busy = k1_ms = None
-    if device == "cuda":
+    if device == "cuda" and profile:
         ops, busy, k1_ms = profile_frames(torch, step, held["before_last"], stacked[-1:])
     return launches, rd, held, times, sites, ops, busy, k1_ms
 
@@ -2156,7 +2180,8 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
         ref = np.load(os.path.join(os.path.dirname(ref_path), f"bench_batched_{form}_ref_b{B}_20f.npz"))
         t = time.perf_counter()
         launches, rd, _, times, sites, ops_f, busy, k1_ms = batched_readings(torch, seed, ref, B, device, form,
-                                                                             n_frames=BATCHED_FORMS_FRAMES)
+                                                                             n_frames=BATCHED_FORMS_FRAMES,
+                                                                             profile=False)
         over = {k: (rd[k], v) for k, v in BATCHED_FORM_BOUNDS[form].items() if not rd[k] <= v}
         excl = "".join(f"; sequence {b} (held to the ground truth only) vs JAX ref {m:.2e} m / {r:.2e} rad, "
                        f"motions {mo:.2e} m" for b, (m, r, mo) in rd["excluded_ref"].items())
@@ -3602,6 +3627,107 @@ def run_fixture_writer_path(torch, device="cuda", smi=""):
     return launches
 
 
+# phase 22: the multi-device path (dynosam_tpu_torch/multichip.py, the port
+# of the reference's dryrun_multichip): make_batched_pipeline at
+# bench_config over a process group, MULTICHIP_B sequences of the bench
+# scene (sequence b on scene frames b..b+11: the window fills and advances
+# twice), each rank on the card stepping its B/P of them, and
+# sharded_optimize at scale_check's defaults (J=32, F=16, 2048 dynamic,
+# 256 static; five iterations). Runs: 2 ranks over gloo on the one card
+# (NCCL refuses two ranks on one GPU) and 1 rank over NCCL (the NCCL calls
+# on the card), and NCCL over min(count, 4) cards where the machine has
+# more than one. Every sequence held to the ground truth and
+# bench_batched_ref_b8_20f.npz's first 12 frames at phase 11's bounds (GT_*,
+# REF_*), and to the unsharded batched run of this process at
+# MULTICHIP_UNSHARDED; with rank 0's own unsharded run (multichip's
+# SHARD_BOUNDS) and sharded_optimize to chunked_optimize at the same P
+# (multichip.check_failures) where the run's third field says so: not at
+# world 1, where both are the same program; every rank's system and step
+# equal to rank 0's; K1b once per frame on every rank, the K1 map entry and
+# K2 never. MULTICHIP_UNSHARDED: the H100 (700 W) read 7.6e-6 on poses and
+# 5.6e-4 on motions over 2 gloo ranks (a batch of 4 takes other cuBLAS /
+# cuSOLVER kernels than one of 8; the CPU reads 0 at one thread per
+# process); bounds ~10x.
+MULTICHIP_B = 8
+MULTICHIP_FRAMES = 12
+MULTICHIP_RUNS = (("gloo", 2, True), ("nccl", 1, False))
+MULTICHIP_UNSHARDED = {"pose": 1e-4, "motion": 5e-3}
+
+
+def multichip_readings(torch, seed, ref, device="cuda", runs=MULTICHIP_RUNS):
+    """Phase 22 without its bounds -> ({run: (batched, sharded, readings)},
+    the unsharded run's steady step ms). `readings` holds the sequences'
+    errors (batched_errors), the largest differences from this process's
+    unsharded run, and every failure multichip.check_failures finds."""
+    from dynosam_tpu_torch import multichip
+    from dynosam_tpu_torch.bench_config import bench_config, bench_scene
+    from dynosam_tpu_torch.parallel.batched import make_batched_pipeline
+
+    cfg, intr = bench_config()
+    B, n = MULTICHIP_B, MULTICHIP_FRAMES
+    scene = bench_scene(intr, n + B - 1, device=device)
+    frames = scene.frames()
+    stacked = [_stack_inputs(torch, frames[k:k + B]) for k in range(n)]
+    step, init = make_batched_pipeline(cfg, intr, torch.Generator(device=device).manual_seed(seed))
+    outs, times = _drive(torch, step, init(B, device), stacked, device)
+    unsharded = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    del frames, stacked, outs
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out = {}
+    for backend, ranks, reference in runs:
+        batched, sharded = multichip.run(ranks, backend, device, B, n, seed, reference=reference,
+                                         threads=None if device == "cuda" else 1)
+        got = {k: torch.as_tensor(v, device=device) for k, v in batched[0]["outputs"].items()}
+        rd = batched_errors(torch, [{k: v[i] for k, v in got.items()} for i in range(n)], ref, B, n,
+                            scene.scn.X_gt, device)
+        d = multichip.output_diffs(got, unsharded)
+        rd["unsharded"] = d
+        rd["failures"] = multichip.check_failures(batched, sharded)
+        out[(backend, ranks)] = (batched, sharded, rd)
+    return out, statistics.median(times[10:]) * 1e3
+
+
+def run_multichip_path(torch, seed, ref_path, device="cuda", smi=""):
+    """Phase 22: the multi-device path, held to its bounds -> {path:
+    launches}, one path per run and rank."""
+    import numpy as np
+
+    from dynosam_tpu_torch import multichip
+
+    runs = list(MULTICHIP_RUNS)
+    count = torch.cuda.device_count() if device == "cuda" else 1
+    if count > 1:
+        runs.append(("nccl", min(count, 4), True))
+    results, unsharded_ms = multichip_readings(torch, seed, np.load(ref_path), device, tuple(runs))
+    paths = {}
+    for (backend, ranks), (batched, sharded, rd) in results.items():
+        checks = {"gt_m": GT_TRANS_M, "gt_rad": GT_ROT_RAD, "ref_m": REF_TRANS_M, "ref_rad": REF_ROT_RAD,
+                  "motion_m": REF_MOTION_TRANS_M}
+        over = {k: (rd[k], v) for k, v in checks.items() if not rd[k] <= v}
+        d = rd["unsharded"]
+        for k, bound in (("X_world_cam", MULTICHIP_UNSHARDED["pose"]), ("frontend_pose", MULTICHIP_UNSHARDED["pose"]),
+                         ("object_motions", MULTICHIP_UNSHARDED["motion"]), ("object_ids", 0),
+                         ("object_motion_valid", 0)):
+            if not d[k] <= bound:
+                over[f"unsharded {k}"] = (d[k], bound)
+        for r in batched:
+            paths[f"multichip_{backend}_r{ranks}_rank{r['rank']}"] = r["launches"]
+            want = {"K1": MULTICHIP_FRAMES if device == "cuda" else 0, "K1 map": 0, "K2": 0, "K2 label": 0}
+            if r["launches"] != want:
+                over[f"rank {r['rank']} launches"] = (r["launches"], want)
+        lines = multichip.report(batched, sharded, ranks, MULTICHIP_FRAMES)
+        line = (f"multichip {backend} x {ranks} on {device} ({smi}): {' | '.join(lines)}; sequences vs GT max "
+                f"{rd['gt_m']:.2e} m / {rd['gt_rad']:.2e} rad, vs JAX ref max {rd['ref_m']:.2e} m / "
+                f"{rd['ref_rad']:.2e} rad, {rd['n_motions']} motions max {rd['motion_m']:.2e} m; vs this "
+                f"process's unsharded run {d} (bounds {MULTICHIP_UNSHARDED}; its steady step "
+                f"{unsharded_ms:.2f} ms)")
+        if over or rd["failures"]:
+            raise AssertionError(f"multichip {backend} x {ranks}: over bounds {over}; {rd['failures']}; {line}")
+        say(line)
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the RANSAC and test-input generators")
@@ -3652,7 +3778,7 @@ def main():
     k1 = timed("3 (K1)", check_k1, torch, args.seed)
     k2 = timed("4 (K2)", check_k2, torch, args.seed, built[K2_V3_SOURCE][0])
 
-    # ---- 5-21. the main paths, counts zeroed just before each ----------------
+    # ---- 5-22. the main paths, counts zeroed just before each ----------------
     bench_launches = timed("5 (bench)", run_bench_path, torch, args.seed,
                            os.path.join(testdata, "bench_ref_20f.npz"))
     pipelined_launches = timed("5b (pipelined)", run_pipelined_path, torch, args.seed,
@@ -3683,15 +3809,19 @@ def main():
     streaming_launches = timed("20 (streaming)", run_streaming_path, torch, os.path.join(testdata, STREAMING_REF),
                                smi=smi)
     fixture_launches = timed("21 (fixture writer)", run_fixture_writer_path, torch, smi=smi)
+    multichip_launches = timed("22 (multichip)", run_multichip_path, torch, args.seed,
+                               os.path.join(testdata, "bench_batched_ref_b8_20f.npz"), smi=smi)
 
-    # ---- 22. results ------------------------------------------------------------
+    # ---- 23. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "pipelined": pipelined_launches, "klt": klt_launches,
              "stereo_imu": stereo_launches, "detector": det_launches, "heldout": heldout_launches,
              "pipeline": pipe_launches, **forms_launches, **batched_launches, "datasets": dataset_launches,
              **{f"tooling_{k}": v for k, v in tooling_launches.items()}, **modes_launches, "rich": rich_launches,
              "detector_pipeline": det_pipe_launches, "train": train_launches, "experiments": exp_launches,
-             "scale": scale_launches, "streaming": streaming_launches, "fixture_writer": fixture_launches}
-    batched = {p for p in paths if p.startswith("batched_")}
+             "scale": scale_launches, "streaming": streaming_launches, "fixture_writer": fixture_launches,
+             **multichip_launches}
+    # the batched step's paths, and each multichip rank's (its B/P sequences)
+    batched = {p for p in paths if p.startswith(("batched_", "multichip_"))}
 
     def row(name, kid, source, replaces, check, only=None, **extra):
         # K1's counter counts the fused entry on every path; on the batched

@@ -3,19 +3,22 @@ KITTI 2's `rgb_%05d.jpg`). The reference reads and writes these through
 OpenCV; the port may not, so this module reproduces what OpenCV's
 libjpeg-turbo computes at its defaults, stage by stage:
 
-  * `decode_jpeg` / `read_jpeg`: baseline sequential and progressive
-    Huffman, 8-bit, one or three components, sampling 4:4:4, 4:2:2 (h2v1)
-    or 4:2:0 (h2v2), restart intervals, any size. Progressive files
+  * `decode_jpeg` / `read_jpeg`: baseline and extended (SOF1) sequential
+    and progressive Huffman, 8-bit, one or three components, sampling
+    4:4:4, 4:2:2 (h2v1), 4:2:0 (h2v2), 4:4:0 (h1v2) or 4:1:1 (h4v1),
+    restart intervals, any size. Progressive files
     (T.81 Annex G: spectral selection, successive approximation,
     end-of-band runs) collect every scan's coefficients as libjpeg-turbo's
     `jdphuff.c` does, then take the same stages as baseline ones: the
     integer IDCT of `jidctint.c` (jpeg_idct_islow), the "fancy" triangular
     chroma upsampling of `jdsample.c` (h2v1_fancy_upsample /
-    h2v2_fancy_upsample, edges replicated) and the fixed-point YCbCr -> RGB
+    h1v2_fancy_upsample / h2v2_fancy_upsample, edges replicated; 4:1:1 by
+    int_upsample's plain replication) and the fixed-point YCbCr -> RGB
     tables of `jdcolor.c` (build_ycc_rgb_table), so the pixels equal
     `cv2.imdecode`'s. A grey file decodes to three equal channels, as cv2's
     default flag gives it. Lossless, hierarchical, 12-bit and
-    arithmetic-coded files, and other samplings, raise NotImplementedError.
+    arithmetic-coded files, and other samplings, raise NotImplementedError
+    naming ROADMAP.md item 22 (`ROADMAP_ENTRY`).
   * `encode_jpeg` / `write_jpeg`: what `cv2.imwrite(..., [IMWRITE_JPEG_QUALITY,
     q])` writes at its defaults: the Annex K tables scaled by libjpeg's
     quality curve (jcparam.c), RGB -> YCbCr in fixed point (jccolor.c), h2v2
@@ -46,7 +49,7 @@ _F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
 _F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
 _F1961, _F2053, _F2562, _F3072 = 16069, 16819, 20995, 25172
 
-ROADMAP_ENTRY = "ROADMAP.md item 22: arithmetic-coded JPEG is not decoded; neither cv2 nor PIL writes one to test against"
+ROADMAP_ENTRY = "ROADMAP.md item 22: forms no writer at hand produces to test against are not decoded"
 
 
 def _descale(x, n):
@@ -202,6 +205,19 @@ def _fancy_h2v1(plane: np.ndarray, out_w: int) -> np.ndarray:
     out[:, 0] = x[:, 0]
     out[:, -1] = x[:, -1]
     return out[:, :out_w].astype(np.uint8)
+
+
+def _fancy_h1v2(plane: np.ndarray, out_h: int) -> np.ndarray:
+    """h1v2_fancy_upsample (jdsample.c): (h, w) -> (out_h, w); each output
+    row weighs its input row 3:1 with the nearer neighbour row, the rows
+    above the first and below the last replicated (the context rows)."""
+    x = plane.astype(np.int64)
+    above = np.concatenate([x[:1], x[:-1]], axis=0)
+    below = np.concatenate([x[1:], x[-1:]], axis=0)
+    out = np.empty((2 * x.shape[0], x.shape[1]), np.int64)
+    out[0::2] = (3 * x + above + 1) >> 2
+    out[1::2] = (3 * x + below + 2) >> 2
+    return out[:out_h].astype(np.uint8)
 
 
 def _fancy_h2v2(plane: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -500,6 +516,11 @@ def _decode_progressive_scan(seg, starts, comps, coefs, ss, se, ah, al, mcux, mc
                             eobrun -= 1
 
 
+# luma (h, v) of the three-component samplings decoded, chroma at 1x1:
+# 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1
+_LUMA_SAMPLINGS = ((1, 1), (2, 1), (2, 2), (1, 2), (4, 1))
+
+
 def _frame_layout(frame, height, width):
     """Sampling checks and block geometry of a frame's components: each
     gets `index`, its MCU-padded block array (by, bx), its samples (ch, cw)
@@ -507,9 +528,10 @@ def _frame_layout(frame, height, width):
     (hmax, vmax, mcux, mcuy)."""
     sampling = tuple((c["h"], c["v"]) for c in frame)
     if len(frame) not in (1, 3):
-        raise NotImplementedError(f"{len(frame)} components are not decoded")
-    if len(frame) == 3 and sampling not in (((1, 1),) * 3, ((2, 1), (1, 1), (1, 1)), ((2, 2), (1, 1), (1, 1))):
-        raise NotImplementedError(f"sampling {sampling} is not decoded (4:4:4, 4:2:2, 4:2:0 are)")
+        raise NotImplementedError(f"{len(frame)} components are not decoded ({ROADMAP_ENTRY})")
+    if len(frame) == 3 and sampling not in tuple((luma, (1, 1), (1, 1)) for luma in _LUMA_SAMPLINGS):
+        raise NotImplementedError(f"sampling {sampling} is not decoded (4:4:4, 4:2:2, 4:2:0, 4:4:0, "
+                                  f"4:1:1 are; {ROADMAP_ENTRY})")
     if len(frame) == 1:
         frame[0]["h"] = frame[0]["v"] = 1
     hmax = max(c["h"] for c in frame)
@@ -535,7 +557,7 @@ def _scan_components(body, by_id, dht, path):
 
 
 def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """A baseline or progressive JPEG -> (H, W, 3) uint8 RGB, pixel for
+    """A baseline, extended (8-bit) or progressive JPEG -> (H, W, 3) uint8 RGB, pixel for
     pixel as libjpeg-turbo decodes it at cv2's defaults (islow IDCT, fancy
     upsampling)."""
     if data[:2] != b"\xff\xd8":
@@ -557,9 +579,9 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
         length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
         body = data[pos + 4:pos + 2 + length]
         pos += 2 + length
-        if marker in (0xC1, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
+        if marker in (0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
             kind = "arithmetic-coded" if marker >= 0xC9 else (
-                "hierarchical" if marker >= 0xC5 else "non-baseline")
+                "hierarchical" if marker >= 0xC5 else "lossless")
             raise NotImplementedError(f"{path}: {kind} JPEG (SOF{marker - 0xC0}) is not decoded "
                                       f"({ROADMAP_ENTRY})")
         if marker == 0xCC:
@@ -569,7 +591,8 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
             while i < len(body):
                 pq, tq = body[i] >> 4, body[i] & 15
                 if pq:
-                    raise NotImplementedError(f"{path}: 16-bit quantisation tables are not decoded")
+                    raise NotImplementedError(f"{path}: 16-bit quantisation tables are not decoded "
+                                              f"({ROADMAP_ENTRY})")
                 zz = np.frombuffer(body[i + 1:i + 65], np.uint8).astype(np.int64)
                 q = np.zeros(64, np.int64)
                 q[_ZIGZAG] = zz
@@ -585,12 +608,16 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
                 i += 17 + n
         elif marker == 0xDD:
             restart = struct.unpack(">H", body[:2])[0]
-        elif marker in (0xC0, 0xC2):
+        elif marker in (0xC0, 0xC1, 0xC2):
+            # SOF1 (extended sequential, Huffman) at 8 bits is SOF0 with
+            # four table slots per class, which the tables' dict keys take
             precision, height, width, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
-                raise NotImplementedError(f"{path}: {precision}-bit JPEG is not decoded")
+                raise NotImplementedError(f"{path}: {precision}-bit JPEG (SOF{marker - 0xC0}) is not decoded "
+                                          f"({ROADMAP_ENTRY})")
             if height == 0:
-                raise NotImplementedError(f"{path}: a JPEG whose height follows in a DNL marker is not decoded")
+                raise NotImplementedError(f"{path}: a JPEG whose height follows in a DNL marker is not decoded "
+                                          f"({ROADMAP_ENTRY})")
             progressive = marker == 0xC2
             frame = [dict(id=body[6 + 3 * k], h=body[7 + 3 * k] >> 4, v=body[7 + 3 * k] & 15,
                           tq=body[8 + 3 * k]) for k in range(nc)]
@@ -607,9 +634,9 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
             if not progressive:
                 if len(comps) != len(frame):
                     raise NotImplementedError(f"{path}: {len(frame)} components in {len(comps)} scans are not "
-                                              "decoded")
+                                              f"decoded ({ROADMAP_ENTRY})")
                 if (ss, se, ah, al) != (0, 63, 0, 0):
-                    raise NotImplementedError(f"{path}: the scan is not baseline sequential")
+                    raise NotImplementedError(f"{path}: the scan is not baseline sequential ({ROADMAP_ENTRY})")
                 # (a single-component frame has one block per MCU, so its
                 # MCU-padded blocks are its own)
                 for c, out in zip(comps, _decode_scan(seg, starts, comps, mcux, mcuy, restart, path)):
@@ -630,14 +657,16 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=-1)
     y, cb, cr = planes
-    if cb.shape[1] <= 2 and (hmax, vmax) != (1, 1):
-        # libjpeg-turbo upsamples fewer than three columns by replication
-        # (jinit_upsampler: fancy only where downsampled_width > 2)
-        cb, cr = (np.repeat(np.repeat(c, vmax, 0), hmax, 1)[:height, :width] for c in (cb, cr))
-    elif (hmax, vmax) == (2, 1):
+    # jinit_upsampler: h1v2 is always fancy; h2v1 and h2v2 are fancy only
+    # where downsampled_width > 2; the rest (4:1:1) replicate
+    if (hmax, vmax) == (1, 2):
+        cb, cr = _fancy_h1v2(cb, height), _fancy_h1v2(cr, height)
+    elif cb.shape[1] > 2 and (hmax, vmax) == (2, 1):
         cb, cr = _fancy_h2v1(cb, width), _fancy_h2v1(cr, width)
-    elif (hmax, vmax) == (2, 2):
+    elif cb.shape[1] > 2 and (hmax, vmax) == (2, 2):
         cb, cr = _fancy_h2v2(cb, height, width), _fancy_h2v2(cr, height, width)
+    elif (hmax, vmax) != (1, 1):
+        cb, cr = (np.repeat(np.repeat(c, vmax, 0), hmax, 1)[:height, :width] for c in (cb, cr))
     return _ycc_to_rgb(y, cb, cr)
 
 

@@ -15,6 +15,48 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 
+class BatchRows:
+    """A source of RANSAC draws for rows [rank * n, (rank + 1) * n) of a
+    batch of world * n sequences (one rank's share of the batched step):
+    each draw is made for the whole batch from `source` (a torch.Generator,
+    None for torch's default, or another draw source) and this rank's rows
+    kept, so sequence b's numbers are the same at any world size and equal
+    the unsharded batch's."""
+
+    def __init__(self, source, world: int, rank: int):
+        self.source, self.world, self.rank = source, world, rank
+
+    def rand(self, shape, device):
+        n = shape[0]
+        full = draw_uniform(self.source, (n * self.world,) + tuple(shape[1:]), device)
+        return full[self.rank * n:(self.rank + 1) * n]
+
+
+class ReplayDraws:
+    """A source of RANSAC draws that hands out the given arrays in call
+    order (a reference's own uniforms, for a parity run)."""
+
+    def __init__(self, arrays):
+        self.queue = list(arrays)
+
+    def rand(self, shape, device):
+        if not self.queue:
+            raise IndexError("ReplayDraws: no draw left")
+        g = torch.as_tensor(self.queue.pop(0), dtype=torch.float32, device=device)
+        if tuple(g.shape) != tuple(shape):
+            raise ValueError(f"ReplayDraws: the next draw is {tuple(g.shape)}, the call wants {tuple(shape)}")
+        return g
+
+
+def draw_uniform(source, shape, device) -> torch.Tensor:
+    """Uniforms in [0, 1) of `shape` from `source`: a torch.Generator (or
+    None, torch's default one) or a draw source with `rand(shape, device)`
+    (BatchRows, ReplayDraws)."""
+    if hasattr(source, "rand"):
+        return source.rand(shape, device)
+    return torch.rand(shape, generator=source, device=device)
+
+
 class RansacResult(NamedTuple):
     model: torch.Tensor        # (*B, 4, 4)
     inliers: torch.Tensor      # (*B, N) bool
@@ -32,12 +74,13 @@ def _sample_indices(
     """(*B, num_hypotheses, sample_size) indices drawn among valid slots.
 
     Gumbel top-k by `sample_size` successive argmax + mask passes, as in the
-    reference. `uniforms` (*B, num_hypotheses, N) in [0, 1) replaces the draw
-    from `generator` (tests inject the reference's draws this way)."""
+    reference. `generator` is a torch.Generator or a draw source
+    (`draw_uniform`). `uniforms` (*B, num_hypotheses, N) in [0, 1) replaces
+    the draw (tests inject the reference's draws this way)."""
     n = valid.shape[-1]
     shape = valid.shape[:-1] + (num_hypotheses, n)
     if uniforms is None:
-        g = torch.rand(shape, generator=generator, device=valid.device)
+        g = draw_uniform(generator, shape, valid.device)
     else:
         g = uniforms.to(device=valid.device, dtype=torch.float32).expand(shape)
     g = torch.where(valid[..., None, :], g, -torch.inf)

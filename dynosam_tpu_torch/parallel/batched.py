@@ -14,7 +14,10 @@ formulation is backend_updater_enum: 0 WCME, 1 WCPE, 2 or 3 hybrid
 `make_batched_pipeline` steps B sequences as one program: every module on
 the path takes a leading batch axis, so each operation runs once for the
 whole batch (the reference's `jax.vmap` of the fused step), never once per
-sequence.
+sequence. Given a process group (`parallel/group.py`, the reference's
+`mesh=`), each rank steps its own B/P consecutive sequences; `shard_rows`
+takes a rank's rows of the batch's inputs and `gather_outputs` puts the
+sequences' outputs together on rank 0.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from dynosam_tpu_torch.frontend.frontend import (
     frontend_step,
 )
 from dynosam_tpu_torch.frontend.types import FrameInputs
+from dynosam_tpu_torch.ops.ransac import BatchRows
+from dynosam_tpu_torch.parallel.group import Group, gather_to_rank0
 
 
 @dataclass
@@ -183,15 +188,58 @@ def _refuse_unbatched(cfg: DynoConfig):
         )
 
 
+def _rows(B: int, group: Optional[Group]) -> slice:
+    """The rows of a batch of B sequences that `group`'s rank steps."""
+    if group is None:
+        return slice(0, B)
+    if B % group.world:
+        raise ValueError(f"a batch of {B} sequences does not divide over {group.world} ranks")
+    n = B // group.world
+    return slice(group.rank * n, (group.rank + 1) * n)
+
+
+def shard_rows(obj, group: Optional[Group]):
+    """This rank's rows of a batch (a dataclass such as FrameInputs or
+    PipelineState, or a dict, of tensors with the batch's leading axis)."""
+    if group is None:
+        return obj
+    if isinstance(obj, dict):
+        return {k: shard_rows(v, group) for k, v in obj.items()}
+    rows = _rows(_first_tensor(obj).shape[0], group)
+    return obj[rows] if torch.is_tensor(obj) else _map_tensors(lambda t: t[rows], obj)
+
+
+def _first_tensor(obj):
+    if torch.is_tensor(obj):
+        return obj
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            found = _first_tensor(getattr(obj, f.name))
+            if found is not None:
+                return found
+    return None
+
+
+def gather_outputs(outputs: dict, group: Optional[Group]):
+    """A step's per-sequence outputs (each (B/P, ...) on every rank) -> on
+    rank 0 each (B, ...) in sequence order; None on the other ranks."""
+    if group is None:
+        return outputs
+    parts = {k: gather_to_rank0(v, group) for k, v in outputs.items()}
+    return None if group.rank else {k: torch.cat(v, dim=0) for k, v in parts.items()}
+
+
 def make_batched_pipeline(
     cfg: DynoConfig,
     intr: cam.CameraIntrinsics,
     generator: Optional[torch.Generator] = None,
+    group: Optional[Group] = None,
 ):
     """The fused step over B sequences at once -> (step, init_fn).
 
     `init_fn(B, device="cuda")` gives a PipelineState whose tensors carry a
-    leading batch axis of B (the reference's `_init_batch`).
+    leading batch axis of B (the reference's `_init_batch`); with a `group`,
+    this rank's B/P rows of it.
     `step(states, inputs)` takes FrameInputs with the same leading B and
     returns the new states and per-sequence outputs, each (B, ...). It is
     one program: every torch operation runs once for the whole batch, the
@@ -208,18 +256,31 @@ def make_batched_pipeline(
     prior on frames carrying an IMU window, and in-loop stereo on frames
     carrying a right image (decided for the whole batch).
 
-    The reference's `mesh=` argument, which shards the sequence axis over a
-    device mesh, has no counterpart on one GPU and is not taken. As in the
-    reference, whose batch is built without an image shape (`_init_batch`),
-    KLT tracking raises ValueError here, and mask propagation never runs."""
+    `group` (`parallel/group.py`, one rank per device) is the reference's
+    `mesh=`: the sequence axis split over the ranks, rank r stepping
+    sequences [r B/P, (r + 1) B/P) with the inputs' rows `shard_rows` takes.
+    The sequences share nothing, so no collective runs in the step. Every
+    rank must hold a `generator` seeded as the unsharded run's: each draw is
+    made for the whole batch and the rank's rows kept (`ops/ransac.py::
+    BatchRows`), so sequence b takes the same numbers at any world size, as
+    the reference's sequences carry their keys in their states. Without a
+    group the draws are the whole batch's, as ever.
+
+    As in the reference, whose batch is built without an image shape
+    (`_init_batch`), KLT tracking raises ValueError here, and mask
+    propagation never runs."""
     cfg = _incremental(cfg)
     _refuse_unbatched(cfg)
     enum = cfg.backend.backend_updater_enum
     backend = _backend_step(cfg, pipelined=False)
+    if group is not None:
+        generator = BatchRows(generator, group.world, group.rank)
 
     def init_fn(B: int, device="cuda") -> PipelineState:
+        rows = _rows(B, group)
         one = init_pipeline_state(cfg, device)
-        return _map_tensors(lambda t: t.expand((B,) + t.shape).clone(), one)
+        n = rows.stop - rows.start
+        return _map_tensors(lambda t: t.expand((n,) + t.shape).clone(), one)
 
     def step(states: PipelineState, inputs: FrameInputs):
         fidx = states.frontend.frame_idx

@@ -1,4 +1,4 @@
-"""Landmark-chunked backend assembly (port of dynosam_tpu/parallel/sharded.py).
+"""Landmark-sharded backend assembly (port of dynosam_tpu/parallel/sharded.py).
 
 The reference shards a single sequence's landmark tables over a device mesh:
 the Hessian assembly is an exact sum over landmarks,
@@ -10,10 +10,17 @@ with the non-landmark terms (smoothing, odometry, gauge, marginal prior)
 scaled by 1/P, one `psum` gives the exact global normal equations, and the
 landmark back-substitution stays shard-local.
 
-One GPU has no mesh, so here the P chunks are linearized in turn on the one
-device and `_reduce` adds their systems: the same exact sum. The reduction
-is that one function, which a multi-GPU version would replace with an
-`all_reduce` over a process group.
+Two forms of it here:
+
+  * over a process group (`parallel/group.py`, one rank per device, the
+    reference's mesh axis): `shard_state`, `sharded_linearize`,
+    `sharded_gn_step` and `sharded_optimize`, under the reference's names.
+    Each rank holds one chunk of the landmark tables, linearizes it, and
+    one `all_reduce` of S and rhs gives every rank the same global system;
+    the (D, D) solve is replicated and each rank back-substitutes its own
+    points. `gather_state` puts the chunks together on rank 0.
+  * in one process (`chunked_*`): the P chunks linearized in turn on one
+    device, their systems added by `_reduce`: the same exact sum.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from dynosam_tpu_torch.backend import hybrid
 from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.backend.solver import _clip_step, _final_reg, chol_solve
 from dynosam_tpu_torch.config import BackendParams
+from dynosam_tpu_torch.parallel.group import Group, all_reduce_sum, gather_to_rank0
 
 # landmark-indexed GraphState fields -> the axis that runs over landmarks
 LD_FIELDS = {"md": 0, "d_tid": 0, "d_obj": 0, "d_z": 0, "d_valid": 0,
@@ -101,3 +109,62 @@ def chunked_optimize(state: GraphState, cfg: BackendParams, P: int, iterations: 
     for _ in range(iterations or op.max_iterations):
         state = chunked_gn_step(state, cfg, lam, P, max_step=op.gn_max_step)
     return state
+
+
+def shard_state(state: GraphState, group: Group) -> GraphState:
+    """This rank's chunk of `state` (the same state on every rank): its
+    share of the landmark tables, every other field whole (the reference's
+    `shard_state`). The capacities must divide by the world size."""
+    return chunk_state(state, group.world)[group.rank]
+
+
+def gather_state(chunk: GraphState, group: Group):
+    """The chunks of every rank merged on rank 0 (None elsewhere); the
+    shared fields are rank 0's."""
+    parts = {name: gather_to_rank0(getattr(chunk, name), group) for name in _LANDMARK_AXES}
+    if group.rank:
+        return None
+    return dataclasses.replace(chunk, **{name: torch.cat(parts[name], dim=axis)
+                                         for name, axis in _LANDMARK_AXES.items()})
+
+
+def _sharded_system(chunk: GraphState, cfg: BackendParams, lam, group: Group):
+    lin = hybrid.linearize(chunk, cfg, lam, fixed_scale=1.0 / group.world, final_reg=False)
+    S = all_reduce_sum(lin.S.clone(memory_format=torch.contiguous_format), group)
+    rhs = all_reduce_sum(lin.rhs.clone(memory_format=torch.contiguous_format), group)
+    return lin, _final_reg(S, lam), rhs
+
+
+def sharded_linearize(chunk: GraphState, cfg: BackendParams, lam, group: Group):
+    """Exact global (S, rhs) of `hybrid.linearize`, on every rank: this
+    rank's chunk linearized with the non-landmark terms scaled by 1/P, one
+    all_reduce (the reference's psum), then the final regularisation."""
+    _, S, rhs = _sharded_system(chunk, cfg, lam, group)
+    return S, rhs
+
+
+def sharded_gn_step(chunk: GraphState, cfg: BackendParams, lam, group: Group, max_step: float = 0.2,
+                    with_dx: bool = False):
+    """One Gauss-Newton step over the group (the reference's
+    `sharded_gn_step`): the reduced (D, D) system solved on every rank (it
+    is small, cheaper than broadcasting a factor), the same pose and motion
+    update applied everywhere and each rank's own points updated. Returns
+    the new chunk, and the step `dx` with `with_dx`."""
+    lin, S, rhs = _sharded_system(chunk, cfg, lam, group)
+    dx = _clip_step(chol_solve(S, rhs), max_step)
+    out = hybrid._apply_update(chunk, lin, dx)
+    return (out, dx) if with_dx else out
+
+
+def sharded_optimize(chunk: GraphState, cfg: BackendParams, group: Group, iterations: int = None,
+                     on_step=None):
+    """Fixed-iteration damped GN over the group (the reference's
+    `sharded_optimize`: no accept/reject). `on_step(dx)`, if given, sees
+    each iteration's step."""
+    op = cfg.optimizer
+    lam = torch.full((), op.lm_initial_lambda, dtype=chunk.X.dtype, device=chunk.X.device)
+    for _ in range(iterations or op.max_iterations):
+        chunk, dx = sharded_gn_step(chunk, cfg, lam, group, max_step=op.gn_max_step, with_dx=True)
+        if on_step is not None:
+            on_step(dx)
+    return chunk

@@ -21,7 +21,16 @@ Tolerances: none. Every case is held to equality:
     375x1242 down to 1x1; and a Virtual KITTI 2 frame whose rgb is
     re-encoded progressive reads equal through the JAX reader and the
     port's;
-  * arithmetic-coded files raise NotImplementedError.
+  * the decoder equals cv2.imdecode pixel for pixel on 4:4:0 (h1v2: fancy
+    vertical upsampling) and 4:1:1 (h4v1: replication) files that
+    cv2.imwrite writes, at quality 50 and 95, sizes 375x1242 down to 1x1
+    (odd and partial-MCU ones among them), sequential and progressive; a
+    baseline file whose SOF0 is rewritten to SOF1 (extended sequential,
+    8-bit), its Huffman tables moved to slots 2 and 3, decodes as the
+    original does; and a Virtual KITTI 2 sequence re-encoded 4:4:0 reads
+    equal through the JAX reader and the port's;
+  * arithmetic-coded files and a 12-bit SOF1 raise NotImplementedError
+    naming ROADMAP.md item 22.
 """
 
 import os
@@ -209,6 +218,10 @@ def _scene(h, w, seed):
 SAMPLINGS = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444, "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
              "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420}
 SIZES = [(375, 1242), (61, 37), (17, 33), (8, 8), (2, 3), (1, 1)]
+# the samplings libjpeg-turbo upsamples by h1v2_fancy_upsample (4:4:0) and
+# int_upsample (4:1:1); sizes odd, below one MCU and across a partial MCU
+MORE_SAMPLINGS = {"440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440, "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}
+MORE_SIZES = SIZES + [(48, 64), (9, 5), (16, 33), (3, 2), (31, 50)]
 
 
 @pytest.mark.parametrize("size", SIZES, ids=[f"{h}x{w}" for h, w in SIZES])
@@ -269,6 +282,88 @@ def test_jpeg_progressive_decoder_equals_opencv(size):
                                       cv2.imdecode(buf, cv2.IMREAD_COLOR), err_msg=what)
 
 
+@pytest.mark.parametrize("name", list(MORE_SAMPLINGS))
+@pytest.mark.parametrize("size", MORE_SIZES, ids=[f"{h}x{w}" for h, w in MORE_SIZES])
+def test_jpeg_440_411_decoder_equals_opencv(size, name):
+    img = _scene(*size, seed=size[0] + size[1])
+    for quality in (50, 95):
+        for prog in ([], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]):
+            ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality,
+                                                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR, MORE_SAMPLINGS[name]] + prog)
+            np.testing.assert_array_equal(jpeg.decode_jpeg(buf.tobytes())[..., ::-1],
+                                          cv2.imdecode(buf, cv2.IMREAD_COLOR),
+                                          err_msg=f"q{quality} {name} progressive={bool(prog)}")
+
+
+def _sof1(data: bytes, precision: int = 8, slots: int = 2) -> bytes:
+    """`data` (a baseline file of one DHT segment per table) with SOF0
+    rewritten to SOF1 at `precision`, and every Huffman table (and each
+    scan component's selector) moved up by `slots`."""
+    out = bytearray(data)
+    pos = 2
+    while pos < len(out):
+        marker = out[pos + 1]
+        length = struct.unpack(">H", bytes(out[pos + 2:pos + 4]))[0]
+        body = pos + 4
+        if marker == 0xC0:
+            out[pos + 1] = 0xC1
+            out[body] = precision
+        elif marker == 0xC4:
+            i = body
+            while i < pos + 2 + length:
+                out[i] += slots
+                i += 17 + sum(out[i + 1:i + 17])
+        elif marker == 0xDA:
+            for k in range(out[body]):
+                out[body + 2 + 2 * k] += (slots << 4) | slots
+            break
+        pos += 2 + length
+    return bytes(out)
+
+
+@pytest.mark.parametrize("size", [(375, 1242), (61, 37), (1, 1)], ids=["375x1242", "61x37", "1x1"])
+def test_jpeg_sof1_decodes_as_baseline(size):
+    """Extended sequential Huffman at 8 bits (SOF1) with the tables in the
+    slots 2 and 3 that only SOF1 may use: cv2 decodes it to the baseline
+    file's pixels, and so does the port; at 12 bits it is refused."""
+    img = _scene(*size, seed=3)
+    for name, samp in SAMPLINGS.items():
+        ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, samp])
+        ext = _sof1(buf.tobytes())
+        assert b"\xff\xc1" in ext and b"\xff\xc0" not in ext
+        ref = cv2.imdecode(buf, cv2.IMREAD_COLOR)
+        np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(ext, np.uint8), cv2.IMREAD_COLOR), ref)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(ext)[..., ::-1], ref, err_msg=name)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(ext), jpeg.decode_jpeg(buf.tobytes()))
+    with pytest.raises(NotImplementedError, match=r"12-bit JPEG \(SOF1\).*ROADMAP.md item 22"):
+        jpeg.decode_jpeg(_sof1(buf.tobytes(), precision=12))
+
+
+def test_vkitti_440_rgb_reads_as_reference(tmp_path):
+    """A Virtual KITTI 2 sequence (the JAX writer) whose rgb frames are all
+    re-encoded 4:4:0: the JAX reader (cv2) and the port's read every frame
+    equal."""
+    import glob
+
+    from dynosam_tpu.dataproviders import fixture_writers as jfw
+    from dynosam_tpu.dataproviders.synthetic_dense import default_dense_scenario
+    from dynosam_tpu.dataproviders.vkitti import VirtualKittiDataProvider as JaxVkitti
+    from dynosam_tpu_torch.dataproviders.vkitti import VirtualKittiDataProvider
+
+    out = str(tmp_path / "vkitti")
+    jfw.write_vkitti_sequence(default_dense_scenario(num_frames=3), out)
+    paths = sorted(glob.glob(os.path.join(out, "**", "rgb_*.jpg"), recursive=True))
+    assert len(paths) == 3
+    for path in paths:
+        ok, buf = cv2.imencode(".jpg", cv2.imread(path), [cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                          cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
+        with open(path, "wb") as f:
+            f.write(buf.tobytes())
+    jr, tr = JaxVkitti(out), VirtualKittiDataProvider(out, device="cpu")
+    for k in range(3):
+        np.testing.assert_array_equal(tr.frame(k).rgb.numpy(), np.asarray(jr.frame(k).rgb), err_msg=f"frame {k}")
+
+
 def test_vkitti_progressive_rgb_reads_as_reference(tmp_path):
     """A Virtual KITTI 2 sequence (the JAX writer) whose frame-1 rgb is
     re-encoded progressive: the JAX reader (cv2) and the port's read the
@@ -299,8 +394,11 @@ def test_jpeg_unsupported_files_raise():
     data = buf.tobytes()
     sof = data.index(b"\xff\xc0")
     arith = data[:sof + 1] + b"\xc9" + data[sof + 2:]            # SOF9: arithmetic coding
-    with pytest.raises(NotImplementedError, match="arithmetic"):
+    with pytest.raises(NotImplementedError, match="arithmetic.*ROADMAP.md item 22"):
         jpeg.decode_jpeg(arith)
+    for marker, kind in ((b"\xc3", "lossless"), (b"\xc5", "hierarchical")):
+        with pytest.raises(NotImplementedError, match=f"{kind}.*ROADMAP.md item 22"):
+            jpeg.decode_jpeg(data[:sof + 1] + marker + data[sof + 2:])
     with pytest.raises(ValueError):
         jpeg.decode_jpeg(b"\x89PNG" + data[4:])
     with pytest.raises(ValueError):

@@ -16,6 +16,7 @@ from dynosam_tpu_torch import bench_config as tbench
 from dynosam_tpu_torch import config as tconfig
 from dynosam_tpu_torch import exp_streaming as tstream
 from dynosam_tpu_torch import make_fixture_sequence as tfixture
+from dynosam_tpu_torch import multichip as tmultichip
 from dynosam_tpu_torch import run_dynosam as trun
 from dynosam_tpu_torch import run_experiments as trx
 from dynosam_tpu_torch import scale_check as tscale
@@ -27,6 +28,7 @@ from dynosam_tpu_torch.dataproviders import simulator as tsim
 from dynosam_tpu_torch.dataproviders import synthetic_dense as tdense
 from dynosam_tpu_torch.nn import bytetrack as tbt
 from dynosam_tpu_torch.nn import detector as tdet
+from dynosam_tpu_torch.parallel import group as tgroup
 from dynosam_tpu_torch.pipeline import pipeline as tpipe
 from torch_port_util import port_cfg, small_cfg
 
@@ -126,7 +128,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("module", [tstream, tfixture], ids=lambda m: m.__name__.split(".")[-1])
+@pytest.mark.parametrize("module", [tstream, tfixture, tmultichip, tgroup], ids=lambda m: m.__name__.split(".")[-1])
 def test_import_scan_covers_the_script_ports(module):
     assert os.path.realpath(module.__file__) in {os.path.realpath(p) for p in _port_sources()}
 
@@ -159,6 +161,8 @@ def test_port_sources_load_no_native_library():
     tstream.scenario,
     tstream.run_mode,
     tfixture.write_fixture,
+    tgroup.init_group,
+    tgroup.spawn,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(entry):
     default = inspect.signature(entry).parameters["device"].default
@@ -189,7 +193,8 @@ def test_command_line_defaults_to_the_card():
     assert _argparse_defaults(trun.main)["device"] == "cuda"
 
 
-@pytest.mark.parametrize("module", [tstream, tfixture, tscale, trx, ttrain], ids=lambda m: m.__name__.split(".")[-1])
+@pytest.mark.parametrize("module", [tstream, tfixture, tscale, trx, ttrain, tmultichip],
+                         ids=lambda m: m.__name__.split(".")[-1])
 def test_script_ports_default_to_the_card(module):
     """The ports of the reference's scripts take --device, default cuda."""
     assert _argparse_defaults(module.main)["device"] == "cuda"
