@@ -92,10 +92,14 @@ def bench_config():
     return cfg, intr
 
 
-def _bench_spec(num_frames):
+# the bench camera's forward step, m per frame (bench.py::make_frames)
+BENCH_FORWARD_M = 0.8
+
+
+def _bench_spec(num_frames, forward_m=BENCH_FORWARD_M):
     return ScenarioSpec(
         num_frames=num_frames,
-        camera_motion_xi=np.array([0.0, 0.004, 0.0, 0.0, 0.0, 0.8]),
+        camera_motion_xi=np.array([0.0, 0.004, 0.0, 0.0, 0.0, forward_m]),
         objects=[
             ObjectSpec(
                 object_id=1,
@@ -116,11 +120,12 @@ def _bench_spec(num_frames):
     )
 
 
-def bench_scene(intr, num_frames=10, device="cuda", world_texture=False) -> DenseScenario:
-    """The benchmark's synthetic scene: camera driving forward with a slight
-    yaw, three objects on the road; `world_texture` anchors the texture to
-    the surfaces (the KLT path's frames)."""
-    return DenseScenario(_bench_spec(num_frames), intr, ground_y=1.6, far_depth=60.0,
+def bench_scene(intr, num_frames=10, device="cuda", world_texture=False,
+                forward_m=BENCH_FORWARD_M) -> DenseScenario:
+    """The benchmark's synthetic scene: camera driving forward `forward_m`
+    per frame with a slight yaw, three objects on the road; `world_texture`
+    anchors the texture to the surfaces (the KLT path's frames)."""
+    return DenseScenario(_bench_spec(num_frames, forward_m), intr, ground_y=1.6, far_depth=60.0,
                          object_half_extents=[(1.6, 1.6)] * 3, world_texture=world_texture,
                          device=device)
 

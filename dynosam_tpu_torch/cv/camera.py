@@ -70,6 +70,11 @@ def depth_to_disparity(depth, intr: CameraIntrinsics):
     return intr.fx * intr.baseline / torch.clamp(depth, min=1e-6)
 
 
+def disparity_to_depth(disparity, intr: CameraIntrinsics):
+    """Virtual disparity (px) -> metric depth fx * baseline / disparity."""
+    return intr.fx * intr.baseline / torch.clamp(disparity, min=1e-6)
+
+
 def in_image(uv, intr: CameraIntrinsics, border: float = 0.0):
     """Containment mask of pixels (..., 2) in the image."""
     return (

@@ -24,7 +24,8 @@ the CPU.
 
 No failure is caught: a rank that raises ends the run with a non-zero exit.
 Prints the reference's OK line, the largest differences, each rank's wall
-seconds and the ms of a steady step per rank, and K1b's launches per rank.
+seconds, the ms of a steady step and torch's intra-op thread count per
+rank, and K1b's launches per rank.
 
 Usage: python -m dynosam_tpu_torch.multichip [--ranks N] [--backend nccl|gloo]
        [--device cuda|cpu] [--sequences 8] [--frames 12] [--seed 0]
@@ -49,13 +50,16 @@ from dynosam_tpu_torch.parallel import group as grp
 # sharded against unsharded outputs, largest |difference| (ids and flags
 # equal). The reference holds its mesh run to rtol = atol = 2e-4
 # (dryrun_multichip_worker.py). On the CPU every output of the port reads 0
-# (bench_config, 8 sequences over 2 ranks, 12 frames). On the H100 a rank's
-# batch of B/P takes other cuBLAS / cuSOLVER batched kernels than the
-# batch of B, and the rounding the motion solvers amplify parts them:
-# camera poses 7.6e-6, object motions 5.6e-4 (gloo, 2 ranks; the
-# unsharded B=8 run itself repeats bit for bit). Bounds: poses at the
-# reference's 2e-4, motions ~10x the card's reading.
-SHARD_BOUNDS = {"X_world_cam": 2e-4, "frontend_pose": 2e-4, "object_motions": 5e-3}
+# (bench_config, 8 sequences over 2 ranks, 12 frames). On the H100 (gloo, 2
+# ranks) camera poses read 7.6e-6 and object motions 5.5695e-4; the
+# unsharded B=8 run repeats bit for bit. The cause is torch's CUDA sum over
+# a batch, not rows mixing (scripts/bisect_torch_batch.py): the camera
+# refit's weighted point sum over (B, 800, 3) (ops/kabsch.py::
+# solve_rigid_quat) rounds a row of a batch of 4 otherwise than the same
+# row of a batch of 8 from frame 1 (one ulp), and the motion solvers carry
+# it to 5.5695e-4 m at the first window advance. Bounds: poses at the
+# reference's 2e-4, motions ~3x the card's reading.
+SHARD_BOUNDS = {"X_world_cam": 2e-4, "frontend_pose": 2e-4, "object_motions": 1.7e-3}
 # sharded_optimize against chunked_optimize (tests/test_sharded.py's
 # sharded-vs-unsharded bounds) and sharded_linearize against
 # chunked_linearize (relative to the largest entry)
@@ -230,7 +234,8 @@ def batched_rank(group, cfg, intr, frames, seed=0, draws=None, reference=True):
     wall = time.perf_counter() - t0
     launches = _counts()
     res = {"rank": group.rank, "device": str(device), "backend": group.backend, "launches": launches,
-           "rows": B // group.world, "setup_s": setup, "wall_s": wall, "times": times,
+           "threads": torch.get_num_threads(), "rows": B // group.world, "setup_s": setup, "wall_s": wall,
+           "times": times,
            "step_ms": _steady_ms(times, cfg.backend.max_frames)}
     gathered = [gather_outputs(o, group) for o in outs]
     if group.rank == 0:
@@ -290,8 +295,8 @@ def sharded_rank(group, state, cfg, iterations=ITERATIONS, reference=True, lam=L
     wall = time.perf_counter() - t0
     merged = sharded.gather_state(out, group)
     res = {"rank": group.rank, "device": str(device), "backend": group.backend, "spread": spread,
-           "build_s": build, "optimize_s": wall, "iteration_ms": wall / iterations * 1e3,
-           "landmarks": (out.Ls, out.Ld)}
+           "threads": torch.get_num_threads(), "build_s": build, "optimize_s": wall,
+           "iteration_ms": wall / iterations * 1e3, "landmarks": (out.Ls, out.Ld)}
     if group.rank == 0:
         res.update(S=S, rhs=rhs, X=merged.X, H=merged.H, ms=merged.ms, m_hyb=merged.m_hyb,
                    finite=bool(torch.isfinite(merged.X).all() and torch.isfinite(merged.ms).all()
@@ -373,13 +378,15 @@ def report(batched: list, sharded: list, ranks: int, frames: int) -> list:
         lines.append(f"batched: sharded vs unsharded max diffs {r0['diffs']} (bounds {SHARD_BOUNDS}); "
                      f"unsharded step {r0['reference_step_ms']:.2f} ms")
     for r in batched:
-        lines.append(f"  rank {r['rank']} ({r['device']}, {r['rows']} sequences): set-up {r['setup_s']:.2f} s, wall "
+        lines.append(f"  rank {r['rank']} ({r['device']}, {r['rows']} sequences, {r['threads']} threads): set-up "
+                     f"{r['setup_s']:.2f} s, wall "
                      f"{r['wall_s']:.2f} s, steady step {r['step_ms']:.2f} ms, launches {r['launches']}"
                      + (f", unsharded run {r['reference_s']:.2f} s" if "reference_s" in r else ""))
     lines.append(f"sharded_optimize ({ITERATIONS} iterations, landmarks {s0['landmarks']} per rank)"
                  + (f": vs chunked {s0['diffs']}" if "diffs" in s0 else ""))
     for r in sharded:
-        lines.append(f"  rank {r['rank']} ({r['device']}): spread from rank 0 {r['spread']}, graph "
+        lines.append(f"  rank {r['rank']} ({r['device']}, {r['threads']} threads): spread from rank 0 {r['spread']}, "
+                     f"graph "
                      f"{r['build_s']:.2f} s, wall {r['optimize_s']:.2f} s, {r['iteration_ms']:.2f} ms per iteration"
                      + (f", chunked run {r['reference_s']:.2f} s" if "reference_s" in r else ""))
     return lines

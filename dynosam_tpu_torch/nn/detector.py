@@ -52,6 +52,14 @@ CKPT_PATH = os.path.join(
 )
 
 
+def load_checkpoint(path: str = CKPT_PATH):
+    """-> (params, meta) for the committed YOLOv8-seg checkpoint: params the
+    port's YoloV8Seg state_dict (float32 tensors on the CPU), meta its
+    json."""
+    model, meta = load_flax_checkpoint(path)
+    return model.state_dict(), meta
+
+
 def resize_image(img, hw):
     """(H, W, C) float image -> (h, w, C), bilinear with antialiasing when
     it shrinks (jax.image.resize "bilinear" semantics)."""

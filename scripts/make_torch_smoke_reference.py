@@ -143,6 +143,11 @@ dynosam_tpu_torch/testdata/:
   * progressive_1242x375.jpg and progressive_1242x375_cv2.npz (--only
     progressive) — a synthetic frame cv2 wrote as a progressive JPEG, and
     cv2's decode of it.
+  * --only tracked_step writes nothing (and runs only when named): the
+    KLT and stereo + IMU runs above on the bench scene with only the
+    camera's forward step changed (each of --steps, m per frame), printing
+    the reference's per-frame and worst error against the ground truth and
+    the largest step over which both stay within 0.05 m / 0.01 rad.
   * streaming_ref_20f.npz (--only streaming) — scripts/exp_streaming.py
     run as it is at its defaults (20 frames, window 8, modes 0, 1, 2, 10
     LM iterations), its Scenario's draws, the noisy packets and each mode's
@@ -151,8 +156,9 @@ dynosam_tpu_torch/testdata/:
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
     [--only bench|detector|kitti|klt|stereo_imu|forms|forms_kitti|batched|batched_forms|batched_modes|pipelined|
             datasets|heldout|rich|rich_matrix|rich_seeds|rich_draws|rich_frontend|sweep|det_acc|det_pipe|
-            progressive|experiments|train|scale|streaming]
+            progressive|experiments|train|scale|streaming|tracked_step]
     [--cells incremental_0,...] [--seeds 1,2,...]   (rich_seeds only)
+    [--steps 0.4,0.3,0.2]                            (tracked_step only)
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
 after it; the forms files' CPU time is in CHANGES.md)
@@ -224,6 +230,10 @@ BATCHED_MODES_FRAMES = 14     # the window fills, then advances 4 times
 BATCHED_BYTETRACK_OUT = os.path.join(TESTDATA, f"bench_batched_bytetrack_ref_b8_{BATCHED_MODES_FRAMES}f.npz")
 BATCHED_STEREO_IMU_OUT = os.path.join(TESTDATA, f"bench_batched_stereo_imu_ref_b8_{BATCHED_MODES_FRAMES}f.npz")
 PIPELINED_OUT = os.path.join(TESTDATA, "bench_pipelined_ref_20f.npz")
+# the bench scene with only the camera's forward step cut, m per frame, tried
+# largest first for a scene the reference tracks (--only tracked_step)
+TRACKED_STEPS = (0.4, 0.3, 0.2)
+GT_TRANS_M, GT_ROT_RAD = 0.05, 0.01      # chip_smoke.py's ground-truth bounds
 DATASETS_OUT = os.path.join(TESTDATA, "datasets_ref_12f.npz")
 HELDOUT_OUT = os.path.join(TESTDATA, "det_heldout_ref_48.npz")
 HELDOUT_SCENES = 48
@@ -323,18 +333,17 @@ def klt_reference():
     _save(KLT_OUT, _run(step, state, frames, track_counts=True), t0)
 
 
-def _stereo_imu_frames(intr, n):
-    """frame(k) of the port's bench scene, world-textured, rendered by the
-    JAX package over `n` frames: the right image at +baseline along camera
-    x, the provided depth corrupted by DEPTH_CORRUPTION and the
-    IMU_SAMPLES-sample window of the interval before it."""
-    import jax.numpy as jnp
-
+def _jax_bench_scene(intr, n, forward_m=None):
+    """The port's world-textured bench scene over `n` frames (at the bench
+    camera's forward step, or at `forward_m` per frame), rendered by the JAX
+    package."""
     from dynosam_tpu.dataproviders.simulator import ObjectSpec, ScenarioSpec
     from dynosam_tpu.dataproviders.synthetic_dense import DenseScenario
     from dynosam_tpu_torch import bench_config as tbench
 
-    tscene = tbench.bench_scene(tbench.bench_config()[1], n, device="cpu", world_texture=True)
+    tintr = tbench.bench_config()[1]
+    tscene = tbench.bench_scene(tintr, n, device="cpu", world_texture=True,
+                                forward_m=tbench.BENCH_FORWARD_M if forward_m is None else forward_m)
     sp = tscene.scn.spec
     spec = ScenarioSpec(
         num_frames=sp.num_frames, num_static=0, camera_motion_xi=sp.camera_motion_xi,
@@ -342,8 +351,19 @@ def _stereo_imu_frames(intr, n):
         objects=[ObjectSpec(object_id=o.object_id, initial_pose_xi=o.initial_pose_xi,
                             motion_xi=o.motion_xi, num_points=0) for o in sp.objects],
     )
-    scene = DenseScenario(spec, intr, ground_y=tscene.ground_y, far_depth=tscene.far_depth,
-                          world_texture=True, object_half_extents=tscene.obj_extents)
+    return DenseScenario(spec, intr, ground_y=tscene.ground_y, far_depth=tscene.far_depth,
+                         world_texture=True, object_half_extents=tscene.obj_extents)
+
+
+def _stereo_imu_frames(intr, n, scene=None):
+    """frame(k) of the port's bench scene, world-textured, rendered by the
+    JAX package over `n` frames (or of the JAX `scene` given): the right
+    image at +baseline along camera x, the provided depth corrupted by
+    DEPTH_CORRUPTION and the IMU_SAMPLES-sample window of the interval
+    before it."""
+    import jax.numpy as jnp
+
+    scene = scene or _jax_bench_scene(intr, n)
     T_lr = jnp.eye(4).at[0, 3].set(float(intr.baseline))
 
     def frame(k):
@@ -422,6 +442,69 @@ def batched_modes_reference():
     frame = _stereo_imu_frames(intr, n + B - 1)
     frames = [frame(k) for k in range(n + B - 1)]
     run(BATCHED_STEREO_IMU_OUT, tcfg, intr, [stack(frames[k:k + B]) for k in range(n)], {})
+
+
+def _gt_errors(X, X_gt):
+    """(translation m, rotation rad) of each pose of X (frames, 4, 4)
+    against the ground truth X_gt, in float64."""
+    import numpy as np
+
+    X, X_gt = np.asarray(X, np.float64), np.asarray(X_gt, np.float64)
+    return np.linalg.norm(X[:, :3, 3] - X_gt[:, :3, 3], axis=-1), _rot_angle(X[:, :3, :3], X_gt[:, :3, :3])
+
+
+def _worst(name, trans, rot):
+    """Print the reference's worst frame against the ground truth -> whether
+    every frame lies within GT_TRANS_M / GT_ROT_RAD."""
+    ok = bool(trans.max() <= GT_TRANS_M and rot.max() <= GT_ROT_RAD)
+    print(f"  {name}: the JAX reference vs ground truth, worst frame {int(trans.argmax())} "
+          f"{float(trans.max()):.4e} m, worst frame {int(rot.argmax())} {float(rot.max()):.4e} rad "
+          f"({'within' if ok else 'OUTSIDE'} {GT_TRANS_M} m / {GT_ROT_RAD} rad in every frame)", flush=True)
+    return ok
+
+
+def _tracked_fused(forward_m, stereo_imu):
+    """The fused step on the bench scene at `forward_m` per frame: KLT over
+    KLT_FRAMES frames, or stereo + IMU over STEREO_IMU_FRAMES -> (outputs as
+    the KLT files', with the reference's per-frame ground-truth errors
+    gt_trans / gt_rot and forward_m; whether every frame lies within the
+    ground-truth bounds)."""
+    import jax
+    import numpy as np
+
+    from dynosam_tpu.parallel.batched import init_pipeline_state, make_fused_step
+
+    n = STEREO_IMU_FRAMES if stereo_imu else KLT_FRAMES
+    cfg, intr = _klt_cfg(**({"frontend.use_imu": True, "frontend.imu.use_rotation_prior": True}
+                            if stereo_imu else {}))
+    scene = _jax_bench_scene(intr, n, forward_m)
+    frame = _stereo_imu_frames(intr, n, scene=scene) if stereo_imu else scene.frame
+    step = jax.jit(make_fused_step(cfg, intr))
+    state = init_pipeline_state(cfg, image_shape=(intr.height, intr.width))
+    out = _run(step, state, [frame(k) for k in range(n)], track_counts=True)
+    out["gt_trans"], out["gt_rot"] = _gt_errors(out["X_world_cam"], scene.scn.X_gt)
+    out["forward_m"] = np.float64(forward_m)
+    name = f"{'stereo + IMU' if stereo_imu else 'KLT'}, {n} frames, {forward_m} m per frame"
+    print(f"  {name}: per frame, m: {' '.join(f'{x:.4f}' for x in out['gt_trans'])}; valid static "
+          f"tracks: {' '.join(str(int(x)) for x in out['n_static'])}", flush=True)
+    return out, _worst(name, out["gt_trans"], out["gt_rot"])
+
+
+def tracked_step_check(steps=TRACKED_STEPS):
+    """Writes nothing: the JAX reference's worst frame against the ground
+    truth on the KLT and stereo + IMU paths at each forward step of `steps`
+    -> the largest step over which both stay within GT_TRANS_M /
+    GT_ROT_RAD in every frame (None if none does)."""
+    chosen = None
+    for forward_m in sorted(steps, reverse=True):
+        t0 = time.time()
+        ok = all([_tracked_fused(forward_m, stereo_imu)[1] for stereo_imu in (False, True)])
+        print(f"forward step {forward_m} m: {'tracked on both paths' if ok else 'lost'} "
+              f"({time.time() - t0:.1f} s)", flush=True)
+        if ok and chosen is None:
+            chosen = forward_m
+    print(f"largest tracked forward step: {chosen}", flush=True)
+    return chosen
 
 
 def detector_reference():
@@ -1633,13 +1716,14 @@ def main():
     parts = ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "batched_forms", "batched_modes",
              "pipelined", "datasets", "heldout", "rich", "rich_matrix", "rich_seeds", "rich_draws", "sweep",
              "det_acc", "det_pipe", "forms_kitti", "progressive", "rich_frontend", "experiments", "train", "scale",
-             "streaming"]
+             "streaming", "tracked_step"]
     ap.add_argument("--only", choices=parts, action="append", help="write only these files (default: all)")
     ap.add_argument("--cells", help="rich_seeds: comma-separated cells (default: RICH_SEED_CELLS)")
     ap.add_argument("--seeds", help="rich_seeds / experiments: comma-separated seeds (default: RICH_SEEDS by "
                                     "mode / EXP_SEEDS)")
+    ap.add_argument("--steps", help="tracked_step: comma-separated forward steps, m (default: TRACKED_STEPS)")
     args = ap.parse_args()
-    todo = args.only or parts
+    todo = args.only or [p for p in parts if p != "tracked_step"]
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -1694,6 +1778,8 @@ def main():
         det_pipe_reference()
     if "progressive" in todo:
         progressive_reference()
+    if "tracked_step" in todo:
+        tracked_step_check(tuple(float(x) for x in args.steps.split(",")) if args.steps else TRACKED_STEPS)
 
 
 if __name__ == "__main__":

@@ -441,3 +441,31 @@ def test_streaming_mode_on_the_card_matches_the_reference(cuda):
     assert sorted(es.motion_errors(be, scn)) == sorted(keys)
     for key, H in zip(keys, ref["2_motion_H"]):
         np.testing.assert_allclose(be.motion_at(*key), H, rtol=0, atol=chip_smoke.STREAMING_BOUNDS["motion_m"])
+
+
+def test_point_sum_rounds_by_batch_size(cuda):
+    """The first operation whose rows part between the batched step at B=4
+    and rows 0-3 of the same step at B=8 (scripts/bisect_torch_batch.py,
+    bench_config, frame 1): the camera refit's weighted point sum,
+    `torch.sum(p * w, dim=-2)` over (B, 800, 3) in ops/kabsch.py::
+    solve_rigid_quat. torch's CUDA reduction splits the 800 terms by a launch
+    shape that depends on how many sums it makes (B x 3), so a row of a
+    batch of 4 rounds otherwise than the same row of a batch of 8. Each is
+    a float32 sum within 1e-5 of the float64 one, and one batch size
+    repeats bit for bit: the library's rounding, not rows mixing. This is
+    what parts the multi-device path's 2 ranks of B=4 from one run of B=8."""
+    B, N = 8, 800
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u = torch.rand((B, N, 3), generator=gen, device="cuda")
+    lo = torch.tensor([-20.0, -2.0, 4.0], device="cuda")
+    hi = torch.tensor([20.0, 2.0, 60.0], device="cuda")
+    p = lo + (hi - lo) * u                                   # the bench scene's range of points
+    w = (torch.rand((B, N, 1), generator=gen, device="cuda") > 0.2).to(torch.float32)
+    pw = p * w
+    s8 = torch.sum(pw, dim=-2)
+    s4 = torch.sum(pw[:4].clone(), dim=-2)
+    assert torch.equal(torch.sum(pw, dim=-2), s8)
+    exact = pw.double().sum(-2)
+    for s, rows in ((s8[:4], exact[:4]), (s4, exact[:4])):
+        assert float(((s.double() - rows).abs() / rows.abs()).max()) < 1e-5
+    assert not torch.equal(s8[:4], s4), "the sums of rows 0-3 rounded alike at B=4 and B=8"

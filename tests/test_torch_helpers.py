@@ -1,11 +1,13 @@
 """The reference's public helpers that no pipeline path calls, each against
 its JAX twin on the same inputs (numpy, `default_rng(0)`): the camera's
-`backproject_uvz`, `bearing`, `depth_to_disparity` and
-`CameraIntrinsics.matrix`; `interp.sample_bilinear` (grey and colour
+`backproject_uvz`, `bearing`, `depth_to_disparity`, `disparity_to_depth`
+and `CameraIntrinsics.matrix`; `interp.sample_bilinear` (grey and colour
 images, points past every border); `kabsch.alignment_error`;
 `yolov8.init_params` / `strides_for` (the port's state dict has the
 reference's parameters name for name and shape for shape, through
-nn/weights.py's flax mapping); `DynoConfig.to_dict`; `TrackTable.empty` /
+nn/weights.py's flax mapping); the detector's `load_checkpoint` (the
+committed checkpoint's parameters, equal leaf for leaf, and its metadata);
+`DynoConfig.to_dict`; `TrackTable.empty` /
 `.capacity`, `VisionPacket.empty`; and `imu.Pim.identity`. Floats within
 1e-6 of the reference's (1e-4 + 1e-5 relative for the bilinear samples of a
 0-255 image, 1e-5 for the alignment errors of 5 m points), integers, bools
@@ -80,6 +82,14 @@ def case_depth_to_disparity(rng):
     _close(tcam.depth_to_disparity(t(depth), ti), jcam.depth_to_disparity(jnp.asarray(depth), ji), rtol=1e-6)
 
 
+def case_disparity_to_depth(rng):
+    ji, ti = _intr()
+    disparity = rng.uniform(0.0, 120.0, (4, 9)).astype(np.float32)
+    disparity[0, :3] = [0.0, 1e-8, -1.0]         # clamped like the reference
+    _close(tcam.disparity_to_depth(t(disparity), ti), jcam.disparity_to_depth(jnp.asarray(disparity), ji),
+           rtol=1e-6)
+
+
 def case_intrinsics_matrix(rng):
     ji, ti = _intr()
     _close(ti.matrix(device="cpu"), ji.matrix())
@@ -128,6 +138,23 @@ def case_yolov8_init_params(rng):
     out = model.eval()(torch.zeros((1, hw[0], hw[1], 3)))
     jout = jmodel.apply(variables, jnp.zeros((1, hw[0], hw[1], 3)))
     assert tuple(out["proto"].shape) == tuple(jout["proto"].shape)
+
+
+def case_detector_load_checkpoint(rng):
+    from dynosam_tpu.nn import detector as jdetector
+    from dynosam_tpu_torch.nn import detector as tdetector
+
+    params, meta = tdetector.load_checkpoint()
+    jparams, jmeta = jdetector.load_checkpoint()
+    assert meta == jmeta
+    ref = tweights.state_dict_from_flax(serialization.to_state_dict(jparams))
+    got = {k: v for k, v in params.items() if not k.endswith("num_batches_tracked")}
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].dtype == torch.float32 and got[k].device.type == "cpu", k
+        _close(got[k], ref[k].numpy(), atol=0.0)
+    model = tyolo.YoloV8Seg(num_classes=meta["num_classes"], scale=meta["scale"])
+    model.load_state_dict(params, strict=True)
 
 
 def case_config_to_dict(rng):

@@ -256,6 +256,56 @@ def test_fused_step_klt_mode_matches_reference(monkeypatch):
                         atol=0.0)
 
 
+# the bench scene, world-textured, at the smallest forward step tried for a
+# scene the reference tracks (scripts/make_torch_smoke_reference.py
+# TRACKED_STEPS), on the bench camera scaled to 320x96
+CUT_STEP_M = 0.2
+CUT_STEP_HW = (96, 320)
+CUT_STEP_WINDOW = 3
+CUT_STEP_FRAMES = 6
+# port against JAX on identical frames and draws, largest over the frames:
+# measured 7.3e-5 m (pose elements; the gap grows by ~2e-5 per advance),
+# motions 4.4e-4; the bounds ~5x that
+CUT_STEP_POSE = 5e-4
+CUT_STEP_MOTION = 2e-3
+
+
+def test_fused_step_klt_cut_step_scene_matches_reference(monkeypatch):
+    """The KLT fused step on the bench scene's objects and texture with the
+    camera's forward step cut to CUT_STEP_M, at 320x96 with few slots and a
+    3-frame window: the window advances three times (frames 3-5), and in
+    every frame the poses, motions and track flags follow JAX's."""
+    h, w = CUT_STEP_HW
+    _, intr = tbench.bench_config()
+    s = w / intr.width
+    intr = dataclasses.replace(intr, fx=intr.fx * s, fy=intr.fy * s, cx=w / 2, cy=h / 2, width=w, height=h)
+    td = tbench.bench_scene(intr, CUT_STEP_FRAMES, device="cpu", world_texture=True, forward_m=CUT_STEP_M)
+    jd = jax_dense(td)
+    cfg = small_cfg(max_frames=CUT_STEP_WINDOW).with_overrides(
+        {"frontend.tracker.prefer_provided_optical_flow": False})
+    tcfg = port_cfg(cfg)
+    js = jbatched.init_pipeline_state(cfg, image_shape=(h, w))
+    ts = tbatched.init_pipeline_state(tcfg, "cpu", image_shape=(h, w))
+    inject_draws(monkeypatch, reference_draws(js.frontend.key, cfg.frontend, CUT_STEP_FRAMES))
+    jstep = jax.jit(jbatched.make_fused_step(cfg, jd.intr))
+    tstep = tbatched.make_fused_step(tcfg, td.intr)
+    n_motions = 0
+    for k in range(CUT_STEP_FRAMES):
+        jf = jd.frame(k)
+        js, jo = jstep(js, jf)
+        ts, to = tstep(ts, _port_frame(td, k, jf))
+        np.testing.assert_allclose(to["X_world_cam"].numpy(), np.asarray(jo["X_world_cam"]), atol=CUT_STEP_POSE)
+        v = np.asarray(jo["object_motion_valid"])
+        np.testing.assert_array_equal(to["object_motion_valid"].numpy(), v)
+        np.testing.assert_allclose(to["object_motions"].numpy()[v], np.asarray(jo["object_motions"])[v],
+                                   atol=CUT_STEP_MOTION)
+        n_motions += int(v.sum())
+        trk = np_tree(js)["frontend"]["tracker"]
+        for key in ("s_valid", "d_valid"):
+            np.testing.assert_array_equal(getattr(ts.frontend.tracker, key).numpy(), trk[key], err_msg=f"{key} {k}")
+    assert n_motions > 0 and ts.graph.num_frames == CUT_STEP_WINDOW and bool(ts.graph.prior_valid)
+
+
 def test_convert_round_trip():
     cfg = small_cfg()
     js = jbatched.init_pipeline_state(cfg)
