@@ -77,6 +77,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
      path is, and the valid static tracks' depths to the true depth (stereo
      repairs the corruption). Both phases print the median host time per
      frame, the first frame's and the host syncs per frame with their sites;
+  6t, 7t. the KLT and stereo + IMU paths of phases 6 and 7 on
+     bench_config.tracked_scene (the camera raised to 6.4 m and stepping
+     0.4 m per frame, where the reference keeps the camera), rendered on the
+     host and run on the card; held in every frame to
+     tracked_klt_ref_20f.npz / tracked_stereo_imu_ref_12f.npz (the JAX
+     reference on the port's host render) at TRACKED_REF_BOUNDS, and to the
+     ground truth no further than the reference's own error plus
+     GT_TRANS_M / GT_ROT_RAD; fused K1 once per frame, the map entry never;
   8. detector path: 24 frames of detector_scene() through YOLOv8-seg (the
      label image by K2's entry B) -> ByteTrack relabelling -> fused step at
      detector_config(); the fused K1 and K2's entry B must each launch once
@@ -137,6 +145,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
      motions where settled; WCPE's sequences 5 and 6 to the ground truth
      only, BATCHED_REF_EXCLUDED), with ms per advancing frame, aggregate
      frames/s and host syncs per frame with their sites (not profiled);
+  11c. batched stereo + IMU on the tracked scene: phase 14's stereo + IMU
+     mode (B=8, 14 frames per sequence) on bench_config.tracked_scene,
+     rendered on the host, held to tracked_batched_stereo_imu_ref_b8_14f.npz
+     at BATCHED_MODE_BOUNDS["stereo_imu_tracked"]; K1b once per frame for
+     all 8 sequences, the map entry never;
   12. datasets: each of the seven on-disk formats (dyno-KITTI with png
      masks, Virtual KITTI 2, OMD, TartanAir-Shibuya, VIODE, ClusterSlam,
      Aria; bench_config.DATASET_FORMATS) written by the port's writers at
@@ -335,6 +348,30 @@ IMU_SAMPLES = 32
 KLT_REF_BOUNDS = {
     "klt": {"ref_m": 0.03, "ref_rad": 2e-3, "motion_m": 0.01, "count_rel": 0.02},
     "stereo_imu": {"ref_m": 0.5, "ref_rad": 0.015, "motion_m": 0.01, "count_rel": 0.03},
+}
+# Phases 6t and 7t: the same two paths on bench_config.tracked_scene, where
+# the reference keeps the camera (worst frame 0.0908 m / 1.2e-3 rad on KLT,
+# 0.0426 m / 1.1e-3 rad on stereo + IMU). The KLT path follows the last bits
+# of its input images, in JAX too: JAX on the port's render parts from JAX
+# on its own render by 3.99e-2 m over 20 frames (the renders differ by
+# ~1e-5 in RGB), as far as the port does, and one f32 ulp on every RGB value
+# moves JAX by up to 1.35e-3 m / 2.1e-5 rad on KLT and 3.3e-4 m / 5.0e-6 rad
+# on stereo + IMU (scripts/probe_torch_klt_parting.py). So the references
+# run JAX on the port's host render, the phases render on the host too, and
+# the pose bounds cover that one-ulp spread. Largest over the frames, torch
+# on the CPU (4 threads) / the H100 (80GB HBM3, 700 W):
+#   klt         poses 4.23e-5 / 2.06e-4 m, 2.0e-6 / 9.1e-6 rad; motions
+#               3.48e-3 / 9.3e-5 m over 8 (the object RANSAC's draws decide
+#               it: --seed 1 and 2 read 8.5e-5 / 4.3e-5 m on the CPU);
+#               counts equal on both
+#   stereo_imu  poses 6.32e-5 / 2.55e-5 m, 1.5e-6 / 5.6e-6 rad; motions
+#               4.05e-3 / 3.6e-4 m over 6 (seeds 1, 2: 3.7e-4 / 2.5e-4 m);
+#               counts equal; depth median relative error 0.130% on both
+# Pose bounds ~1.5x the one-ulp spread (~10x / ~8x the larger reading),
+# rotation and motion bounds ~5x the larger reading, counts 1%.
+TRACKED_REF_BOUNDS = {
+    "klt": {"ref_m": 2e-3, "ref_rad": 5e-5, "motion_m": 0.02, "count_rel": 0.01},
+    "stereo_imu": {"ref_m": 5e-4, "ref_rad": 3e-5, "motion_m": 0.02, "count_rel": 0.01},
 }
 # stereo must repair the 1.15x corrupted depth: the median relative error of
 # the valid static tracks' depths against the true depth, over frames 1..,
@@ -614,6 +651,16 @@ BATCHED_MODE_BOUNDS = {
                   "motion_m": 1e-3, "count_rel": 0.01},
     "stereo_imu": {"gt_excess_m": GT_TRANS_M, "gt_excess_rad": GT_ROT_RAD, "ref_m": 0.05, "ref_rad": 2.5e-3,
                    "motion_m": 0.04, "count_rel": 0.01, "depth_relerr": STEREO_DEPTH_RELERR},
+    # phase 11c, stereo_imu on bench_config.tracked_scene rendered on the
+    # host (tracked_batched_stereo_imu_ref_b8_14f.npz, JAX on the port's
+    # host render; the reference's own error 0.133 m / 1.9e-3 rad, the
+    # 1.15x depth's scale drift): torch on the CPU (4 threads) / the H100
+    # read GT 7.4e-4 / 9.9e-4 m past the reference's own; JAX ref 9.44e-4 /
+    # 1.10e-3 m, 6.7e-6 / 1.5e-5 rad; settled motions 6.1e-5 / 7.7e-5 m over
+    # 110; counts equal; depth median relative error 0.111% on both. The
+    # bounds ~5x the larger reading, counts 1%.
+    "stereo_imu_tracked": {"gt_excess_m": GT_TRANS_M, "gt_excess_rad": GT_ROT_RAD, "ref_m": 5e-3, "ref_rad": 1e-4,
+                           "motion_m": 4e-4, "count_rel": 0.01, "depth_relerr": STEREO_DEPTH_RELERR},
 }
 # tooling phase: the entry point with --viz over the first TOOLING_FRAMES
 # fixture frames; each Motion-JPEG frame is its PNG's own JPEG (quality 95)
@@ -1387,11 +1434,13 @@ def run_pipelined_path(torch, seed, ref_path, device="cuda"):
     return launches
 
 
-def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False):
+def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False, tracked=False):
     """The fused step tracking by KLT on the world-textured bench scene; with
     stereo_imu, under stereo_imu_config() on frames that carry a right
-    image, a corrupted depth and an IMU window -> (launches, readings
-    against the ground truth and the JAX reference, the phase's line)."""
+    image, a corrupted depth and an IMU window; with `tracked` on
+    bench_config.tracked_scene, rendered on the host as its reference's
+    frames were -> (launches, readings against the ground truth and the JAX
+    reference, the phase's line)."""
     import numpy as np
 
     from dynosam_tpu_torch import bench_config as bc
@@ -1400,11 +1449,15 @@ def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False):
     from dynosam_tpu_torch.utils import lie
 
     n = STEREO_IMU_FRAMES if stereo_imu else KLT_FRAMES
-    name = "stereo_imu" if stereo_imu else "klt"
+    name = ("stereo_imu" if stereo_imu else "klt") + ("_tracked" if tracked else "")
     cfg, intr = bc.stereo_imu_config() if stereo_imu else bc.bench_klt_config()
-    scene = bc.bench_scene(intr, n, device=device, world_texture=True)
-    frames = [bc.stereo_imu_frame(scene, k, IMU_SAMPLES) if stereo_imu else scene.frame(k)
+    if tracked:
+        scene = bc.tracked_scene(intr, n, device="cpu")
+    else:
+        scene = bc.bench_scene(intr, n, device=device, world_texture=True)
+    frames = [(bc.stereo_imu_frame(scene, k, IMU_SAMPLES) if stereo_imu else scene.frame(k)).to(device)
               for k in range(n)]
+    X_gt = scene.scn.X_gt.to(device)
     step = make_fused_step(cfg, intr, torch.Generator(device=device).manual_seed(seed))
     state = init_pipeline_state(cfg, device, image_shape=(intr.height, intr.width))
 
@@ -1424,10 +1477,12 @@ def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False):
     syncs = None if sync.count is None else sum(sites.values())
 
     ref = np.load(ref_path)
+    if tracked and (float(ref["ground_y"]), float(ref["forward_m"])) != (bc.TRACKED_GROUND_Y, bc.TRACKED_FORWARD_M):
+        raise AssertionError(f"{name}: {ref_path} holds another scene ({float(ref['ground_y'])} m up, "
+                             f"{float(ref['forward_m'])} m per frame)")
     X = torch.stack([o["X_world_cam"] for o in outs])
-    rot, trans = rot_trans_err(torch, lie, X, scene.scn.X_gt)
-    rot_r, trans_r = rot_trans_err(torch, lie, torch.as_tensor(ref["X_world_cam"], device=device),
-                                   scene.scn.X_gt)
+    rot, trans = rot_trans_err(torch, lie, X, X_gt)
+    rot_r, trans_r = rot_trans_err(torch, lie, torch.as_tensor(ref["X_world_cam"], device=device), X_gt)
     got_counts = np.array([[int(o["after"][0]), int(o["after"][1])] for o in outs])
     ref_counts = np.stack([ref["n_static"], ref["n_dynamic"]], -1)
     rd = {"gt_m": float(trans.max()), "gt_rad": float(rot.max()),
@@ -1444,6 +1499,7 @@ def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False):
         for k, o in enumerate(outs[1:], start=1):
             _, _, uv, depth, valid = o["after"]
             true_depth, _ = scene._depth_mask(scene.scn.X_gt[k], [L[k] for L in scene.scn.L_gt])
+            true_depth = true_depth.to(device)
             H, W = true_depth.shape
             iu = torch.clamp(torch.round(uv[:, 0]).long(), 0, W - 1)
             iv = torch.clamp(torch.round(uv[:, 1]).long(), 0, H - 1)
@@ -1454,7 +1510,9 @@ def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False):
         rd["depth_tracks"] = int(errs.numel())
         rd["depth_relerr"] = float(torch.median(errs)) if errs.numel() else float("inf")
     line = (f"{name} path: {n} frames of {'stereo_imu_config' if stereo_imu else 'bench_klt_config'} "
-        f"(KLT + CLAHE{', stereo, IMU rotation prior' if stereo_imu else ''}) on {frames[0].depth.device}, "
+        f"(KLT + CLAHE{', stereo, IMU rotation prior' if stereo_imu else ''}) on {frames[0].depth.device}"
+        + (f", tracked_scene ({bc.TRACKED_GROUND_Y} m up, {bc.TRACKED_FORWARD_M} m per frame, rendered on the "
+           f"host)" if tracked else "") + ", "
         f"fused K1 launches {launches}, map entry {map_launches}; camera vs GT max {rd['gt_m']:.2e} m / "
         f"{rd['gt_rad']:.2e} rad (the JAX ref's own {rd['ref_gt_m']:.2e} m / {rd['ref_gt_rad']:.2e} rad, "
         f"the port at most {rd['gt_excess_m']:.2e} m / {rd['gt_excess_rad']:.2e} rad past it in any frame); vs JAX ref max {rd['ref_m']:.2e} m / {rd['ref_rad']:.2e} rad; "
@@ -1471,13 +1529,13 @@ def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False):
     return {"K1": launches, "K1 map": map_launches}, rd, line
 
 
-def run_klt_path(torch, seed, ref_path, device="cuda", stereo_imu=False):
-    """Phases 6 and 7: klt_readings held to KLT_REF_BOUNDS, the ground truth
-    (past the reference's own error) and, with stereo, the depth repair ->
-    launches."""
-    launches, rd, line = klt_readings(torch, seed, ref_path, device, stereo_imu)
+def run_klt_path(torch, seed, ref_path, device="cuda", stereo_imu=False, tracked=False):
+    """Phases 6 and 7 (and, `tracked`, 6t and 7t): klt_readings held to
+    KLT_REF_BOUNDS (TRACKED_REF_BOUNDS), the ground truth (past the
+    reference's own error) and, with stereo, the depth repair -> launches."""
+    launches, rd, line = klt_readings(torch, seed, ref_path, device, stereo_imu, tracked)
     name = "stereo_imu" if stereo_imu else "klt"
-    b = KLT_REF_BOUNDS[name]
+    b = (TRACKED_REF_BOUNDS if tracked else KLT_REF_BOUNDS)[name]
     checks = {"ref_m": b["ref_m"], "ref_rad": b["ref_rad"], "motion_m": b["motion_m"],
               "count_rel": b["count_rel"], "gt_excess_m": max(GT_TRANS_M, b["ref_m"]),
               "gt_excess_rad": max(GT_ROT_RAD, b["ref_rad"])}
@@ -2215,13 +2273,15 @@ def run_batched_path(torch, seed, ref_path, device="cuda", smi=""):
     return paths
 
 
-def batched_modes_readings(torch, seed, ref, mode, device="cuda"):
+def batched_modes_readings(torch, seed, ref, mode, device="cuda", tracked=False):
     """make_batched_pipeline over BATCHED_MODES_B sequences in frontend mode
     `mode` of BATCHED_MODES (bench_config.batched_{mode}_config()), sequence
-    b on scene frames b .. b+BATCHED_MODES_FRAMES-1 -> (launches, readings
-    against the ground truth and the JAX reference, per-frame host seconds,
-    host-sync sites, device ops and busy ms per advancing frame and K1b's
-    device ms per launch, the last three None off the card)."""
+    b on scene frames b .. b+BATCHED_MODES_FRAMES-1; stereo_imu with
+    `tracked` on bench_config.tracked_scene, rendered on the host as its
+    reference's frames were -> (launches, readings against the ground truth
+    and the JAX reference, per-frame host seconds, host-sync sites, device
+    ops and busy ms per advancing frame and K1b's device ms per launch, the
+    last three None off the card)."""
     import dataclasses
 
     import numpy as np
@@ -2248,8 +2308,13 @@ def batched_modes_readings(torch, seed, ref, mode, device="cuda"):
             return dataclasses.replace(fr, mask=lut_t[k, b][fr.mask.long()])
     else:
         cfg, intr = bc.batched_stereo_imu_config()
-        scene = bc.bench_scene(intr, n + B - 1, device=device, world_texture=True)
-        frames = [bc.stereo_imu_frame(scene, k, IMU_SAMPLES) for k in range(n + B - 1)]
+        if tracked:
+            if (float(ref["ground_y"]), float(ref["forward_m"])) != (bc.TRACKED_GROUND_Y, bc.TRACKED_FORWARD_M):
+                raise AssertionError("stereo_imu_tracked: the reference file holds another scene")
+            scene = bc.tracked_scene(intr, n + B - 1, device="cpu")
+        else:
+            scene = bc.bench_scene(intr, n + B - 1, device=device, world_texture=True)
+        frames = [bc.stereo_imu_frame(scene, k, IMU_SAMPLES).to(device) for k in range(n + B - 1)]
 
         def seq_frame(k, b):
             return frames[k + b]
@@ -2283,7 +2348,7 @@ def batched_modes_readings(torch, seed, ref, mode, device="cuda"):
                        for o in outs])                                         # (n, 2, B)
     ref_counts = np.stack([ref["n_static"], ref["n_dynamic"]], 1)
     rd["count_rel"] = float((np.abs(counts - ref_counts) / np.maximum(ref_counts, 1)).max())
-    X_gt = scene.scn.X_gt
+    X_gt = scene.scn.X_gt.to(device)
     id_errs, identity, depth_errs, depth_worst = 0, {}, [], 0.0
     true_depth = {}             # scene frame -> its uncorrupted depth, shared by the sequences
     for b in range(B):
@@ -2316,7 +2381,7 @@ def batched_modes_readings(torch, seed, ref, mode, device="cuda"):
                 a = o["after"]
                 j = k + b
                 if j not in true_depth:
-                    true_depth[j] = scene._depth_mask(X_gt[j], [L[j] for L in scene.scn.L_gt])[0]
+                    true_depth[j] = scene._depth_mask(scene.scn.X_gt[j], [L[j] for L in scene.scn.L_gt])[0].to(device)
                 H, W = true_depth[j].shape
                 uv, depth, valid = a["s_uv"][b], a["s_depth"][b], a["s_valid"][b]
                 iu = torch.clamp(torch.round(uv[:, 0]).long(), 0, W - 1)
@@ -2365,49 +2430,60 @@ def run_batched_modes_path(torch, seed, testdata, device="cuda", smi=""):
     """Phase 14: the batched step at B=8 in each frontend mode of
     BATCHED_MODES, held to BATCHED_MODE_BOUNDS and its JAX reference ->
     {path: launches}."""
+    B, n = BATCHED_MODES_B, BATCHED_MODES_FRAMES
+    paths = {}
+    for mode in BATCHED_MODES:
+        ref_path = os.path.join(testdata, f"bench_batched_{mode}_ref_b{B}_{n}f.npz")
+        paths.update(check_batched_mode(torch, seed, ref_path, mode, device, smi))
+    return paths
+
+
+def check_batched_mode(torch, seed, ref_path, mode, device="cuda", smi="", tracked=False):
+    """The batched step at B=8 in frontend mode `mode` (with `tracked`,
+    phase 11c: on bench_config.tracked_scene), held to BATCHED_MODE_BOUNDS
+    and its JAX reference -> {path: launches}."""
     import numpy as np
 
-    paths = {}
     B, n = BATCHED_MODES_B, BATCHED_MODES_FRAMES
-    for mode in BATCHED_MODES:
-        t = time.perf_counter()
-        ref = np.load(os.path.join(testdata, f"bench_batched_{mode}_ref_b{B}_{n}f.npz"))
-        launches, rd, times, sites, ops, busy, k1_ms = batched_modes_readings(torch, seed, ref, mode, device)
-        over = {k: (rd[k], v) for k, v in BATCHED_MODE_BOUNDS[mode].items() if not rd[k] <= v}
-        if rd["id_mismatches"]:
-            over["id_mismatches"] = (rd["id_mismatches"], 0)
-        if mode == "bytetrack" and not rd["one_id_per_frame"]:
-            over["one_id_per_frame"] = (rd["id_pairs"], "one id per ground-truth object in each frame")
-        if over:
-            raise AssertionError(f"batched {mode} B={B}: readings over their bounds (reading, bound): {over}")
-        steady = statistics.median(times[10:])
-        idle = None if busy is None else 1.0 - busy / (steady * 1e3)
-        n_sync = sum(sites.values())
-        detail = (f"object ids equal to the JAX ref's in every sequence and frame, one id per ground-truth "
-                  f"object in each frame; ids that changed (sequence, frame, object, old id, new id) "
-                  f"{rd['id_switches']}" if mode == "bytetrack" else
-                  f"static track depths ({rd['depth_tracks']} over frames 1-{n - 1}, all sequences) median "
-                  f"relative error {rd['depth_relerr']:.3%} against the true depth, worst sequence "
-                  f"{rd['depth_relerr_worst_seq']:.3%} (provided depth off by 15%)")
-        say(f"batched {mode}: make_batched_pipeline at bench_config.batched_{mode}_config(), B={B}, {n} frames "
-            f"per sequence (window of 10 advanced {n - 10} times), on {device} ({smi}): fused K1 launches "
-            f"{launches['K1']}, map entry {launches['K1 map']}; camera vs GT max {rd['gt_m']:.2e} m / "
-            f"{rd['gt_rad']:.2e} rad (the JAX ref's own {rd['ref_gt_m']:.2e} m / {rd['ref_gt_rad']:.2e} rad, "
-            f"the port at most {rd['gt_excess_m']:.2e} m / {rd['gt_excess_rad']:.2e} rad past it); vs JAX ref "
-            f"max {rd['ref_m']:.2e} m / {rd['ref_rad']:.2e} rad; "
-            f"{rd['n_motions']} object motions{' (settled)' if mode == 'stereo_imu' else ''} vs JAX ref max "
-            f"{rd['motion_m']:.2e} m; valid track counts vs JAX ref within {rd['count_rel']:.2%}; {detail}; "
-            f"first frame {times[0] * 1e3:.1f} ms, median advancing frames 11-{n} {steady * 1e3:.2f} ms = "
-            f"{B / steady:.2f} frames/s aggregate, {1 / steady:.2f} per sequence; device ops per advancing "
-            f"frame {ops if ops is not None else 'n/a'}, device busy "
-            f"{f'{busy:.2f}' if busy is not None else 'n/a'} ms per advancing frame, idle "
-            f"{f'{idle:.1%}' if idle is not None else 'n/a'} of the step; K1b "
-            f"{f'{k1_ms:.4f}' if k1_ms is not None else 'n/a'} ms per launch; host syncs "
-            f"{n_sync / n:.1f}/frame (sites: "
-            f"{', '.join(f'{k} x{v}' for k, v in sorted(sites.items(), key=lambda kv: -kv[1])) or 'none'}); "
-            f"{time.perf_counter() - t:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in rd['phase_s'].items())})")
-        paths[f"batched_{mode}_b{B}"] = launches
-    return paths
+    name = mode + ("_tracked" if tracked else "")
+    t = time.perf_counter()
+    ref = np.load(ref_path)
+    launches, rd, times, sites, ops, busy, k1_ms = batched_modes_readings(torch, seed, ref, mode, device, tracked)
+    over = {k: (rd[k], v) for k, v in BATCHED_MODE_BOUNDS[name].items() if not rd[k] <= v}
+    if rd["id_mismatches"]:
+        over["id_mismatches"] = (rd["id_mismatches"], 0)
+    if mode == "bytetrack" and not rd["one_id_per_frame"]:
+        over["one_id_per_frame"] = (rd["id_pairs"], "one id per ground-truth object in each frame")
+    if over:
+        raise AssertionError(f"batched {name} B={B}: readings over their bounds (reading, bound): {over}")
+    steady = statistics.median(times[10:])
+    idle = None if busy is None else 1.0 - busy / (steady * 1e3)
+    n_sync = sum(sites.values())
+    detail = (f"object ids equal to the JAX ref's in every sequence and frame, one id per ground-truth "
+              f"object in each frame; ids that changed (sequence, frame, object, old id, new id) "
+              f"{rd['id_switches']}" if mode == "bytetrack" else
+              f"static track depths ({rd['depth_tracks']} over frames 1-{n - 1}, all sequences) median "
+              f"relative error {rd['depth_relerr']:.3%} against the true depth, worst sequence "
+              f"{rd['depth_relerr_worst_seq']:.3%} (provided depth off by 15%)")
+    say(f"batched {name}: make_batched_pipeline at bench_config.batched_{mode}_config(), B={B}, {n} frames "
+        f"per sequence (window of 10 advanced {n - 10} times)"
+        + (" on tracked_scene (rendered on the host)" if tracked else "")
+        + f", on {device} ({smi}): fused K1 launches {launches['K1']}, map entry {launches['K1 map']}; camera vs GT max {rd['gt_m']:.2e} m / "
+        f"{rd['gt_rad']:.2e} rad (the JAX ref's own {rd['ref_gt_m']:.2e} m / {rd['ref_gt_rad']:.2e} rad, "
+        f"the port at most {rd['gt_excess_m']:.2e} m / {rd['gt_excess_rad']:.2e} rad past it); vs JAX ref "
+        f"max {rd['ref_m']:.2e} m / {rd['ref_rad']:.2e} rad; "
+        f"{rd['n_motions']} object motions{' (settled)' if mode == 'stereo_imu' else ''} vs JAX ref max "
+        f"{rd['motion_m']:.2e} m; valid track counts vs JAX ref within {rd['count_rel']:.2%}; {detail}; "
+        f"first frame {times[0] * 1e3:.1f} ms, median advancing frames 11-{n} {steady * 1e3:.2f} ms = "
+        f"{B / steady:.2f} frames/s aggregate, {1 / steady:.2f} per sequence; device ops per advancing "
+        f"frame {ops if ops is not None else 'n/a'}, device busy "
+        f"{f'{busy:.2f}' if busy is not None else 'n/a'} ms per advancing frame, idle "
+        f"{f'{idle:.1%}' if idle is not None else 'n/a'} of the step; K1b "
+        f"{f'{k1_ms:.4f}' if k1_ms is not None else 'n/a'} ms per launch; host syncs "
+        f"{n_sync / n:.1f}/frame (sites: "
+        f"{', '.join(f'{k} x{v}' for k, v in sorted(sites.items(), key=lambda kv: -kv[1])) or 'none'}); "
+        f"{time.perf_counter() - t:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in rd['phase_s'].items())})")
+    return {f"batched_{name}_b{B}": launches}
 
 
 def _aligned_truth(np, scene):
@@ -3743,9 +3819,10 @@ def run_multichip_path(torch, seed, ref_path, device="cuda", smi=""):
 
 
 # phases 5-22 that run in a second process beside this one's (the host-bound
-# pipeline, dataset and experiment runs, ~half of the phases' time)
-SECOND_LANE = ("9 (pipeline)", "12 (datasets)", "16 (detector pipeline)", "18 (experiments)",
-               "21 (fixture writer)")
+# pipeline, dataset and experiment runs, and the tracked-scene phases, which
+# render on the host: ~half of the phases' time)
+SECOND_LANE = ("6t (tracked klt)", "7t (tracked stereo + IMU)", "9 (pipeline)", "11c (tracked batched stereo + IMU)",
+               "12 (datasets)", "16 (detector pipeline)", "18 (experiments)", "21 (fixture writer)")
 
 
 def _timed(phase, fn, *a, **kw):
@@ -3765,6 +3842,11 @@ def main_path_phases(torch, seed, testdata, smi):
         "6 (klt)": (run_klt_path, (torch, seed, j(testdata, "bench_klt_ref_20f.npz")), {}),
         "7 (stereo + IMU)": (run_klt_path, (torch, seed, j(testdata, "stereo_imu_ref_12f.npz")),
                              {"stereo_imu": True}),
+        "6t (tracked klt)": (run_klt_path, (torch, seed, j(testdata, f"tracked_klt_ref_{KLT_FRAMES}f.npz")),
+                             {"tracked": True}),
+        "7t (tracked stereo + IMU)": (run_klt_path,
+                                      (torch, seed, j(testdata, f"tracked_stereo_imu_ref_{STEREO_IMU_FRAMES}f.npz")),
+                                      {"stereo_imu": True, "tracked": True}),
         "8 (detector)": (run_detector_path, (torch, seed, j(testdata, "det_ref_24f.npz")), {}),
         "8b (held-out)": (run_heldout_path, (torch, j(testdata, "det_heldout_ref_48.npz")), {}),
         "9 (pipeline)": (run_pipeline_path, (torch, seed, j(testdata, f"kitti_ref_{PIPE_FRAMES}f.npz")),
@@ -3772,6 +3854,10 @@ def main_path_phases(torch, seed, testdata, smi):
         "10 (formulations)": (run_forms_path, (torch, seed, testdata), {}),
         "11 (batched)": (run_batched_path, (torch, seed, j(testdata, "bench_batched_ref_b8_20f.npz")),
                          {"smi": smi}),
+        "11c (tracked batched stereo + IMU)": (
+            check_batched_mode,
+            (torch, seed, j(testdata, f"tracked_batched_stereo_imu_ref_b{BATCHED_MODES_B}_{BATCHED_MODES_FRAMES}f.npz"),
+             "stereo_imu"), {"smi": smi, "tracked": True}),
         "12 (datasets)": (run_datasets_path, (torch, seed, j(testdata, "datasets_ref_12f.npz")), {"smi": smi}),
         "13 (tooling)": (run_tooling_path, (torch, seed), {}),
         "14 (batched modes)": (run_batched_modes_path, (torch, seed, testdata), {"smi": smi}),
@@ -3856,15 +3942,18 @@ def main():
         out = {name: _timed(name, fn, *a, **kw) for name, (fn, a, kw) in phases.items()
                if name not in SECOND_LANE}
         out.update(second.result())
-    (bench_launches, pipelined_launches, klt_launches, stereo_launches, det_launches, heldout_launches,
-     (pipe_launches, _), forms_launches, batched_launches, dataset_launches, tooling_launches, modes_launches,
+    (bench_launches, pipelined_launches, klt_launches, stereo_launches, tracked_klt_launches,
+     tracked_stereo_launches, det_launches, heldout_launches, (pipe_launches, _), forms_launches,
+     batched_launches, tracked_batched_launches, dataset_launches, tooling_launches, modes_launches,
      rich_launches, det_pipe_launches, train_launches, exp_launches, scale_launches, streaming_launches,
      fixture_launches, multichip_launches) = (out[name] for name in phases)
 
     # ---- 23. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "pipelined": pipelined_launches, "klt": klt_launches,
-             "stereo_imu": stereo_launches, "detector": det_launches, "heldout": heldout_launches,
-             "pipeline": pipe_launches, **forms_launches, **batched_launches, "datasets": dataset_launches,
+             "stereo_imu": stereo_launches, "klt_tracked": tracked_klt_launches,
+             "stereo_imu_tracked": tracked_stereo_launches, "detector": det_launches, "heldout": heldout_launches,
+             "pipeline": pipe_launches, **forms_launches, **batched_launches, **tracked_batched_launches,
+             "datasets": dataset_launches,
              **{f"tooling_{k}": v for k, v in tooling_launches.items()}, **modes_launches, "rich": rich_launches,
              "detector_pipeline": det_pipe_launches, "train": train_launches, "experiments": exp_launches,
              "scale": scale_launches, "streaming": streaming_launches, "fixture_writer": fixture_launches,

@@ -120,14 +120,38 @@ def _bench_spec(num_frames, forward_m=BENCH_FORWARD_M):
     )
 
 
+# the bench camera's height over the ground plane, m (bench.py::make_frames)
+BENCH_GROUND_Y = 1.6
+
+
 def bench_scene(intr, num_frames=10, device="cuda", world_texture=False,
-                forward_m=BENCH_FORWARD_M) -> DenseScenario:
+                forward_m=BENCH_FORWARD_M, ground_y=BENCH_GROUND_Y) -> DenseScenario:
     """The benchmark's synthetic scene: camera driving forward `forward_m`
-    per frame with a slight yaw, three objects on the road; `world_texture`
-    anchors the texture to the surfaces (the KLT path's frames)."""
-    return DenseScenario(_bench_spec(num_frames, forward_m), intr, ground_y=1.6, far_depth=60.0,
+    per frame with a slight yaw, `ground_y` above the ground plane, three
+    objects on the road; `world_texture` anchors the texture to the surfaces
+    (the KLT path's frames)."""
+    return DenseScenario(_bench_spec(num_frames, forward_m), intr, ground_y=ground_y, far_depth=60.0,
                          object_half_extents=[(1.6, 1.6)] * 3, world_texture=world_texture,
                          device=device)
+
+
+# The tracked scene: the bench scene with the camera raised to
+# TRACKED_GROUND_Y and its forward step cut to TRACKED_FORWARD_M, where the
+# JAX reference keeps the camera on the KLT and stereo + IMU paths (on the
+# bench scene itself it loses it). Raising the camera moves the band of
+# ground whose texture aliases under the renderer's isotropic band limit
+# (a grazing pixel spans ~depth^2 / (fx * height) m along the view) out of
+# the tracked depths; the shorter step keeps LK off the far wall's
+# one-period locks.
+TRACKED_GROUND_Y = 6.4
+TRACKED_FORWARD_M = 0.4
+
+
+def tracked_scene(intr, num_frames=20, device="cuda") -> DenseScenario:
+    """The world-textured bench scene at TRACKED_GROUND_Y and
+    TRACKED_FORWARD_M: objects, texture and intrinsics as the bench's."""
+    return bench_scene(intr, num_frames, device=device, world_texture=True, forward_m=TRACKED_FORWARD_M,
+                       ground_y=TRACKED_GROUND_Y)
 
 
 def bench_klt_config():

@@ -145,9 +145,21 @@ dynosam_tpu_torch/testdata/:
     cv2's decode of it.
   * --only tracked_step writes nothing (and runs only when named): the
     KLT and stereo + IMU runs above on the bench scene with only the
-    camera's forward step changed (each of --steps, m per frame), printing
-    the reference's per-frame and worst error against the ground truth and
-    the largest step over which both stay within 0.05 m / 0.01 rad.
+    camera's forward step (each of --steps, m per frame) and height over
+    the ground (each of --ground_y, m; the bench's 1.6 by default) changed,
+    printing the reference's per-frame and worst error against the ground
+    truth and, per height, the largest step over which both stay within
+    0.05 m / 0.01 rad.
+  * tracked_klt_ref_20f.npz, tracked_stereo_imu_ref_12f.npz and
+    tracked_batched_stereo_imu_ref_b8_14f.npz (--only tracked, runs only
+    when named) — the KLT, stereo + IMU and batched stereo + IMU (B=8, the
+    batched_modes file's run) references on bench_config.tracked_scene (the
+    camera TRACKED_GROUND_Y up, stepping TRACKED_FORWARD_M), JAX run on the
+    port's own CPU render of it: the KLT path follows the last bits of its
+    input images, JAX's too (scripts/probe_torch_klt_parting.py). Keys as
+    the KLT files' (the batched file's as the batched_modes files', without
+    the static tracks), plus ground_y, forward_m and the reference's own
+    per-frame ground-truth errors gt_trans (m) / gt_rot (rad).
   * streaming_ref_20f.npz (--only streaming) — scripts/exp_streaming.py
     run as it is at its defaults (20 frames, window 8, modes 0, 1, 2, 10
     LM iterations), its Scenario's draws, the noisy packets and each mode's
@@ -156,9 +168,9 @@ dynosam_tpu_torch/testdata/:
 Usage: JAX_PLATFORMS=cpu python scripts/make_torch_smoke_reference.py
     [--only bench|detector|kitti|klt|stereo_imu|forms|forms_kitti|batched|batched_forms|batched_modes|pipelined|
             datasets|heldout|rich|rich_matrix|rich_seeds|rich_draws|rich_frontend|sweep|det_acc|det_pipe|
-            progressive|experiments|train|scale|streaming|tracked_step]
+            progressive|experiments|train|scale|streaming|tracked_step|tracked]
     [--cells incremental_0,...] [--seeds 1,2,...]   (rich_seeds only)
-    [--steps 0.4,0.3,0.2]                            (tracked_step only)
+    [--steps 0.4,0.3,0.2] [--ground_y 1.6,6.4]      (tracked_step only)
 (~80 s for the first two files; ~32 min for the third, most of it the
 full-batch runs at a 60-frame window; a few minutes for each of the two
 after it; the forms files' CPU time is in CHANGES.md)
@@ -234,6 +246,12 @@ PIPELINED_OUT = os.path.join(TESTDATA, "bench_pipelined_ref_20f.npz")
 # largest first for a scene the reference tracks (--only tracked_step)
 TRACKED_STEPS = (0.4, 0.3, 0.2)
 GT_TRANS_M, GT_ROT_RAD = 0.05, 0.01      # chip_smoke.py's ground-truth bounds
+# bench_config.tracked_scene's references (--only tracked)
+TRACKED_KLT_OUT = os.path.join(TESTDATA, f"tracked_klt_ref_{KLT_FRAMES}f.npz")
+TRACKED_STEREO_IMU_OUT = os.path.join(TESTDATA, f"tracked_stereo_imu_ref_{STEREO_IMU_FRAMES}f.npz")
+TRACKED_BATCHED_OUT = os.path.join(TESTDATA, f"tracked_batched_stereo_imu_ref_b8_{BATCHED_MODES_FRAMES}f.npz")
+# the FrameInputs fields the port's render fills
+PORT_FRAME_FIELDS = ("rgb", "depth", "flow", "mask", "right", "imu_samples", "imu_valid")
 DATASETS_OUT = os.path.join(TESTDATA, "datasets_ref_12f.npz")
 HELDOUT_OUT = os.path.join(TESTDATA, "det_heldout_ref_48.npz")
 HELDOUT_SCENES = 48
@@ -333,17 +351,18 @@ def klt_reference():
     _save(KLT_OUT, _run(step, state, frames, track_counts=True), t0)
 
 
-def _jax_bench_scene(intr, n, forward_m=None):
+def _jax_bench_scene(intr, n, forward_m=None, ground_y=None):
     """The port's world-textured bench scene over `n` frames (at the bench
-    camera's forward step, or at `forward_m` per frame), rendered by the JAX
-    package."""
+    camera's forward step and height, or at `forward_m` per frame and
+    `ground_y` m above the ground), rendered by the JAX package."""
     from dynosam_tpu.dataproviders.simulator import ObjectSpec, ScenarioSpec
     from dynosam_tpu.dataproviders.synthetic_dense import DenseScenario
     from dynosam_tpu_torch import bench_config as tbench
 
     tintr = tbench.bench_config()[1]
     tscene = tbench.bench_scene(tintr, n, device="cpu", world_texture=True,
-                                forward_m=tbench.BENCH_FORWARD_M if forward_m is None else forward_m)
+                                forward_m=tbench.BENCH_FORWARD_M if forward_m is None else forward_m,
+                                ground_y=tbench.BENCH_GROUND_Y if ground_y is None else ground_y)
     sp = tscene.scn.spec
     spec = ScenarioSpec(
         num_frames=sp.num_frames, num_static=0, camera_motion_xi=sp.camera_motion_xi,
@@ -456,55 +475,143 @@ def _gt_errors(X, X_gt):
 def _worst(name, trans, rot):
     """Print the reference's worst frame against the ground truth -> whether
     every frame lies within GT_TRANS_M / GT_ROT_RAD."""
+    import numpy as np
+
     ok = bool(trans.max() <= GT_TRANS_M and rot.max() <= GT_ROT_RAD)
-    print(f"  {name}: the JAX reference vs ground truth, worst frame {int(trans.argmax())} "
-          f"{float(trans.max()):.4e} m, worst frame {int(rot.argmax())} {float(rot.max()):.4e} rad "
+    # (frame, sequence) where a batch axis follows the frames
+    at_t, at_r = (np.unravel_index(int(a.argmax()), a.shape) for a in (trans, rot))
+    at_t, at_r = (a[0] if len(a) == 1 else tuple(int(i) for i in a) for a in (at_t, at_r))
+    print(f"  {name}: the JAX reference vs ground truth, worst frame {at_t} "
+          f"{float(trans.max()):.4e} m, worst frame {at_r} {float(rot.max()):.4e} rad "
           f"({'within' if ok else 'OUTSIDE'} {GT_TRANS_M} m / {GT_ROT_RAD} rad in every frame)", flush=True)
     return ok
 
 
-def _tracked_fused(forward_m, stereo_imu):
-    """The fused step on the bench scene at `forward_m` per frame: KLT over
-    KLT_FRAMES frames, or stereo + IMU over STEREO_IMU_FRAMES -> (outputs as
-    the KLT files', with the reference's per-frame ground-truth errors
-    gt_trans / gt_rot and forward_m; whether every frame lies within the
-    ground-truth bounds)."""
+def _port_rendered(n, forward_m, ground_y, stereo_imu, scene):
+    """JAX FrameInputs of the JAX `scene` holding the port's own render (on
+    the CPU) of the world-textured bench scene at `forward_m` / `ground_y`:
+    the port's bench_config.stereo_imu_frame's fields with stereo_imu, its
+    plain frames otherwise. The KLT path follows the last bits of its input
+    images (in JAX too: scripts/probe_torch_klt_parting.py), so the
+    tracked-scene references run on the frames the port renders, as the
+    rich fixture's do."""
+    import jax.numpy as jnp
+
+    from dynosam_tpu_torch import bench_config as tbench
+
+    tscene = tbench.bench_scene(tbench.bench_config()[1], n, device="cpu", world_texture=True,
+                                forward_m=forward_m, ground_y=ground_y)
+    frames = []
+    for k in range(n):
+        tf = tbench.stereo_imu_frame(tscene, k, IMU_SAMPLES) if stereo_imu else tscene.frame(k)
+        frames.append(scene.frame(k).replace(**{name: jnp.asarray(v.numpy()) for name, v in tf.tensors().items()
+                                                if name in PORT_FRAME_FIELDS}))
+    return frames
+
+
+def _tracked_fused(forward_m, stereo_imu, ground_y=None, port_render=False):
+    """The fused step on the world-textured bench scene at `forward_m` per
+    frame and `ground_y` (default the bench's): KLT over KLT_FRAMES frames,
+    or stereo + IMU over STEREO_IMU_FRAMES, on the JAX package's render or
+    with `port_render` on the port's -> (outputs as the KLT files', with the
+    reference's per-frame ground-truth errors gt_trans / gt_rot, forward_m
+    and ground_y; whether every frame lies within the ground-truth
+    bounds)."""
     import jax
     import numpy as np
 
     from dynosam_tpu.parallel.batched import init_pipeline_state, make_fused_step
+    from dynosam_tpu_torch import bench_config as tbench
 
     n = STEREO_IMU_FRAMES if stereo_imu else KLT_FRAMES
+    ground_y = tbench.BENCH_GROUND_Y if ground_y is None else ground_y
     cfg, intr = _klt_cfg(**({"frontend.use_imu": True, "frontend.imu.use_rotation_prior": True}
                             if stereo_imu else {}))
-    scene = _jax_bench_scene(intr, n, forward_m)
-    frame = _stereo_imu_frames(intr, n, scene=scene) if stereo_imu else scene.frame
+    scene = _jax_bench_scene(intr, n, forward_m, ground_y)
+    if port_render:
+        frames = _port_rendered(n, forward_m, ground_y, stereo_imu, scene)
+    else:
+        frame = _stereo_imu_frames(intr, n, scene=scene) if stereo_imu else scene.frame
+        frames = [frame(k) for k in range(n)]
     step = jax.jit(make_fused_step(cfg, intr))
     state = init_pipeline_state(cfg, image_shape=(intr.height, intr.width))
-    out = _run(step, state, [frame(k) for k in range(n)], track_counts=True)
+    out = _run(step, state, frames, track_counts=True)
     out["gt_trans"], out["gt_rot"] = _gt_errors(out["X_world_cam"], scene.scn.X_gt)
-    out["forward_m"] = np.float64(forward_m)
-    name = f"{'stereo + IMU' if stereo_imu else 'KLT'}, {n} frames, {forward_m} m per frame"
+    out["forward_m"], out["ground_y"] = np.float64(forward_m), np.float64(ground_y)
+    name = (f"{'stereo + IMU' if stereo_imu else 'KLT'}, {n} frames, {forward_m} m per frame, camera "
+            f"{ground_y} m up")
     print(f"  {name}: per frame, m: {' '.join(f'{x:.4f}' for x in out['gt_trans'])}; valid static "
           f"tracks: {' '.join(str(int(x)) for x in out['n_static'])}", flush=True)
     return out, _worst(name, out["gt_trans"], out["gt_rot"])
 
 
-def tracked_step_check(steps=TRACKED_STEPS):
+def tracked_step_check(steps=TRACKED_STEPS, ground_ys=None):
     """Writes nothing: the JAX reference's worst frame against the ground
     truth on the KLT and stereo + IMU paths at each forward step of `steps`
-    -> the largest step over which both stay within GT_TRANS_M /
-    GT_ROT_RAD in every frame (None if none does)."""
-    chosen = None
-    for forward_m in sorted(steps, reverse=True):
-        t0 = time.time()
-        ok = all([_tracked_fused(forward_m, stereo_imu)[1] for stereo_imu in (False, True)])
-        print(f"forward step {forward_m} m: {'tracked on both paths' if ok else 'lost'} "
-              f"({time.time() - t0:.1f} s)", flush=True)
-        if ok and chosen is None:
-            chosen = forward_m
-    print(f"largest tracked forward step: {chosen}", flush=True)
+    and camera height of `ground_ys` (default the bench's) -> per height,
+    the largest step over which both stay within GT_TRANS_M / GT_ROT_RAD in
+    every frame (None if none does)."""
+    from dynosam_tpu_torch import bench_config as tbench
+
+    chosen = {}
+    for ground_y in ground_ys or (tbench.BENCH_GROUND_Y,):
+        chosen[ground_y] = None
+        for forward_m in sorted(steps, reverse=True):
+            t0 = time.time()
+            ok = all([_tracked_fused(forward_m, stereo_imu, ground_y)[1] for stereo_imu in (False, True)])
+            print(f"forward step {forward_m} m, camera {ground_y} m up: "
+                  f"{'tracked on both paths' if ok else 'lost'} ({time.time() - t0:.1f} s)", flush=True)
+            if ok and chosen[ground_y] is None:
+                chosen[ground_y] = forward_m
+        print(f"camera {ground_y} m up: largest tracked forward step {chosen[ground_y]}", flush=True)
     return chosen
+
+
+def tracked_reference():
+    """The KLT, stereo + IMU and batched stereo + IMU references on
+    bench_config.tracked_scene (the camera TRACKED_GROUND_Y up, stepping
+    TRACKED_FORWARD_M), each run on the port's own CPU render of it."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from dynosam_tpu.config import DynoConfig
+    from dynosam_tpu.parallel.batched import make_batched_pipeline
+    from dynosam_tpu_torch import bench_config as tbench
+
+    gy, fm = tbench.TRACKED_GROUND_Y, tbench.TRACKED_FORWARD_M
+    for stereo_imu, path in ((False, TRACKED_KLT_OUT), (True, TRACKED_STEREO_IMU_OUT)):
+        t0 = time.time()
+        out, _ = _tracked_fused(fm, stereo_imu, gy, port_render=True)
+        _save(path, out, t0)
+
+    # the batched step over B=8 sequences in its stereo + IMU mode (provided
+    # flow), sequence b on scene frames b .. b+BATCHED_MODES_FRAMES-1, as
+    # batched_modes_reference's
+    t0 = time.time()
+    B, n = BATCHED_B, BATCHED_MODES_FRAMES
+    tcfg, _ = tbench.batched_stereo_imu_config()
+    _, intr = _klt_cfg()
+    scene = _jax_bench_scene(intr, n + B - 1, fm, gy)
+    frames = _port_rendered(n + B - 1, fm, gy, True, scene)
+    step, init = make_batched_pipeline(DynoConfig.from_dict(dataclasses.asdict(tcfg)), intr)
+    state = init(B)
+    outs = {k: [] for k in KEYS + ("n_static", "n_dynamic")}
+    for k in range(n):
+        state, out = step(state, jax.tree.map(lambda *x: jnp.stack(x), *frames[k:k + B]))
+        for key in KEYS:
+            outs[key].append(np.asarray(out[key]))
+        outs["n_static"].append(np.asarray(state.frontend.tracker.s_valid.sum(-1)))
+        outs["n_dynamic"].append(np.asarray(state.frontend.tracker.d_valid.sum(-1)))
+    outs = {k: np.stack(v) for k, v in outs.items()}
+    # sequence b's poses are relative to its own first frame
+    X_gt = np.asarray(scene.scn.X_gt, np.float64)
+    errs = [_gt_errors(outs["X_world_cam"][:, b], np.linalg.inv(X_gt[b]) @ X_gt[b:b + n]) for b in range(B)]
+    outs["gt_trans"] = np.stack([e[0] for e in errs], 1)
+    outs["gt_rot"] = np.stack([e[1] for e in errs], 1)
+    outs["forward_m"], outs["ground_y"] = np.float64(fm), np.float64(gy)
+    _worst(f"batched stereo + IMU, B={B}, {n} frames", outs["gt_trans"], outs["gt_rot"])
+    _save(TRACKED_BATCHED_OUT, outs, t0)
 
 
 def detector_reference():
@@ -1716,14 +1823,16 @@ def main():
     parts = ["bench", "detector", "kitti", "klt", "stereo_imu", "forms", "batched", "batched_forms", "batched_modes",
              "pipelined", "datasets", "heldout", "rich", "rich_matrix", "rich_seeds", "rich_draws", "sweep",
              "det_acc", "det_pipe", "forms_kitti", "progressive", "rich_frontend", "experiments", "train", "scale",
-             "streaming", "tracked_step"]
+             "streaming", "tracked_step", "tracked"]
     ap.add_argument("--only", choices=parts, action="append", help="write only these files (default: all)")
     ap.add_argument("--cells", help="rich_seeds: comma-separated cells (default: RICH_SEED_CELLS)")
     ap.add_argument("--seeds", help="rich_seeds / experiments: comma-separated seeds (default: RICH_SEEDS by "
                                     "mode / EXP_SEEDS)")
     ap.add_argument("--steps", help="tracked_step: comma-separated forward steps, m (default: TRACKED_STEPS)")
+    ap.add_argument("--ground_y", help="tracked_step: comma-separated camera heights over the ground, m "
+                                       "(default: the bench's)")
     args = ap.parse_args()
-    todo = args.only or [p for p in parts if p != "tracked_step"]
+    todo = args.only or [p for p in parts if p not in ("tracked_step", "tracked")]
     os.makedirs(TESTDATA, exist_ok=True)
     if "bench" in todo:
         bench_reference()
@@ -1779,7 +1888,10 @@ def main():
     if "progressive" in todo:
         progressive_reference()
     if "tracked_step" in todo:
-        tracked_step_check(tuple(float(x) for x in args.steps.split(",")) if args.steps else TRACKED_STEPS)
+        tracked_step_check(tuple(float(x) for x in args.steps.split(",")) if args.steps else TRACKED_STEPS,
+                           tuple(float(x) for x in args.ground_y.split(",")) if args.ground_y else None)
+    if "tracked" in todo:
+        tracked_reference()
 
 
 if __name__ == "__main__":
