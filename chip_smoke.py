@@ -273,14 +273,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
      every rank. (b) sharded_optimize at scale_check's defaults held to
      chunked_optimize at the same P, every rank's system and step equal to
      rank 0's; each rank's wall seconds and steady step ms;
-  23. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
+  23. timing programs: the ports of the reference's timing programs, each
+     through its main() in this process, its stdout captured and printed:
+     python -m dynosam_tpu_torch.bench at its defaults in the worker form
+     (exactly one JSON line, no vs_baseline, a finite positive frames/s;
+     K1 1 + 4 + 30 launches), bisect_perf (shipped and all_off, 5 measured
+     steps each), bench_table (every row at a measure of 10, two profiled
+     frames, the table written under a temporary directory; device busy
+     time and idle share read on every row), bench_batched (B=8, 5 measured
+     steps), profile_breakdown (-n 5, hybrid: the state's digest unchanged
+     by the timed stages) and bench_mesh_scaling (2 gloo ranks on the card,
+     3 steady steps: no collective counted or profiled, each rank's shapes
+     the B/P program's); K1 / K1b (and the detector row's K2 entry B)
+     launches per program held to the counts each run implies;
+  24. print the kernel table, one row per entry (K1 fused, K1 map, K1b,
      K2 entry A, K2 entry B), with each one's bound (the larger of its
      bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32, the H100
      SXM's published rates), loop-timed `ms` / `plain_ms` / `library_ms`
      beside the single-launch and profiler times, and launches per path
      under launches_by_path; then the contract line.
 
-Phases 5-22 run in two processes at once, on the one card: the phases of
+Phases 5-23 run in two processes at once, on the one card: the phases of
 SECOND_LANE in a second process (spawned after phase 4, so the kernels'
 times are taken alone), every other phase in this one. The steps are
 host-bound and the card ~90% idle, so the two lanes overlap; each phase
@@ -914,17 +927,21 @@ def check_k1(torch, seed):
     # padded to multiples of 32 by run_dynosam) and 96x320 (the fixture:
     # phases 9, 10, the sweep) with cell 8: W % 4 == 0 and a last column
     # tile narrower than the kernel's 128 (the cp.async loads of a partial
-    # tile). 384x640 with cell 8: the detector scene (phase 16).
+    # tile). 384x640 with cell 8: the detector scene (phase 16). 96x128 with
+    # cell 8, alone and as a batch: the graft's configuration of phase 23's
+    # mesh program (B=1 and each rank's rows), one column tile that is both
+    # the first and the last.
     cases = [((H, W), 16, "random"), ((H, W), 16, "constant"), ((H, 640), 16, "random"),
              ((H, 640), 16, "constant"), ((H, W), 8, "random"), ((H, 640), 8, "random"),
              ((H, 640), 8, "constant"), (RICH_HW, 8, "random"), (RICH_HW, 8, "constant"),
              ((384, 1248), 8, "random"), ((384, 1248), 8, "constant"), ((96, 320), 8, "random"),
-             ((96, 320), 8, "constant"), ((B, H, W), 16, "random")]
-    errs, bitwise, near = [], True, 0
+             ((96, 320), 8, "constant"), ((96, 128), 8, "random"), ((96, 128), 8, "constant"),
+             ((B, H, W), 16, "random"), ((2, 96, 128), 8, "random")]
+    errs, batch_errs, bitwise, near = [], [], True, 0
     for shape, cell, kind in cases:
         img = rand(*shape) if kind == "random" else torch.full(shape, 0.5, device="cuda")
         err, same, n_near = compare_cells(torch, st, img, cell)
-        errs.append(err)
+        (batch_errs if len(shape) == 3 else errs).append(err)
         bitwise &= same
         if kind == "random":        # on a constant frame every cell ties by design
             near += n_near
@@ -959,10 +976,10 @@ def check_k1(torch, seed):
     t1, t8 = times["b1"], times["b8"]
     say(f"K1 fused matches plain: best {'bit for bit' if bitwise else 'within KERNEL_RTOL'} "
         f"(max abs err {max(errs):.3e}), (u, v) equal in every cell, {near} near-tie cells, over "
-        f"{len(cases)} cases (384x1280, 384x640, 375x1242, 384x1248 and 96x320, cells 16 and 8, constant "
-        f"frames take each "
-        f"cell's first pixel, an (8, 384, 1280) batch equal to its single images); map entry max "
-        f"abs err {max(map_errs):.3e}, batch images equal")
+        f"{len(cases)} cases (384x1280, 384x640, 375x1242, 384x1248, 96x320 and 96x128, cells 16 and 8, "
+        f"constant frames take each cell's first pixel, an (8, 384, 1280) batch at cell 16 and a (2, 96, 128) "
+        f"batch at cell 8 equal to their single images; batches' max abs err {max(batch_errs):.3e}); map "
+        f"entry max abs err {max(map_errs):.3e}, batch images equal")
     for label, t in times.items():
         d, c, lp, pr = t["single"], t["call"], t["loop"], t["profiler"]
         say(f"K1 at {label.upper()} 384x1280 cell 16, median device time of one launch: fused "
@@ -983,10 +1000,10 @@ def check_k1(torch, seed):
                 "call_ms": t["call"][name]}
 
     return {
-        "fused": {"max_abs_err": max(errs[:-1]), "bound": t1["bound"], **measures(t1, "fused", "plain"),
+        "fused": {"max_abs_err": max(errs), "bound": t1["bound"], **measures(t1, "fused", "plain"),
                   "map_route_ms": t1["loop"]["map_route"], "near_tie_cells": near, "best_bitwise": bitwise},
         "map": {"max_abs_err": max(map_errs), "bound": t1["map_bound"], **measures(t1, "map", "map_plain")},
-        "batched": {"max_abs_err": errs[-1], "bound": t8["bound"], **measures(t8, "fused", "plain"),
+        "batched": {"max_abs_err": max(batch_errs), "bound": t8["bound"], **measures(t8, "fused", "plain"),
                     "map_route_ms": t8["loop"]["map_route"]},
     }
 
@@ -1446,6 +1463,7 @@ def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False, tracked
     from dynosam_tpu_torch import bench_config as bc
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
     from dynosam_tpu_torch.parallel.batched import init_pipeline_state, make_fused_step
+    from dynosam_tpu_torch.timing import SyncCounter
     from dynosam_tpu_torch.utils import lie
 
     n = STEREO_IMU_FRAMES if stereo_imu else KLT_FRAMES
@@ -1466,7 +1484,7 @@ def klt_readings(torch, seed, ref_path, device="cuda", stereo_imu=False, tracked
         return trk.s_valid.sum(), trk.d_valid.sum(), trk.s_uv.clone(), trk.s_depth.clone(), trk.s_valid.clone()
 
     st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
-    with SyncCounter(torch, device) as sync:
+    with SyncCounter(device) as sync:
         outs, times = _drive(torch, step, state, frames, device, after=after)
     launches, map_launches = st.shi_tomasi_cell_max.launches, st.shi_tomasi_response.launches
     if device == "cuda" and (launches, map_launches) != (n, 0):
@@ -1661,42 +1679,6 @@ def run_heldout_path(torch, ref_path, device="cuda"):
     return launches
 
 
-class SyncCounter:
-    """Counts the host-device synchronizations inside a `with` block:
-    torch's sync debug mode warns on each one, and the warnings are
-    recorded (on a CUDA device; elsewhere the count stays None)."""
-
-    def __init__(self, torch, device):
-        self.torch, self.on = torch, torch.device(device).type == "cuda"
-        self.count = None
-        self.sites = {}     # "file:line" of the Python call that synchronized -> count
-
-    def __enter__(self):
-        import warnings
-
-        if self.on:
-            self._catch = warnings.catch_warnings(record=True)
-            self._seen = self._catch.__enter__()
-            warnings.simplefilter("always")
-            self.torch.cuda.set_sync_debug_mode("warn")
-        return self
-
-    def __exit__(self, *exc):
-        if self.on:
-            self.torch.cuda.set_sync_debug_mode("default")
-            self._catch.__exit__(*exc)
-            root = os.path.dirname(os.path.abspath(__file__))
-            syncs = [w for w in self._seen if "synchroniz" in str(w.message)]
-            self.count = len(syncs)
-            for w in syncs:
-                site = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
-                self.sites[site] = self.sites.get(site, 0) + 1
-        return False
-
-    def top(self, n=6):
-        return ", ".join(f"{k} x{v}" for k, v in sorted(self.sites.items(), key=lambda kv: -kv[1])[:n])
-
-
 def _device_types(obj):
     import dataclasses
 
@@ -1712,6 +1694,7 @@ def kitti_run(torch, cfg, out_dir, device, seed, frames=PIPE_FRAMES, root=KITTI_
     FrameInputs and the GraphState after it must lie on `device`.
     `on_frame(pipeline, inputs, packet)` is called after each frame."""
     from dynosam_tpu_torch.run_dynosam import build_pipeline, open_dataset
+    from dynosam_tpu_torch.timing import SyncCounter
 
     intr, frame_it, gt_it, n = open_dataset(0, root, frames, cfg.backend.max_objects, device)
     pipe = build_pipeline(cfg, intr, out_dir, device=device, seed=seed)
@@ -1725,7 +1708,7 @@ def kitti_run(torch, cfg, out_dir, device, seed, frames=PIPE_FRAMES, root=KITTI_
         return out
 
     pipe.process_frame = checked
-    with SyncCounter(torch, device) as syncs:
+    with SyncCounter(device) as syncs:
         t0 = time.perf_counter()
         pipe.run(frame_it, gt_it, on_frame=None if on_frame is None else (lambda i, p: on_frame(pipe, i, p)))
         dt = time.perf_counter() - t0
@@ -1944,6 +1927,7 @@ def forms_bench_readings(torch, seed, name, ref_path, device="cuda"):
     from dynosam_tpu_torch.bench_config import bench_config, bench_scene
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
     from dynosam_tpu_torch.parallel.batched import init_pipeline_state, make_fused_step
+    from dynosam_tpu_torch.timing import SyncCounter
     from dynosam_tpu_torch.utils import lie
 
     cfg, intr = bench_config()
@@ -1954,7 +1938,7 @@ def forms_bench_readings(torch, seed, name, ref_path, device="cuda"):
     state = init_pipeline_state(cfg, device)
     last = {}
     st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
-    with SyncCounter(torch, device) as sync:
+    with SyncCounter(device) as sync:
         outs, times = _drive(torch, step, state, frames, device, after=lambda s: last.update(graph=s.graph))
     launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
     if device == "cuda" and (launches["K1"], launches["K1 map"]) != (BENCH_FRAMES, 0):
@@ -2140,6 +2124,7 @@ def batched_readings(torch, seed, ref, B, device="cuda", form=None, n_frames=BAT
     from dynosam_tpu_torch.bench_config import bench_config, bench_scene
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
     from dynosam_tpu_torch.parallel.batched import make_batched_pipeline
+    from dynosam_tpu_torch.timing import SyncCounter
 
     cfg, intr = bench_config()
     if form is not None:
@@ -2158,7 +2143,7 @@ def batched_readings(torch, seed, ref, B, device="cuda", form=None, n_frames=BAT
         held["last"] = state
 
     st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
-    with SyncCounter(torch, device) as sync:
+    with SyncCounter(device) as sync:
         outs, times = _drive(torch, step, init(B, device), stacked, device, after=after)
     launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
     if device == "cuda" and (launches["K1"], launches["K1 map"]) != (n_frames, 0):
@@ -2290,6 +2275,7 @@ def batched_modes_readings(torch, seed, ref, mode, device="cuda", tracked=False)
     from dynosam_tpu_torch.ops import interp
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
     from dynosam_tpu_torch.parallel.batched import make_batched_pipeline
+    from dynosam_tpu_torch.timing import SyncCounter
     from dynosam_tpu_torch.utils import lie
 
     B, n = BATCHED_MODES_B, BATCHED_MODES_FRAMES
@@ -2333,7 +2319,7 @@ def batched_modes_readings(torch, seed, ref, mode, device="cuda", tracked=False)
 
     t1 = time.perf_counter()
     st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
-    with SyncCounter(torch, device) as sync:
+    with SyncCounter(device) as sync:
         outs, times = _drive(torch, step, init(B, device), stacked, device, after=after)
     launches = {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches}
     t2 = time.perf_counter()
@@ -2949,6 +2935,7 @@ def det_pipeline_readings(torch, seed, ref, device="cuda"):
     from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
     from dynosam_tpu_torch.ops.cuda import mask_combine as mc
     from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
+    from dynosam_tpu_torch.timing import SyncCounter
 
     tmp = tempfile.mkdtemp(prefix="smoke_det_pipe_")
     try:
@@ -2961,7 +2948,7 @@ def det_pipeline_readings(torch, seed, ref, device="cuda"):
         ids = []
         st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
         mc.mask_combine.launches = mc.mask_label.launches = 0
-        with SyncCounter(torch, device) as sync:
+        with SyncCounter(device) as sync:
             t0 = time.perf_counter()
             r, pipe, assoc = run_cell(ds, DET_PIPE_FRAMES, engine, device, seed,
                                       on_frame=lambda i, p: ids.append((p.object_ids.clone(),
@@ -3099,24 +3086,6 @@ SCALE_POSE_M = 1e-5
 SCALE_MOTION_M = {0: 5e-4, 3: 4e-3}
 
 
-def _zero_all_counts():
-    """Every kernel wrapper's launch count to 0 (phases 17-21 read all four,
-    the zeros they expect included)."""
-    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
-    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
-
-    st.shi_tomasi_cell_max.launches = st.shi_tomasi_response.launches = 0
-    mc.mask_combine.launches = mc.mask_label.launches = 0
-
-
-def _all_counts():
-    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
-    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
-
-    return {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches,
-            "K2": mc.mask_combine.launches, "K2 label": mc.mask_label.launches}
-
-
 def train_readings(torch, ref, device="cuda"):
     """Phase 17 without its bounds -> readings (losses, leaf errors, the
     pool's render against JAX's, the held-out numbers, times, peak memory,
@@ -3126,6 +3095,7 @@ def train_readings(torch, ref, device="cuda"):
 
     import numpy as np
 
+    from dynosam_tpu_torch import timing
     from dynosam_tpu_torch import train_detector as td
     from dynosam_tpu_torch.eval import detector_heldout as dh
     from dynosam_tpu_torch.nn.detector import YoloV8DetectorEngine
@@ -3155,7 +3125,7 @@ def train_readings(torch, ref, device="cuda"):
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    _zero_all_counts()          # the main path: the steps, then the held-out evaluation
+    timing.zero_counts()  # the main path: the steps, then the held-out evaluation
     losses, times = [], []
     for _ in range(steps):
         host = td.sample_batch(rng, *pool, batch)
@@ -3189,7 +3159,7 @@ def train_readings(torch, ref, device="cuda"):
         t0 = time.perf_counter()
         res = dh.evaluate(int(ref["eval_num_scenes"]), dh.SEED, device=device, engine=engine)
         rd["eval_s"] = time.perf_counter() - t0
-        rd["launches"] = _all_counts()
+        rd["launches"] = timing.counts()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rd["eval"] = (res["mean_mask_iou"], res["class_accuracy"], res["instances"])
@@ -3252,6 +3222,7 @@ def experiments_readings(torch, testdata, device="cuda"):
     import numpy as np
 
     from dynosam_tpu_torch import run_experiments as rx
+    from dynosam_tpu_torch import timing
 
     refs = [np.load(p) for p in sorted(glob.glob(os.path.join(testdata, EXP_REF_DIR, "seed*.npz")))]
     cells = [str(c) for c in refs[0]["cells"]]
@@ -3261,12 +3232,12 @@ def experiments_readings(torch, testdata, device="cuda"):
               for i, c in enumerate(cells) for j, f in enumerate(fields)}
     tmp = tempfile.mkdtemp(prefix="smoke_exp_")
     try:
-        _zero_all_counts()
+        timing.zero_counts()
         t0 = time.perf_counter()
         summary = rx.main(["--sequence", f"kitti:{KITTI_FIXTURE}", "--frames", str(EXP_FRAMES), "--forms", "0,1,3",
                            "--modes", "0,1,2", "--out", tmp, "--device", device])
         dt = time.perf_counter() - t0
-        launches = _all_counts()
+        launches = timing.counts()
         with open(os.path.join(tmp, "SUMMARY.md")) as fh:
             md = fh.read().splitlines()
         files = sorted(os.listdir(os.path.join(tmp, "kitti_kitti_fixture", cells[0])))
@@ -3326,14 +3297,15 @@ def scale_readings(torch, ref, device="cuda"):
     import numpy as np
 
     from dynosam_tpu_torch import scale_check as sc
+    from dynosam_tpu_torch import timing
 
     # the JAX Scenario's landmark clouds, so both backends take the same packets
     uniforms = {"static": ref["uniforms_static"], "objects": list(ref["uniforms_objects"])}
     out, launches = {}, {}
     for form in (0, 3):
-        _zero_all_counts()
+        timing.zero_counts()
         res, st_opt, st_adv = sc.time_config(SCALE_J, SCALE_F, SCALE_DYN, form, 1, device=device, uniforms=uniforms)
-        launches[form] = _all_counts()
+        launches[form] = timing.counts()
         rd = {}
         for tag, g in (("opt", st_opt), ("adv", st_adv)):
             p = f"{form}_{tag}_"
@@ -3476,13 +3448,14 @@ def streaming_readings(torch, ref, device="cuda"):
     import numpy as np
 
     from dynosam_tpu_torch import exp_streaming as es
+    from dynosam_tpu_torch import timing
 
     d = es.DEFAULTS
     n, window, iters = (int(x) for x in ref["args"])
     assert (n, window, iters) == (d["frames"], d["window"], d["iters"]), ref["args"]
     u, nm = streaming_draws(ref)
     jax_lines = {int(ln[5]): ln for ln in ref["lines"] if ln.startswith("mode=")}
-    _zero_all_counts()
+    timing.zero_counts()
     t0 = time.perf_counter()
     scn = es.scenario(n, d["pixel_noise"], d["depth_noise"], device, uniforms=u, normals=nm)
     packets = es.noisy_packets(scn, d["init_rot_noise"], d["init_trans_noise"])
@@ -3521,7 +3494,7 @@ def streaming_readings(torch, ref, device="cuda"):
              "summary": es.summary(me, pe), "jax_line": jax_lines[mode],
              "line": es.summary_line(mode, es.summary(me, pe))}
         modes[mode] = r
-    return _all_counts(), pk, modes
+    return timing.counts(), pk, modes
 
 
 def run_streaming_path(torch, ref_path, device="cuda", smi=""):
@@ -3669,16 +3642,17 @@ def fixture_writer_readings(torch, device="cuda"):
     import tempfile
 
     from dynosam_tpu_torch import make_fixture_sequence as mfs
+    from dynosam_tpu_torch import timing
 
     with tempfile.TemporaryDirectory(prefix="smoke_fixture_") as tmp:
         out = os.path.join(tmp, "kitti_fixture")
         buf = io.StringIO()
-        _zero_all_counts()
+        timing.zero_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             mfs.main(["--out", out, "--device", device])
         wall = time.perf_counter() - t0
-        launches = _all_counts()
+        launches = timing.counts()
         r = fixture_file_readings(KITTI_FIXTURE, out)
     return launches, r, buf.getvalue().splitlines(), wall
 
@@ -3818,11 +3792,149 @@ def run_multichip_path(torch, seed, ref_path, device="cuda", smi=""):
     return paths
 
 
-# phases 5-22 that run in a second process beside this one's (the host-bound
-# pipeline, dataset and experiment runs, and the tracked-scene phases, which
-# render on the host: ~half of the phases' time)
+# phase 23: the timing programs (dynosam_tpu_torch/{bench,bisect_perf,
+# bench_table,bench_batched,profile_breakdown,bench_mesh_scaling}.py, the
+# ports of bench.py and scripts/{bisect_perf,bench_table,bench_batched,
+# profile_breakdown,bench_mesh_scaling}.py), cut: each program's argv and
+# the K1 (K1b on the batched programs) launches its run implies, counted
+# over the whole run (set-up steps included). bench: the first frame, 4
+# warm-up frames and 30 measured; bisect_perf: per variant the first, 7
+# warm-up and 5 measured; bench_table: per synthetic row the first, 9
+# warm-up, 10 measured and 2 profiled, real-io 10 warm + 10 measured and
+# again 10 warm + 2 profiled (the detector row's K2 entry B once per its
+# frame); bench_batched: B=8, the first, 4 warm-up and 5 measured;
+# profile_breakdown: 12 filling steps, the packet's frontend step and 3 +
+# 5 calls of each of the two stages that run the frontend;
+# bench_mesh_scaling: the B=1 program's 2 + 3 steps in this process, 3 + 3
+# steady steps on each rank.
+TIMING_MEASURE = 10
+TIMING_PROFILED = 2
+TIMING_N = 5
+TIMING_MESH_STEPS = 3
+TIMING_VARIANTS = ("shipped", "all_off")
+
+
+def timing_program_runs(device, seed, out, small=False):
+    """[(name, main, argv, {kernel: launches expected on the card})] of
+    phase 23, in order (`small`: the graft's configuration, for a quick
+    CPU run)."""
+    from dynosam_tpu_torch import (bench, bench_batched, bench_mesh_scaling, bench_table, bisect_perf,
+                                   profile_breakdown)
+
+    common = ["--device", device, "--seed", str(seed)] + (["--small"] if small else [])
+    synth = 1 + (bench_table.WARMUP - 1) + TIMING_MEASURE + TIMING_PROFILED
+    warm_io = 8 + 2       # kitti_real_io_config's max_frames + 2
+    fill = (6 if small else 10) + 2
+    return [
+        ("bench", bench.main, ["--worker"] + common, {"K1": 1 + (bench.WARMUP - 1) + bench.MEASURE}),
+        ("bisect_perf", bisect_perf.main, ["--variants", ",".join(TIMING_VARIANTS), "-n", str(TIMING_N)] + common,
+         {"K1": len(TIMING_VARIANTS) * (1 + (bisect_perf.WARMUP - 1) + TIMING_N)}),
+        ("bench_table", bench_table.main, ["--measure", str(TIMING_MEASURE), "--profile-frames", str(TIMING_PROFILED),
+                                           "--out", out] + common,
+         {"K1": 4 * synth + 2 * warm_io + TIMING_MEASURE + TIMING_PROFILED, "K2 label": synth}),
+        ("bench_batched", bench_batched.main, ["--batches", "8", "-n", str(TIMING_N), "--out", out] + common,
+         {"K1": 1 + (bench_batched.WARMUP - 1) + TIMING_N}),
+        ("profile_breakdown", profile_breakdown.main, ["-n", str(TIMING_N), "--updater", "3"] + common,
+         {"K1": fill + 1 + 2 * (profile_breakdown.STAGE_WARMUP + TIMING_N)}),
+        ("bench_mesh_scaling", bench_mesh_scaling.main,
+         ["--ranks", "2", "--backend", "gloo", "--steps", str(TIMING_MESH_STEPS), "--out", out, "--device", device,
+          "--seed", str(seed)],
+         {"K1": bench_mesh_scaling.WARM_STEPS + TIMING_MESH_STEPS}),
+    ]
+
+
+def run_timing_programs_path(torch, seed, device="cuda", smi="", small=False):
+    """Phase 23: the timing programs, each held to what its run must show
+    -> {path: launches}; the mesh program's ranks as paths of their own."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+
+    from dynosam_tpu_torch import timing
+
+    on_card = device == "cuda"
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "BENCH_TABLE.md")
+        for name, main, argv, want in timing_program_runs(device, seed, out, small):
+            timing.zero_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                r = main(argv)
+            dt = time.perf_counter() - t0
+            launches = timing.counts()
+            text = buf.getvalue()
+            for line in text.splitlines():
+                print(f"    {name} | {line}", flush=True)
+            want = {"K1": 0, "K1 map": 0, "K2": 0, "K2 label": 0, **(want if on_card else {})}
+            bad = {} if launches == want else {"launches": (launches, want)}
+            if name == "bench":
+                lines = [ln for ln in text.splitlines() if ln.strip().startswith("{")]
+                rec = json.loads(lines[0]) if len(lines) == 1 else {}
+                if len(lines) != 1 or set(rec) != {"metric", "value", "unit"}:
+                    bad["json"] = lines
+                elif not (math.isfinite(rec["value"]) and rec["value"] > 0) or rec["unit"] != "frames/s":
+                    bad["value"] = rec
+                if r["launches"] != launches:
+                    bad["reported launches"] = r["launches"]
+                note = (f"{rec.get('value', float('nan')):.4f} frames/s, first frame {r['first_s']:.3f} s, "
+                        f"host syncs per frame {r['syncs_per_frame']}")
+            elif name == "bisect_perf":
+                if set(r) != set(TIMING_VARIANTS) or not all(math.isfinite(v["ms"]) and v["ms"] > 0
+                                                             for v in r.values()):
+                    bad["rows"] = r
+                note = ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in r.items())
+            elif name == "bench_table":
+                from dynosam_tpu_torch.bench_table import ROWS
+
+                busy = [(k, v["busy_ms"], v["idle"]) for k, v in r.items()]
+                if list(r) != list(ROWS) or not all(math.isfinite(v["fps"]) and v["fps"] > 0 for v in r.values()):
+                    bad["rows"] = {k: v["fps"] for k, v in r.items()}
+                if on_card and not all(b is not None and b > 0 and 0.0 <= i <= 1.0 for _, b, i in busy):
+                    bad["busy"] = busy
+                if not os.path.exists(out):
+                    bad["table"] = out
+                note = ", ".join(f"{k} {v['fps']:.4f} frames/s (busy {v['busy_ms']} ms, idle {v['idle']})"
+                                 for k, v in r.items())
+            elif name == "bench_batched":
+                v = r[8]
+                if not (math.isfinite(v["fps"]) and v["fps"] > 0):
+                    bad["fps"] = v
+                note = f"B=8 {v['fps']:.4f} frames/s aggregate, first step {v['first_s']:.3f} s"
+            elif name == "profile_breakdown":
+                if r["digest_before"] != r["digest_after"]:
+                    bad["digest"] = (r["digest_before"], r["digest_after"])
+                if not all(m > 0 for m, _ in r["stages"].values()):
+                    bad["stages"] = r["stages"]
+                note = ", ".join(f"{k} {m:.3f} ms" for k, (m, _) in r["stages"].items()) + ", state unchanged"
+            else:
+                rank_want = {"K1": 2 * TIMING_MESH_STEPS if on_card else 0, "K1 map": 0, "K2": 0, "K2 label": 0}
+                if not (r["zero_collectives"] and r["per_rank_shapes_equal_b_over_p"]):
+                    bad["structure"] = r
+                for k, rl in enumerate(r["launches_per_rank"]):
+                    paths[f"timing_mesh_rank{k}"] = rl
+                    if rl != rank_want:
+                        bad[f"rank {k} launches"] = (rl, rank_want)
+                note = (f"collectives {r['collective_calls_in_steady_steps'] or 'none'}, profiled comm ops "
+                        f"{r['profiler_comm_ops_in_steady_steps'] or 'none'}, shapes equal B/P's; B=1 step "
+                        f"{r['t_step_b1_s'] * 1e3:.3f} ms, ranks {[round(t * 1e3, 3) for t in r['rank_t_step_s']]} ms")
+            paths[{"bench_batched": "timing_batched_b8", "bench_mesh_scaling": "timing_mesh_b1"}.get(
+                name, f"timing_{name}")] = launches
+            line = f"timing program {name} on {device} ({smi}), {dt:.1f} s: {note}; launches {launches}"
+            if bad:
+                raise AssertionError(f"phase 23 {name}: {bad}; {line}")
+            say(line)
+    return paths
+
+
+# phases 5-23 that run in a second process beside this one's (the host-bound
+# pipeline and experiment runs, the tracked-scene phases, which render on
+# the host, and the timing programs: ~half of the phases' time; phase 12's
+# dataset runs moved to the first lane when phase 23 came)
 SECOND_LANE = ("6t (tracked klt)", "7t (tracked stereo + IMU)", "9 (pipeline)", "11c (tracked batched stereo + IMU)",
-               "12 (datasets)", "16 (detector pipeline)", "18 (experiments)", "21 (fixture writer)")
+               "16 (detector pipeline)", "18 (experiments)", "21 (fixture writer)", "23 (timing programs)")
 
 
 def _timed(phase, fn, *a, **kw):
@@ -3833,7 +3945,7 @@ def _timed(phase, fn, *a, **kw):
 
 
 def main_path_phases(torch, seed, testdata, smi):
-    """{phase: (function, args, kwargs)} of phases 5-22, in order; each
+    """{phase: (function, args, kwargs)} of phases 5-23, in order; each
     returns its launches."""
     j = os.path.join
     return {
@@ -3871,6 +3983,7 @@ def main_path_phases(torch, seed, testdata, smi):
         "21 (fixture writer)": (run_fixture_writer_path, (torch,), {"smi": smi}),
         "22 (multichip)": (run_multichip_path, (torch, seed, j(testdata, "bench_batched_ref_b8_20f.npz")),
                            {"smi": smi}),
+        "23 (timing programs)": (run_timing_programs_path, (torch, seed), {"smi": smi}),
     }
 
 
@@ -3933,7 +4046,7 @@ def main():
     k1 = _timed("3 (K1)", check_k1, torch, args.seed)
     k2 = _timed("4 (K2)", check_k2, torch, args.seed, built[K2_V3_SOURCE][0])
 
-    # ---- 5-22. the main paths, counts zeroed just before each, in two lanes --
+    # ---- 5-23. the main paths, counts zeroed just before each, in two lanes --
     import multiprocessing
 
     phases = main_path_phases(torch, args.seed, testdata, smi)
@@ -3946,9 +4059,9 @@ def main():
      tracked_stereo_launches, det_launches, heldout_launches, (pipe_launches, _), forms_launches,
      batched_launches, tracked_batched_launches, dataset_launches, tooling_launches, modes_launches,
      rich_launches, det_pipe_launches, train_launches, exp_launches, scale_launches, streaming_launches,
-     fixture_launches, multichip_launches) = (out[name] for name in phases)
+     fixture_launches, multichip_launches, timing_launches) = (out[name] for name in phases)
 
-    # ---- 23. results ------------------------------------------------------------
+    # ---- 24. results ------------------------------------------------------------
     paths = {"bench": bench_launches, "pipelined": pipelined_launches, "klt": klt_launches,
              "stereo_imu": stereo_launches, "klt_tracked": tracked_klt_launches,
              "stereo_imu_tracked": tracked_stereo_launches, "detector": det_launches, "heldout": heldout_launches,
@@ -3957,9 +4070,10 @@ def main():
              **{f"tooling_{k}": v for k, v in tooling_launches.items()}, **modes_launches, "rich": rich_launches,
              "detector_pipeline": det_pipe_launches, "train": train_launches, "experiments": exp_launches,
              "scale": scale_launches, "streaming": streaming_launches, "fixture_writer": fixture_launches,
-             **multichip_launches}
-    # the batched step's paths, and each multichip rank's (its B/P sequences)
-    batched = {p for p in paths if p.startswith(("batched_", "multichip_"))}
+             **multichip_launches, **timing_launches}
+    # the batched step's paths, each multichip rank's (its B/P sequences) and
+    # the batched timing programs'
+    batched = {p for p in paths if p.startswith(("batched_", "multichip_", "timing_batched_", "timing_mesh_"))}
 
     def row(name, kid, source, replaces, check, only=None, **extra):
         # K1's counter counts the fused entry on every path; on the batched

@@ -51,6 +51,8 @@ from dynosam_tpu_torch.utils import lie
 
 HEIGHT, WIDTH = 384, 1280
 DET_HEIGHT, DET_WIDTH = 384, 640
+# the bench's distinct frames, stepped through in turn (bench.py)
+DISTINCT_FRAMES = 8
 
 
 def bench_config():
@@ -133,6 +135,70 @@ def bench_scene(intr, num_frames=10, device="cuda", world_texture=False,
     return DenseScenario(_bench_spec(num_frames, forward_m), intr, ground_y=ground_y, far_depth=60.0,
                          object_half_extents=[(1.6, 1.6)] * 3, world_texture=world_texture,
                          device=device)
+
+
+def bench_frames(intr, num_frames=DISTINCT_FRAMES, world_texture=False, device="cuda"):
+    """bench.py::make_frames: the first `num_frames` frames of the bench
+    scene, rendered on `device`."""
+    return bench_scene(intr, num_frames, device=device, world_texture=world_texture).frames()
+
+
+def small_config():
+    """__graft_entry__.py::_small_config: 128 static + 128 dynamic track
+    slots, cell 8, 4 objects, 64 hypotheses, hybrid incremental over a
+    6-frame window, 2 LM iterations."""
+    return DynoConfig(
+        frontend=FrontendParams(
+            max_objects=4,
+            tracker=TrackerParams(
+                max_features_per_frame=128,
+                min_features_per_frame=48,
+                max_dynamic_features_per_frame=128,
+                detection_cell_size=8,
+                min_corner_response=1e-6,
+            ),
+            motion_solver=MotionSolverParams(
+                camera=RansacParams(ransac_iterations=64),
+                object=RansacParams(ransac_iterations=64, min_inliers=8),
+                refinement_iterations=4,
+            ),
+        ),
+        backend=BackendParams(
+            optimization_mode=2,
+            backend_updater_enum=3,
+            max_frames=6,
+            max_objects=4,
+            max_static_landmarks=128,
+            max_dynamic_landmarks=128,
+            optimizer=OptimizerParams(max_iterations=2),
+        ),
+    )
+
+
+def small_intr(width=128, height=96):
+    """__graft_entry__.py::_intr: fx = fy = 0.55 width, centred."""
+    return cam.CameraIntrinsics.create(
+        fx=width * 0.55, fy=width * 0.55, cx=width / 2, cy=height / 2, width=width, height=height,
+    )
+
+
+def small_frame_inputs(width=128, height=96, batch=None, device="cuda") -> FrameInputs:
+    """__graft_entry__.py::_frame_inputs: one random frame (uniform RGB,
+    depth 5-15 m, standard normal flow, one object box) from
+    `numpy.random.default_rng(0)`, with a leading axis of `batch` copies'
+    shape (each drawn anew, as the reference draws the whole array) when
+    given."""
+    shape = (height, width) if batch is None else (batch, height, width)
+    rng = np.random.default_rng(0)
+    mask = torch.zeros(shape, dtype=torch.int32)
+    mask[..., 30:60, 40:80] = 1
+    return FrameInputs(
+        frame_id=torch.ones(shape[:-2], dtype=torch.int32),
+        rgb=torch.from_numpy(rng.random(shape + (3,), np.float32)),
+        depth=torch.from_numpy(5.0 + 10.0 * rng.random(shape, np.float32)),
+        flow=torch.from_numpy(rng.standard_normal(shape + (2,)).astype(np.float32)),
+        mask=mask,
+    ).to(device)
 
 
 # The tracked scene: the bench scene with the camera raised to

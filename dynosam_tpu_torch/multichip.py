@@ -45,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from dynosam_tpu_torch.timing import counts, since, sync
 from dynosam_tpu_torch.parallel import group as grp
 
 # sharded against unsharded outputs, largest |difference| (ids and flags
@@ -66,27 +67,6 @@ SHARD_BOUNDS = {"X_world_cam": 2e-4, "frontend_pose": 2e-4, "object_motions": 1.
 OPT_POSE, OPT_MOTION, LIN_REL = 2e-4, 2e-3, 1e-5
 ITERATIONS = 5
 LAM = 1e-4
-
-
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _zero_counts():
-    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
-    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
-
-    for fn in (st.shi_tomasi_cell_max, st.shi_tomasi_response, mc.mask_combine, mc.mask_label):
-        fn.launches = 0
-
-
-def _counts():
-    from dynosam_tpu_torch.ops.cuda import mask_combine as mc
-    from dynosam_tpu_torch.ops.cuda import shi_tomasi as st
-
-    return {"K1": st.shi_tomasi_cell_max.launches, "K1 map": st.shi_tomasi_response.launches,
-            "K2": mc.mask_combine.launches, "K2 label": mc.mask_label.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +137,7 @@ def _run_batched(step, state, frames, device, group=None):
     for fr in frames:
         t0 = time.perf_counter()
         state, out = step(state, shard_rows(fr, group))
-        _sync(device)
+        sync(device)
         times.append(time.perf_counter() - t0)
         outs.append(out)
     return outs, times
@@ -227,12 +207,12 @@ def batched_rank(group, cfg, intr, frames, seed=0, draws=None, reference=True):
 
     step, init = make_batched_pipeline(cfg, intr, source(), group=group)
     state = init(B, device)
-    _sync(device)
-    _zero_counts()
+    sync(device)
+    before = counts()
     t0 = time.perf_counter()
     outs, times = _run_batched(step, state, full, device, group)
     wall = time.perf_counter() - t0
-    launches = _counts()
+    launches = since(before)
     res = {"rank": group.rank, "device": str(device), "backend": group.backend, "launches": launches,
            "threads": torch.get_num_threads(), "rows": B // group.world, "setup_s": setup, "wall_s": wall,
            "times": times,
@@ -278,7 +258,7 @@ def sharded_rank(group, state, cfg, iterations=ITERATIONS, reference=True, lam=L
         from dynosam_tpu_torch.parallel.batched import _map_tensors
 
         state = _map_tensors(lambda t: t.to(device), state)
-    _sync(device)
+    sync(device)
     build = time.perf_counter() - t0
     lam_t = torch.tensor(lam, dtype=state.X.dtype, device=device)
     chunk = sharded.shard_state(state, group)
@@ -288,10 +268,10 @@ def sharded_rank(group, state, cfg, iterations=ITERATIONS, reference=True, lam=L
     def on_step(dx):
         spread["dx"] = max(spread["dx"], grp.max_diff_from_rank0(dx, group))
 
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     out = sharded.sharded_optimize(chunk, cfg, group, iterations=iterations, on_step=on_step)
-    _sync(device)
+    sync(device)
     wall = time.perf_counter() - t0
     merged = sharded.gather_state(out, group)
     res = {"rank": group.rank, "device": str(device), "backend": group.backend, "spread": spread,

@@ -12,11 +12,17 @@ import os
 import pytest
 
 from dynosam_tpu import config as jconfig
+from dynosam_tpu_torch import bench as tbenchmod
+from dynosam_tpu_torch import bench_batched as tbatchedbench
 from dynosam_tpu_torch import bench_config as tbench
+from dynosam_tpu_torch import bench_mesh_scaling as tmesh
+from dynosam_tpu_torch import bench_table as ttable
+from dynosam_tpu_torch import bisect_perf as tbisect
 from dynosam_tpu_torch import config as tconfig
 from dynosam_tpu_torch import exp_streaming as tstream
 from dynosam_tpu_torch import make_fixture_sequence as tfixture
 from dynosam_tpu_torch import multichip as tmultichip
+from dynosam_tpu_torch import profile_breakdown as tprofile
 from dynosam_tpu_torch import run_dynosam as trun
 from dynosam_tpu_torch import run_experiments as trx
 from dynosam_tpu_torch import scale_check as tscale
@@ -104,10 +110,11 @@ def _port_sources():
 
 
 def _reaches_the_jax_package(name):
-    """The JAX package and JAX itself, and the image libraries the card's
-    machine lacks (the port decodes PNGs itself)."""
+    """The JAX package and JAX itself, the reference's top-level modules
+    that reach it (bench.py, __graft_entry__.py), and the image libraries
+    the card's machine lacks (the port decodes PNGs itself)."""
     return name is not None and name.split(".")[0] in (
-        "dynosam_tpu", "jax", "jaxlib", "flax", "cv2", "PIL")
+        "dynosam_tpu", "jax", "jaxlib", "flax", "cv2", "PIL", "bench", "__graft_entry__")
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
@@ -128,7 +135,11 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("module", [tstream, tfixture, tmultichip, tgroup], ids=lambda m: m.__name__.split(".")[-1])
+TIMING_PROGRAMS = [tbenchmod, tprofile, tbisect, ttable, tbatchedbench, tmesh]
+
+
+@pytest.mark.parametrize("module", [tstream, tfixture, tmultichip, tgroup] + TIMING_PROGRAMS,
+                         ids=lambda m: m.__name__.split(".")[-1])
 def test_import_scan_covers_the_script_ports(module):
     assert os.path.realpath(module.__file__) in {os.path.realpath(p) for p in _port_sources()}
 
@@ -150,6 +161,8 @@ def test_port_sources_load_no_native_library():
     tdense.DenseScenario.__init__,
     tdense.default_dense_scenario,
     tbench.bench_scene,
+    tbench.bench_frames,
+    tbench.small_frame_inputs,
     tbench.detector_scene,
     tdet.YoloV8DetectorEngine.__init__,
     tbt.empty_state,
@@ -193,8 +206,19 @@ def test_command_line_defaults_to_the_card():
     assert _argparse_defaults(trun.main)["device"] == "cuda"
 
 
-@pytest.mark.parametrize("module", [tstream, tfixture, tscale, trx, ttrain, tmultichip],
+@pytest.mark.parametrize("module", [tstream, tfixture, tscale, trx, ttrain, tmultichip] + TIMING_PROGRAMS,
                          ids=lambda m: m.__name__.split(".")[-1])
 def test_script_ports_default_to_the_card(module):
     """The ports of the reference's scripts take --device, default cuda."""
     assert _argparse_defaults(module.main)["device"] == "cuda"
+
+
+@pytest.mark.parametrize("module", TIMING_PROGRAMS, ids=lambda m: m.__name__.split(".")[-1])
+def test_timing_programs_stop_without_a_card(module, monkeypatch):
+    """At their defaults the timing programs refuse to run where no card
+    is found; they never carry on on the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main([])

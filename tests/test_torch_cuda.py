@@ -68,13 +68,15 @@ def test_kernel_rejects_a_noncontiguous_tensor(cuda):
 
 @pytest.mark.parametrize("batch", [None, 8])
 @pytest.mark.parametrize("cell", [8, 16])
-@pytest.mark.parametrize("hw", [(384, 1280), (384, 640), (100, 90), (375, 1242), (384, 1248), (96, 320)])
+@pytest.mark.parametrize("hw", [(384, 1280), (384, 640), (100, 90), (375, 1242), (384, 1248), (96, 320),
+                                (96, 128)])
 def test_fused_cell_max_equals_plain_version(cuda, hw, cell, batch):
     """Responses bit for bit (no FMA contraction on either side), so the
     per-cell maxima and their pixels are equal in every cell. 375x1242 and
     100x90 take the scalar loads (W % 4 != 0); 384x1248 and 96x320 (the
     padded rich fixture and the dyno-KITTI fixture) the 16-byte loads of a
-    last column tile narrower than the kernel's."""
+    last column tile narrower than the kernel's; 96x128 (the graft's small
+    configuration) one column tile that is both the first and the last."""
     shape = hw if batch is None else (batch, *hw)
     img = torch.rand(shape, generator=cuda, device="cuda")
     before = st.shi_tomasi_cell_max.launches
@@ -90,7 +92,7 @@ def test_fused_cell_max_equals_plain_version(cuda, hw, cell, batch):
                 assert torch.equal(a[b], one)
 
 
-@pytest.mark.parametrize("hw", [(384, 640), (384, 1248), (96, 320)])
+@pytest.mark.parametrize("hw", [(384, 640), (384, 1248), (96, 320), (96, 128)])
 @pytest.mark.parametrize("cell", [8, 16])
 def test_fused_cell_max_ties_take_each_cells_first_pixel(cuda, cell, hw):
     img = torch.full(hw, 0.5, device="cuda")

@@ -340,13 +340,15 @@ def xla_cholesky(monkeypatch):
     monkeypatch.setattr(torch.linalg, "cholesky_ex", cholesky_ex)
 
 
-def fused_step_readings(cfg, n):
+def fused_step_readings(cfg, n, image_shape=False):
     """The fused step of both packages over the first `n` frames of the
     dense test scene -> (largest camera-pose entry difference, largest
     object-motion entry difference over the motions valid on both sides,
     motions compared, the port's final graph, the reference's). Object ids
     and motion validity must be equal in every frame. The scene is
-    noise-free: RANSAC's outcome does not depend on the draws."""
+    noise-free: RANSAC's outcome does not depend on the draws. With
+    `image_shape` both states are built with the frames' shape, so mask
+    propagation runs."""
     import jax
 
     from dynosam_tpu.dataproviders.synthetic_dense import default_dense_scenario as j_dense
@@ -355,11 +357,12 @@ def fused_step_readings(cfg, n):
     from dynosam_tpu_torch.parallel import batched as tbatched
 
     jd, td = j_dense(num_frames=n), t_dense(num_frames=n, device="cpu")
+    hw = (jd.intr.height, jd.intr.width) if image_shape else None
     jstep = jax.jit(jbatched.make_fused_step(cfg, jd.intr))
-    js = jbatched.init_pipeline_state(cfg)
+    js = jbatched.init_pipeline_state(cfg, image_shape=hw)
     tcfg = port_cfg(cfg)
     tstep = tbatched.make_fused_step(tcfg, td.intr, torch.Generator().manual_seed(0))
-    ts = tbatched.init_pipeline_state(tcfg, "cpu")
+    ts = tbatched.init_pipeline_state(tcfg, "cpu", image_shape=hw)
     pose_err, motion_err, n_motions = 0.0, 0.0, 0
     for k in range(n):
         js, jo = jstep(js, jd.frame(k))
