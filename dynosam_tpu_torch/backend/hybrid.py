@@ -51,6 +51,7 @@ from dynosam_tpu_torch.backend.solver import (
 )
 from dynosam_tpu_torch.ops.block_tridiag import inv3
 from dynosam_tpu_torch.utils import lie
+from dynosam_tpu_torch.utils.stats import span
 
 
 class _HybridLin(NamedTuple):
@@ -406,7 +407,8 @@ def optimize_decoupled(state: GraphState, cfg: BackendParams) -> GraphState:
     def err_cam(st, cfg_):
         return total_error(st, cfg_, dynamic_scale=0.0)
 
-    state = lm_accept_reject(state, cfg, lin_cam, _apply_update, solve_cam, err_cam)
+    with span("backend.optimize.camera"):
+        state = lm_accept_reject(state, cfg, lin_cam, _apply_update, solve_cam, err_cam)
 
     # Phase 2 — every object with the camera frozen, full objective
     def solve_obj(lin):
@@ -414,10 +416,11 @@ def optimize_decoupled(state: GraphState, cfg: BackendParams) -> GraphState:
         dx = torch.cat([dh.new_zeros(dh.shape[:-1] + (n,)), _clip_step(dh, op.gn_max_step)], dim=-1)
         return gate_dx_by_type(dx, F, op)
 
-    return lm_accept_reject(
-        state, cfg, linearize, _apply_update, solve_obj, total_error,
-        iterations=obj_iters,
-    )
+    with span("backend.optimize.objects"):
+        return lm_accept_reject(
+            state, cfg, linearize, _apply_update, solve_obj, total_error,
+            iterations=obj_iters,
+        )
 
 
 def marginal_covariances(state: GraphState, cfg: BackendParams):

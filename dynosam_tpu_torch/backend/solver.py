@@ -22,6 +22,7 @@ decisions are per sequence, as under the reference's vmap.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -31,6 +32,7 @@ from dynosam_tpu_torch.backend import factors
 from dynosam_tpu_torch.backend.graph import GraphState
 from dynosam_tpu_torch.ops import block_tridiag as bt
 from dynosam_tpu_torch.utils import lie
+from dynosam_tpu_torch.utils.stats import count, count_tensor, span
 
 _EPS_REG = 1e-5  # Tikhonov floor so padded/unconstrained variables stay SPD
 
@@ -207,16 +209,24 @@ def lm_accept_reject(
     error decrease falls below absolute_error_tol or relative_error_tol * err,
     the remaining iterations are masked no-ops. `accept`, `done` and the
     damping stay tensors, so the loop never waits on the device; over a
-    batch of sequences each is per sequence."""
+    batch of sequences each is per sequence. While tracing, the lanes run
+    per iteration and the lanes already done at its start are counted."""
     op = cfg.optimizer
-    err = error_fn(state, cfg)
+    with span("lm.error"):
+        err = error_fn(state, cfg)
     lead = state.batch_shape
+    lanes = math.prod(lead)
     lam = torch.full(lead, op.lm_initial_lambda, dtype=state.X.dtype, device=state.X.device)
     done = torch.zeros(lead, dtype=torch.bool, device=state.X.device)
     for _ in range(op.max_iterations if iterations is None else iterations):
-        lin = linearize_fn(state, cfg, lam)
-        cand = apply_fn(state, lin, solve_fn(lin))
-        new_err = error_fn(cand, cfg)
+        count("lm.lane_iterations", lanes)
+        count_tensor("lm.idle_lane_iterations", done)
+        with span("lm.linearize"):
+            lin = linearize_fn(state, cfg, lam)
+        with span("lm.solve"):
+            cand = apply_fn(state, lin, solve_fn(lin))
+        with span("lm.error"):
+            new_err = error_fn(cand, cfg)
         accept = (new_err < err) & torch.isfinite(new_err) & ~done
         state = _select(accept, cand, state)
         decrease = err - new_err

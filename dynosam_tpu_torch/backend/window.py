@@ -47,6 +47,7 @@ from dynosam_tpu_torch.backend.solver import _EPS_REG, _object_onehot, _per_seq,
 from dynosam_tpu_torch.frontend.types import rows
 from dynosam_tpu_torch.ops.block_tridiag import inv3
 from dynosam_tpu_torch.utils import lie
+from dynosam_tpu_torch.utils.stats import count, span
 
 
 def _slot_index(F: int, J: int, f: int, device):
@@ -483,12 +484,15 @@ def _marginal_sqrt(M_perm, g_perm, s_eq, Ln, info, nd):
     ok_host = ok.tolist()
     L_red, b_red = _chol_sqrt(s_eq[..., :, None] * Ln, g_perm, nd)
     n_bad = ok_host.count(False)
+    count("advance.lanes", len(ok_host))
+    count("advance.eigh_lanes", n_bad)
     if n_bad:
-        # the failed sequences first (a stable sort keeps their order)
-        bad = torch.argsort(ok.to(torch.int8), stable=True)[:n_bad]
-        L_eig, b_eig = _eigh_sqrt(M_perm[bad], g_perm[bad], nd)
-        L_red = L_red.index_copy(0, bad, L_eig)
-        b_red = b_red.index_copy(0, bad, b_eig)
+        with span("backend.advance.eigh"):
+            # the failed sequences first (a stable sort keeps their order)
+            bad = torch.argsort(ok.to(torch.int8), stable=True)[:n_bad]
+            L_eig, b_eig = _eigh_sqrt(M_perm[bad], g_perm[bad], nd)
+            L_red = L_red.index_copy(0, bad, L_eig)
+            b_red = b_red.index_copy(0, bad, b_eig)
     return L_red, b_red
 
 

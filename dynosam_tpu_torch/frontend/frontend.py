@@ -22,6 +22,12 @@ and stereo as above. Every operation then runs once for the batch; whether
 the frames carry a right image or an IMU window is decided for the whole
 batch, as under the reference's vmap. KLT and mask propagation do not run
 batched, as in the reference, whose batch is built without an image shape.
+
+While `utils/stats.py::tracing` is on, a step records the span `frontend`
+and inside it `frontend.track`, `frontend.stereo` (each stereo match),
+`frontend.imu` (the preintegration), `frontend.camera` (the camera solve
+and its joint refinement) and `frontend.objects` (the object motions and
+theirs).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from dynosam_tpu_torch.frontend.types import (
 )
 from dynosam_tpu_torch.ops import interp
 from dynosam_tpu_torch.utils import lie
+from dynosam_tpu_torch.utils.stats import span
 
 
 @dataclass
@@ -144,6 +151,11 @@ def frontend_step(
 ):
     """Process one frame -> (new FrontendState, VisionPacket). RANSAC
     samples come from `generator` (on the frame's device)."""
+    with span("frontend"):
+        return _frontend_step(state, inputs, intr, params, generator)
+
+
+def _frontend_step(state, inputs, intr, params, generator):
     nb = state.frame_idx.ndim
     first = state.frame_idx == 0
     not_first = ~first
@@ -177,11 +189,12 @@ def frontend_step(
         repaired = _propogate_mask_repair(old, state.prev_mask, inputs.flow, inputs.mask, params)
         mask_k = torch.where(first, inputs.mask, repaired)
 
-    tracker = track_frame(
-        old, gray, inputs.depth, inputs.flow, mask_k, params, first_frame=first,
-        prev_gray=state.prev_gray if klt_mode else None,
-        gray_lk=gray_t if klt_mode else None,
-    )
+    with span("frontend.track"):
+        tracker = track_frame(
+            old, gray, inputs.depth, inputs.flow, mask_k, params, first_frame=first,
+            prev_gray=state.prev_gray if klt_mode else None,
+            gray_lk=gray_t if klt_mode else None,
+        )
     dtype = tracker.s_uv.dtype
     eye4 = torch.eye(4, dtype=dtype, device=gray.device)
 
@@ -193,12 +206,13 @@ def frontend_step(
         right_gray = _to_gray(inputs.right).contiguous()
 
         def _stereo_refresh(trk):
-            depth_st, _, ok = stereo_mod.stereo_track(
-                gray, right_gray, trk.s_uv, trk.s_valid, intr.fx, intr.baseline,
-                levels=tp.klt_levels, half=max(tp.klt_window_half, 3), iters=tp.klt_iterations,
-                min_eig=tp.klt_min_eig, fb_threshold=tp.klt_fb_threshold,
-            )
-            return dataclasses.replace(trk, s_depth=torch.where(ok & trk.s_valid, depth_st, trk.s_depth))
+            with span("frontend.stereo"):
+                depth_st, _, ok = stereo_mod.stereo_track(
+                    gray, right_gray, trk.s_uv, trk.s_valid, intr.fx, intr.baseline,
+                    levels=tp.klt_levels, half=max(tp.klt_window_half, 3), iters=tp.klt_iterations,
+                    min_eig=tp.klt_min_eig, fb_threshold=tp.klt_fb_threshold,
+                )
+                return dataclasses.replace(trk, s_depth=torch.where(ok & trk.s_valid, depth_st, trk.s_depth))
 
         tracker = _stereo_refresh(tracker)
 
@@ -222,7 +236,8 @@ def frontend_step(
     if use_imu:
         imu_params = _imu_params(tuple(params.imu.gravity), tuple(params.imu.accel_bias),
                                  tuple(params.imu.gyro_bias), gray.device)
-        pim = imu_mod.preintegrate(inputs.imu_samples, inputs.imu_valid, imu_params)
+        with span("frontend.imu"):
+            pim = imu_mod.preintegrate(inputs.imu_samples, inputs.imu_valid, imu_params)
         pim_dt = pim.dt
         X_imu, _ = imu_mod.predict(state.X_prev, state.v_world, pim, imu_params)
         has_imu = (pim.dt > 0) & not_first
@@ -233,12 +248,6 @@ def frontend_step(
                 has_imu[..., None, None], lie.rotation(X_imu).transpose(-1, -2),
                 lie.rotation(X_prior).transpose(-1, -2),
             )
-
-    cam_res = motion.solve_camera_pose(
-        generator, pts_world_prev, tracker.s_uv, pts_cam_k, s_match,
-        intr, params.motion_solver, X_prior, R_known=R_known,
-    )
-    X_k = torch.where(first[..., None, None], eye4, cam_res.pose)
 
     ms = params.motion_solver
     H_img, W_img = gray.shape[-2], gray.shape[-1]
@@ -251,26 +260,33 @@ def frontend_step(
             & (uv[..., 1] <= H_img - 2.0)
         )
 
-    # ---- joint optical-flow + camera-pose refinement ----------------------
-    if ms.refine_camera_pose_with_joint_of:
-        ref_mask = s_match & cam_res.valid[..., None]
-        T_ref, f_s, _ = motion.joint_flow_pose_refine(
-            lie.inverse(X_k), pts_world_prev, old.s_uv,
-            tracker.s_uv - old.s_uv, ref_mask, intr, ms,
+    with span("frontend.camera"):
+        cam_res = motion.solve_camera_pose(
+            generator, pts_world_prev, tracker.s_uv, pts_cam_k, s_match,
+            intr, ms, X_prior, R_known=R_known,
         )
-        X_k = torch.where((cam_res.valid & not_first)[..., None, None], lie.inverse(T_ref), X_k)
-        uv_ref = old.s_uv + f_s
-        depth_ref = interp.sample_depth(inputs.depth, uv_ref, nb).to(dtype)
-        upd = ref_mask & (depth_ref > 0) & _uv_in_bounds(uv_ref)
-        tracker = dataclasses.replace(
-            tracker,
-            s_uv=torch.where(upd[..., None], uv_ref, tracker.s_uv),
-            s_depth=torch.where(upd, depth_ref, tracker.s_depth),
-        )
-        # stereoTrack #2: the refinement moved the keypoints, so match them
-        # into the right image again
-        if has_right:
-            tracker = _stereo_refresh(tracker)
+        X_k = torch.where(first[..., None, None], eye4, cam_res.pose)
+
+        # ---- joint optical-flow + camera-pose refinement ----------------------
+        if ms.refine_camera_pose_with_joint_of:
+            ref_mask = s_match & cam_res.valid[..., None]
+            T_ref, f_s, _ = motion.joint_flow_pose_refine(
+                lie.inverse(X_k), pts_world_prev, old.s_uv,
+                tracker.s_uv - old.s_uv, ref_mask, intr, ms,
+            )
+            X_k = torch.where((cam_res.valid & not_first)[..., None, None], lie.inverse(T_ref), X_k)
+            uv_ref = old.s_uv + f_s
+            depth_ref = interp.sample_depth(inputs.depth, uv_ref, nb).to(dtype)
+            upd = ref_mask & (depth_ref > 0) & _uv_in_bounds(uv_ref)
+            tracker = dataclasses.replace(
+                tracker,
+                s_uv=torch.where(upd[..., None], uv_ref, tracker.s_uv),
+                s_depth=torch.where(upd, depth_ref, tracker.s_depth),
+            )
+    # stereoTrack #2: the refinement moved the keypoints, so match them
+    # into the right image again
+    if ms.refine_camera_pose_with_joint_of and has_right:
+        tracker = _stereo_refresh(tracker)
 
     # ---- object motions -----------------------------------------------------
     d_match = old.d_valid & tracker.d_valid & (old.d_tid == tracker.d_tid) & not_first[..., None]
@@ -290,54 +306,55 @@ def frontend_step(
         obj_low_count > params.scene_flow_percentage * obj_match_count
     )
 
-    obj_res = motion.solve_all_object_motions(
-        generator, tracker.obj_ids, tracker.d_oid, pts_world_prev_d,
-        tracker.d_uv, pts_world_k_d, d_match, X_k, intr, ms,
-    )
+    with span("frontend.objects"):
+        obj_res = motion.solve_all_object_motions(
+            generator, tracker.obj_ids, tracker.d_oid, pts_world_prev_d,
+            tracker.d_uv, pts_world_k_d, d_match, X_k, intr, ms,
+        )
 
-    # ---- joint optical-flow + object-motion refinement (batched over J) --
-    obj_motions = obj_res.pose
-    if ms.refine_motion_with_joint_of:
-        T_cw_k = lie.inverse(X_k)
-        flow_d = tracker.d_uv - old.d_uv
-        oid = tracker.obj_ids
-        mask_j = (
-            d_match[..., None, :] & in_slot & (oid > 0)[..., :, None] & obj_res.valid[..., :, None]
-        )                                                               # (J, Nd)
-        T0 = lie.compose(T_cw_k[..., None, :, :], obj_res.pose)        # (J, 4, 4)
-        # a batch's per-sequence tracks broadcast over its object slots
-        lift = (lambda x: x[:, None]) if nb else (lambda x: x)
-        T_r, f_d_all, _ = motion.joint_flow_pose_refine(
-            T0, lift(pts_world_prev_d), lift(old.d_uv), lift(flow_d), mask_j, intr, ms
-        )
-        # trust-region acceptance: a large departure from the RANSAC+GN
-        # answer signals an ill-conditioned solve
-        depart = torch.linalg.norm(
-            lie.se3_log(lie.compose(lie.inverse(T0), T_r)), dim=-1
-        )
-        H_ref = lie.compose(X_k[..., None, :, :], T_r)
-        n_support = torch.sum(mask_j, dim=-1)
-        ref_ok = (
-            obj_res.valid
-            & (oid > 0)
-            & (n_support >= ms.object.min_inliers)
-            & (depart <= ms.joint_of_max_step)
-        )
-        obj_motions = torch.where(ref_ok[..., None, None], H_ref, obj_res.pose)
-        # each dynamic feature takes the flow of its own object's slot
-        slot_hit = in_slot & ref_ok[..., :, None]                       # (J, Nd)
-        slot_idx = first_true(slot_hit, -2)
-        has_slot = torch.any(slot_hit, dim=-2)
-        nd = slot_idx.shape[-1]
-        f_d = f_d_all[rows(slot_idx, nb) + (torch.arange(nd, device=slot_idx.device),)]
-        uv_ref_d = old.d_uv + f_d
-        depth_ref_d = interp.sample_depth(inputs.depth, uv_ref_d, nb).to(dtype)
-        upd_d = d_match & has_slot & (depth_ref_d > 0) & _uv_in_bounds(uv_ref_d)
-        tracker = dataclasses.replace(
-            tracker,
-            d_uv=torch.where(upd_d[..., None], uv_ref_d, tracker.d_uv),
-            d_depth=torch.where(upd_d, depth_ref_d, tracker.d_depth),
-        )
+        # ---- joint optical-flow + object-motion refinement (batched over J) --
+        obj_motions = obj_res.pose
+        if ms.refine_motion_with_joint_of:
+            T_cw_k = lie.inverse(X_k)
+            flow_d = tracker.d_uv - old.d_uv
+            oid = tracker.obj_ids
+            mask_j = (
+                d_match[..., None, :] & in_slot & (oid > 0)[..., :, None] & obj_res.valid[..., :, None]
+            )                                                               # (J, Nd)
+            T0 = lie.compose(T_cw_k[..., None, :, :], obj_res.pose)        # (J, 4, 4)
+            # a batch's per-sequence tracks broadcast over its object slots
+            lift = (lambda x: x[:, None]) if nb else (lambda x: x)
+            T_r, f_d_all, _ = motion.joint_flow_pose_refine(
+                T0, lift(pts_world_prev_d), lift(old.d_uv), lift(flow_d), mask_j, intr, ms
+            )
+            # trust-region acceptance: a large departure from the RANSAC+GN
+            # answer signals an ill-conditioned solve
+            depart = torch.linalg.norm(
+                lie.se3_log(lie.compose(lie.inverse(T0), T_r)), dim=-1
+            )
+            H_ref = lie.compose(X_k[..., None, :, :], T_r)
+            n_support = torch.sum(mask_j, dim=-1)
+            ref_ok = (
+                obj_res.valid
+                & (oid > 0)
+                & (n_support >= ms.object.min_inliers)
+                & (depart <= ms.joint_of_max_step)
+            )
+            obj_motions = torch.where(ref_ok[..., None, None], H_ref, obj_res.pose)
+            # each dynamic feature takes the flow of its own object's slot
+            slot_hit = in_slot & ref_ok[..., :, None]                       # (J, Nd)
+            slot_idx = first_true(slot_hit, -2)
+            has_slot = torch.any(slot_hit, dim=-2)
+            nd = slot_idx.shape[-1]
+            f_d = f_d_all[rows(slot_idx, nb) + (torch.arange(nd, device=slot_idx.device),)]
+            uv_ref_d = old.d_uv + f_d
+            depth_ref_d = interp.sample_depth(inputs.depth, uv_ref_d, nb).to(dtype)
+            upd_d = d_match & has_slot & (depth_ref_d > 0) & _uv_in_bounds(uv_ref_d)
+            tracker = dataclasses.replace(
+                tracker,
+                d_uv=torch.where(upd_d[..., None], uv_ref_d, tracker.d_uv),
+                d_depth=torch.where(upd_d, depth_ref_d, tracker.d_depth),
+            )
 
     # ---- packet --------------------------------------------------------------
     # observability floor: objects with too little detection-mask support

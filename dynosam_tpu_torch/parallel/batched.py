@@ -18,6 +18,11 @@ sequence. Given a process group (`parallel/group.py`, the reference's
 `mesh=`), each rank steps its own B/P consecutive sequences; `shard_rows`
 takes a rank's rows of the batch's inputs and `gather_outputs` puts the
 sequences' outputs together on rank 0.
+
+While `utils/stats.py::tracing` is on, the batched step records the span
+`step` (its call index is the step id of every span inside it), and the
+backend the spans `backend`, `backend.advance` (when the window is full),
+`backend.ingest` and `backend.optimize`.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from dynosam_tpu_torch.frontend.frontend import (
 from dynosam_tpu_torch.frontend.types import FrameInputs
 from dynosam_tpu_torch.ops.ransac import BatchRows
 from dynosam_tpu_torch.parallel.group import Group, gather_to_rank0
+from dynosam_tpu_torch.utils.stats import span
 
 
 @dataclass
@@ -101,16 +107,27 @@ def _backend_step(cfg: DynoConfig, pipelined: bool):
     advance_fn, update_fn, optimize_fn = _formulation(bcfg)
 
     def advance_if_full(g):
-        return advance_fn(g, bcfg) if g.num_frames >= bcfg.max_frames else g
+        if g.num_frames < bcfg.max_frames:
+            return g
+        with span("backend.advance"):
+            return advance_fn(g, bcfg)
+
+    def ingest(g, packet, intr):
+        with span("backend.ingest"):
+            return update_fn(g, packet, intr, bcfg)
+
+    def optimize(g):
+        with span("backend.optimize"):
+            return optimize_fn(g, bcfg)
 
     if pipelined:
         def backend(g, packet, intr):
-            g = advance_if_full(optimize_fn(g, bcfg))
-            return update_fn(g, packet, intr, bcfg)
+            with span("backend"):
+                return ingest(advance_if_full(optimize(g)), packet, intr)
     else:
         def backend(g, packet, intr):
-            g = update_fn(advance_if_full(g), packet, intr, bcfg)
-            return optimize_fn(g, bcfg)
+            with span("backend"):
+                return optimize(ingest(advance_if_full(g), packet, intr))
     return backend
 
 
@@ -289,8 +306,9 @@ def make_batched_pipeline(
                 f"batched step: states with frame_idx {tuple(fidx.shape)} and rgb "
                 f"{tuple(inputs.rgb.shape)} must share one leading batch axis"
             )
-        fe_state, packet = frontend_step(states.frontend, inputs, intr, cfg.frontend, generator)
-        g = backend(states.graph, packet, intr)
-        return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet, enum)
+        with span("step", new_step=True):
+            fe_state, packet = frontend_step(states.frontend, inputs, intr, cfg.frontend, generator)
+            g = backend(states.graph, packet, intr)
+            return PipelineState(frontend=fe_state, graph=g), _outputs(g, packet, enum)
 
     return step, init_fn

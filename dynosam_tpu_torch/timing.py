@@ -1,6 +1,7 @@
 """What the timing programs, multichip.py and chip_smoke.py share: the card's
 line, the kernel build, the kernels' launch counts, host-sync counting,
-device busy time from torch.profiler and bench.py's timing of a step.
+device busy time from torch.profiler (also put down to the spans of the
+program's trace, `utils/stats.py`) and bench.py's timing of a step.
 
 Every program times a step the one way `time_steps` does, so the programs'
 numbers stay comparable.
@@ -9,6 +10,7 @@ numbers stay comparable.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import subprocess
 import time
@@ -166,3 +168,99 @@ def percentiles_ms(times_s) -> dict:
     """{"p10", "p50", "p90"} of per-step seconds, in ms."""
     ms = np.asarray(times_s, dtype=np.float64) * 1e3
     return {f"p{q}": float(np.percentile(ms, q)) for q in (10, 50, 90)}
+
+
+def _innermost(spans):
+    """(times, ids) of nested spans (one thread's): from times[i] on, span
+    ids[i] is the innermost one open (-1: none)."""
+    times, ids, stack = [], [], []
+
+    def close_before(t):
+        while stack and stack[-1][1] < t:
+            end = stack.pop()[1]
+            times.append(end)
+            ids.append(stack[-1][3] if stack else -1)
+
+    for sp in sorted(spans, key=lambda sp: (sp[0], -sp[1])):
+        close_before(sp[0])
+        stack.append(sp)
+        times.append(sp[0])
+        ids.append(sp[3])
+    close_before(math.inf)
+    return np.array(times, dtype=np.int64), np.array(ids, dtype=np.int64)
+
+
+def device_by_span(events, anchor_ns: int, spans, other=()) -> dict:
+    """A profiled window's device time put down to the program's spans.
+
+    `events`: the profiler's raw events (`kineto_results.events()`) of a
+    window whose earliest device event is an anchor kernel launched at host
+    time `anchor_ns` (`time.perf_counter_ns`); `spans`: a Recorder's
+    (start ns, end ns, name, id, parent id, step id); `other`: further
+    host ranges (start ns, end ns, name) that only name the idle gaps.
+
+    Each other device event (kernel, copy, fill) is joined by its
+    correlation id to the runtime call that launched it, whose start is put
+    on the host clock by the anchor's own launch, and its duration goes to
+    the innermost span open then; an event with no runtime call, or
+    launched outside every span, is unattributed. The idle gaps are the
+    holes in the device events' union, each named by the innermost span of
+    either set open on the host at its middle.
+
+    -> {"busy_s", "self_s": {name: s}, "span_s": {name: s of the span and
+    every span inside it}, "unattributed_s", "unmatched": events without a
+    runtime call, "idle_gaps": [(name, s)] of the ten longest}."""
+    cuda = torch.autograd.DeviceType.CUDA
+    dev, launch = [], {}
+    for e in events:
+        if e.device_type() == cuda:
+            if not e.is_user_annotation():
+                dev.append((e.start_ns(), e.duration_ns(), e.correlation_id()))
+        elif e.correlation_id():
+            # the runtime call starts first; calls nested in it share its id
+            c, t = e.correlation_id(), e.start_ns()
+            launch[c] = min(t, launch.get(c, t))
+    dev.sort()
+    anchor, dev = dev[0], dev[1:]
+    offset = launch.get(anchor[2], anchor[0]) - anchor_ns
+    dur = np.array([d for _, d, _ in dev], dtype=np.int64)
+    host = np.array([launch.get(c, -1) for _, _, c in dev], dtype=np.int64)
+    matched = host >= 0
+    times, ids = _innermost(spans)
+    owner = np.full(len(dev), -1, dtype=np.int64)
+    if len(times):
+        at = np.searchsorted(times, host - offset, side="right") - 1
+        owner = np.where(matched & (at >= 0), ids[np.maximum(at, 0)], -1)
+    name = {sp[3]: sp[2] for sp in spans}
+    parent = {sp[3]: sp[4] for sp in spans}
+    self_ns, span_ns = {}, {}
+    sids, inv = np.unique(owner, return_inverse=True)
+    per_sid = np.bincount(inv, weights=dur, minlength=len(sids))
+    unattributed = 0.0
+    for sid, ns in zip(sids.tolist(), per_sid.tolist()):
+        if sid < 0:
+            unattributed = ns
+            continue
+        self_ns[name[sid]] = self_ns.get(name[sid], 0.0) + ns
+        seen, up = set(), sid
+        while up in name:
+            if name[up] not in seen:
+                seen.add(name[up])
+                span_ns[name[up]] = span_ns.get(name[up], 0.0) + ns
+            up = parent[up]
+
+    holes, end = [], None
+    for s, d, _ in dev:
+        if end is not None and s > end:
+            holes.append((end, s))
+        end = s + d if end is None else max(end, s + d)
+    ranges = [(sp[0], sp[1], sp[2]) for sp in spans] + list(other)
+    named = []
+    for a, b in sorted(holes, key=lambda g: g[0] - g[1])[:10]:
+        mid = (a + b) / 2 - offset
+        open_ = [r for r in ranges if r[0] <= mid <= r[1]]
+        label = min(open_, key=lambda r: r[1] - r[0])[2] if open_ else "outside every span"
+        named.append((label, (b - a) * 1e-9))
+    return {"busy_s": float(dur.sum()) * 1e-9, "self_s": {k: v * 1e-9 for k, v in self_ns.items()},
+            "span_s": {k: v * 1e-9 for k, v in span_ns.items()}, "unattributed_s": unattributed * 1e-9,
+            "unmatched": int((~matched).sum()), "idle_gaps": named}
